@@ -1,0 +1,509 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (`src/repro_torch`) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases (each prints its lines; the run exits 0 only if every phase passes):
+
+ 1. card: name and power limit (nvidia-smi), then the build of the CUDA
+    kernels from `src/repro_torch/csrc/` (one nvcc per source, in parallel).
+ 2. kernels vs their plain-torch versions on the card, at main-path shapes
+    from a real BP/16384 window (P = 4096, W = 128, pei_k = 206):
+    fused_epoch in its three call shapes and tom_scores must be equal
+    (torch.equal), dueling_qnet at B = 1 and B = 64 within 1e-4.  Times:
+    device time per launch from a CUDA graph of many launches (warmed),
+    for the kernel and for the plain version; the eager per-call time of
+    the wrapper too.
+ 3. deterministic cells on the card against the port's own CPU path:
+    SPMV/2048 pei/tom and KM/384 pei/aimm with forced action 5, seed 2.
+ 4. the main path at full size: `run_program(BP/16384, "bnmp", "aimm",
+    episodes=2)` (learned AIMM, the paper's Table-1 system) and
+    `run_episode(BP/16384, "pei", "tom")`, with the kernels' launch counts
+    set to 0 just before and read just after.
+ 5. profile: torch.profiler over one warm episode of each main-path
+    program (device busy share, launches per epoch, top kernels by time).
+ 6. a JSON line with every kernel's numbers, then the result line
+    {"ok": true, "device": {...}}.
+
+It imports nothing of JAX or of the JAX package.  Without a CUDA card it
+exits non-zero before printing any result.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+BP_OPS = 16384                 # paper-scale trace length
+W = 128
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# Inputs at main-path shapes
+# ---------------------------------------------------------------------------
+
+def epoch_inputs(device, app: str = "BP", n_ops: int = BP_OPS, seed: int = 0,
+                 epoch: int = 37):
+    """One epoch's fused-kernel inputs (B = 1) from a real trace window, with
+    seeded env state: access EMAs with exact ties, row-buffer stamps of
+    earlier epochs, a compute-remap table with every kind of entry, pending
+    migration loads."""
+    import numpy as np
+    import torch
+    from repro_torch.nmp.config import NMPConfig
+    from repro_torch.nmp.engine import pei_hot_index, pei_top_k
+    from repro_torch.nmp.topology import topology_tensors
+    from repro_torch.nmp.traces import make_trace
+    cfg = NMPConfig()
+    rng = np.random.default_rng(seed)
+    tr = make_trace(app, n_ops=n_ops)
+    P, C = tr.n_pages, cfg.n_cubes
+    topo = topology_tensors(cfg, device)
+    sl = slice(epoch * W, epoch * W + W)
+    ema = (rng.choice(np.array([0.0, 0.9, 1.0, 1.81, 2.71], np.float32), P)
+           + (rng.random(P) < 0.2) * rng.random(P)).astype(np.float32)
+    on = lambda a: torch.from_numpy(np.array(a, copy=True))[None].to(device)
+    x = dict(
+        dest=on(tr.dest[sl]), src1=on(tr.src1[sl]), src2=on(tr.src2[sl]),
+        valid=on(np.ones(W, np.float32)),
+        epochs=on(np.float32(epoch)),
+        rb_stamp=on(rng.integers(0, (epoch + 1) * 3 * W, P + 1
+                                 ).astype(np.int32)),
+        page_ema=on(ema), n_pages=on(np.int32(P)),
+        pei_idx=on(np.int32(pei_hot_index(P, cfg))),
+        eff_table=on(rng.integers(0, C, P).astype(np.int32)),
+        compute_remap=on(np.where(rng.random(P) < 0.7, -1,
+                                  rng.integers(0, C + 1, P)).astype(np.int32)),
+        is_aimm=on(np.bool_(True)),
+        pending=on(np.where(rng.random(topo.n_links) < 0.3, 256.0, 0.0
+                            ).astype(np.float32)))
+    return x, topo, pei_top_k(P, cfg), tr
+
+
+def _tensors(obj):
+    import torch
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, (tuple, list)):
+        return [t for o in obj for t in _tensors(o)]
+    if isinstance(obj, dict):
+        return [t for o in obj.values() for t in _tensors(o)]
+    return []
+
+
+def max_abs_err(got, want) -> float:
+    errs = [(a.double() - b.double()).abs().max().item()
+            for a, b in zip(_tensors(got), _tensors(want)) if a.numel()]
+    return max(errs) if errs else 0.0
+
+
+def all_equal(got, want) -> bool:
+    import torch
+    g, w = _tensors(got), _tensors(want)
+    return len(g) == len(w) and all(torch.equal(a, b) for a, b in zip(g, w))
+
+
+def graph_ms(fn, reps: int = 100) -> float:
+    """Device time per call: `reps` calls captured in one CUDA graph, replayed
+    (warmed) and timed with CUDA events.  Host overhead drops out."""
+    import torch
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(s)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    best = float("inf")
+    for _ in range(5):
+        t0.record()
+        g.replay()
+        t1.record()
+        torch.cuda.synchronize()
+        best = min(best, t0.elapsed_time(t1) / reps)
+    return best
+
+
+def eager_ms(fn, reps: int = 200) -> float:
+    """Per-call time of eager calls (host launch overhead included)."""
+    import torch
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
+    """Least time the card could take: max(bytes / HBM rate, ops / f32 rate)."""
+    tb, to = bytes_moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return (max(tb, to) * 1e3, "bytes" if tb >= to else "operations")
+
+
+# ---------------------------------------------------------------------------
+# Phases
+# ---------------------------------------------------------------------------
+
+def phase_kernels(dev) -> list[dict]:
+    import torch
+    from repro_torch.core import dqn
+    from repro_torch.kernels.dueling_qnet import ops as qops
+    from repro_torch.kernels.dueling_qnet.ref import dueling_qnet_ref
+    from repro_torch.kernels.epoch_fused import ops as eops
+    from repro_torch.kernels.epoch_fused import ref as eref
+    from repro_torch.nmp.baselines import tom_candidates
+    from repro_torch.nmp.config import NMPConfig
+    from repro_torch.nmp.engine import default_agent_cfg
+    cfg = NMPConfig()
+    x, topo, pei_k, tr = epoch_inputs(dev)
+    P, C, L, M = tr.n_pages, cfg.n_cubes, topo.n_links, cfg.n_mcs
+    log(f"[kernels] inputs: BP/{BP_OPS} window, P={P} W={W} C={C} L={L} "
+        f"pei_k={pei_k}")
+    win = [x[k] for k in ("dest", "src1", "src2", "valid")]
+    rt = dict(n_mcs=M, packet_flits=cfg.packet_flits)
+    results = []
+
+    def fused_kernel(pei, aimm, tech):
+        return eops.fused_parts(
+            *win, x["epochs"], x["rb_stamp"], x["page_ema"], x["n_pages"],
+            x["pei_idx"], x["eff_table"], x["compute_remap"], tech,
+            x["is_aimm"], x["pending"], topo, pei_k=pei_k if pei else 0,
+            aimm=aimm, **rt)
+
+    def fused_plain(pei, aimm, tech):
+        sp = eref.shared_stage(*win, x["epochs"], x["rb_stamp"],
+                               x["page_ema"] if pei else None, x["n_pages"],
+                               x["pei_idx"], pei_k=pei_k if pei else 0,
+                               aimm=aimm)
+        rp = eref.route_stage(*win, sp.rb_winner, sp.pei_hot1, sp.pei_hot2,
+                              x["eff_table"], x["compute_remap"], tech,
+                              x["is_aimm"], x["pending"], topo.routes_flat,
+                              topo.hops_flat, topo.nearest_mc, pei=pei,
+                              aimm=aimm, **rt)
+        return sp, rp
+
+    def nb(*ts):
+        return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+    # the distinct window pages: what a gather from a P-table must read
+    pages = torch.unique(torch.cat([x["dest"], x["src1"], x["src2"]], 1))
+    n_pages_touched = int(pages.numel())
+
+    # ---- fused_epoch: all three call shapes, at both main-path flag sets --
+    fused_rec = None
+    for label, pei, aimm, tech_id in (("bnmp+aimm", False, True, 0),
+                                      ("pei", True, False, 2)):
+        tech = torch.tensor([tech_id], dtype=torch.int32, device=dev)
+        got, want = fused_kernel(pei, aimm, tech), fused_plain(pei, aimm,
+                                                               tech)
+        if not all_equal(got, want):
+            raise AssertionError(f"fused_epoch ({label}, fused shape) differs"
+                                 f" from its plain version")
+        k = pei_k if pei else 0
+        sp = eops.shared_parts(*win, x["epochs"], x["rb_stamp"],
+                               x["page_ema"], x["n_pages"], x["pei_idx"],
+                               pei_k=k, aimm=aimm)
+        if not all_equal(sp, want[0]):
+            raise AssertionError(f"fused_epoch ({label}, shared shape) "
+                                 f"differs from its plain version")
+        rp = eops.route_parts(*win, want[0].rb_winner, want[0].pei_hot1,
+                              want[0].pei_hot2, x["eff_table"],
+                              x["compute_remap"], tech, x["is_aimm"],
+                              x["pending"], topo, pei_k=k, aimm=aimm, **rt)
+        if not all_equal(rp, want[1]):
+            raise AssertionError(f"fused_epoch ({label}, route shape) "
+                                 f"differs from its plain version")
+        err = max_abs_err(got, want)
+        k_ms = graph_ms(lambda: fused_kernel(pei, aimm, tech))
+        p_ms = graph_ms(lambda: fused_plain(pei, aimm, tech))
+        call_ms = eager_ms(lambda: fused_kernel(pei, aimm, tech))
+        # bytes: the window, the P-sized tables read and written whole, the
+        # gathered tables' entries at the window's pages, route tables, outputs
+        moved = (nb(*win, x["epochs"], x["rb_stamp"], tech, x["is_aimm"],
+                    x["pending"], topo.routes_flat, topo.hops_flat,
+                    topo.nearest_mc)
+                 + 4 * n_pages_touched * (1 + int(aimm))
+                 + (nb(x["page_ema"], x["n_pages"], x["pei_idx"])
+                    if pei else 0)
+                 + nb(*_tensors(got)))
+        ops = 3 * W * (4 + 2 * int(aimm) + 2 * int(pei)) + W * (3 * L + 20) \
+            + (4 * P * 8 + P if pei else 0)
+        b_ms, b_by = bound(moved, ops)
+        log(f"[kernels] fused_epoch {label}: equal in all three call shapes;"
+            f" kernel {k_ms:.5f} ms/launch (graph), plain {p_ms:.5f} ms, "
+            f"eager wrapper call {call_ms:.5f} ms, bound {b_ms:.6f} ms "
+            f"({b_by}, {moved} B)")
+        if label == "bnmp+aimm":
+            fused_rec = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                             bound_ms=b_ms, bound_by=b_by)
+    results.append(dict(
+        name="fused_epoch", route="cuda",
+        source="src/repro_torch/csrc/epoch_fused.cu",
+        replaces="src/repro/kernels/epoch_fused/kernel.py:42",
+        **fused_rec, library_ms=None))
+
+    # ---- tom_scores ----
+    cands = tom_candidates(P, cfg, dev)
+    got = eops.tom_scores(*win, cands, C)
+    want = eref.tom_stage(*win, cands, C)
+    if not torch.equal(got, want):
+        raise AssertionError("tom_scores differs from its plain version")
+    k_ms = graph_ms(lambda: eops.tom_scores(*win, cands, C))
+    p_ms = graph_ms(lambda: eref.tom_stage(*win, cands, C))
+    call_ms = eager_ms(lambda: eops.tom_scores(*win, cands, C))
+    K = cands.shape[0]
+    moved = nb(*win) + 4 * K * n_pages_touched + nb(got)
+    b_ms, b_by = bound(moved, K * W * 12)
+    log(f"[kernels] tom_scores K={K}: equal; kernel {k_ms:.5f} ms/launch "
+        f"(graph), plain {p_ms:.5f} ms, eager wrapper call {call_ms:.5f} ms,"
+        f" bound {b_ms:.6f} ms ({b_by})")
+    results.append(dict(
+        name="tom_scores", route="cuda",
+        source="src/repro_torch/csrc/epoch_fused.cu",
+        replaces="src/repro/kernels/epoch_fused/kernel.py:158",
+        max_abs_err=max_abs_err(got, want), ms=k_ms, plain_ms=p_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+
+    # ---- dueling_qnet at B = 1 (act) and B = 64 (TD targets) ----
+    acfg = default_agent_cfg(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = dqn.init_params(gen, acfg.dqn, 1, dev)
+    for k in params:
+        if k.startswith("b"):
+            params[k] = 0.1 * torch.randn(params[k].shape, generator=gen,
+                                          device=dev)
+    keys = ("w0", "b0", "w1", "b1", "w_v", "b_v", "w_a", "b_a")
+    qrec = None
+    for n in (1, 64):
+        xs = torch.rand((1, n, acfg.dqn.state_dim), generator=gen,
+                        device=dev) * 2
+        got = qops.qnet_forward(params, xs)
+        want = dueling_qnet_ref(xs, *[params[k] for k in keys])
+        if not torch.allclose(got, want, rtol=1e-4, atol=1e-4):
+            raise AssertionError(f"dueling_qnet B={n} differs from its plain"
+                                 f" version beyond 1e-4: "
+                                 f"{max_abs_err(got, want)}")
+        err = max_abs_err(got, want)
+        k_ms = graph_ms(lambda: qops.qnet_forward(params, xs))
+        p_ms = graph_ms(lambda: dueling_qnet_ref(xs, *[params[k]
+                                                       for k in keys]))
+        call_ms = eager_ms(lambda: qops.qnet_forward(params, xs))
+        S, H1, H2, A = 106, 128, 128, 8
+        flops = 2 * n * (S * H1 + H1 * H2 + H2 * (A + 1)) + 4 * n * A
+        moved = nb(xs, got, *[params[k] for k in keys])
+        b_ms, b_by = bound(moved, flops)
+        log(f"[kernels] dueling_qnet B={n}: max abs err {err:.3g} (tol 1e-4);"
+            f" kernel {k_ms:.5f} ms/launch (graph), plain {p_ms:.5f} ms, "
+            f"eager wrapper call {call_ms:.5f} ms, bound {b_ms:.6f} ms "
+            f"({b_by})")
+        if n == 64:
+            qrec = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                        bound_ms=b_ms, bound_by=b_by)
+    results.append(dict(
+        name="dueling_qnet", route="cuda",
+        source="src/repro_torch/csrc/dueling_qnet.cu",
+        replaces="src/repro/kernels/dueling_qnet/kernel.py:43",
+        **qrec, library_ms=None))
+    return results
+
+
+def phase_cells(dev) -> None:
+    import torch
+    from repro_torch.nmp.config import NMPConfig
+    from repro_torch.nmp.engine import run_episode
+    from repro_torch.nmp.stats import summarize
+    from repro_torch.nmp.traces import make_trace
+    for app, n, tech, mapper, forced in (("SPMV", 2048, "pei", "tom", -1),
+                                         ("KM", 384, "pei", "aimm", 5)):
+        tr = make_trace(app, n_ops=n)
+        runs = {d: run_episode(tr, NMPConfig(), tech, mapper, seed=2,
+                               forced_action=forced, device=d)
+                for d in (dev, "cpu")}
+        card, cpu = summarize(runs[dev]), summarize(runs["cpu"])
+        assert card["ops"] == cpu["ops"] == n, (card["ops"], cpu["ops"])
+        for k in ("action", "invoke", "valid", "util"):
+            a = runs[dev].metrics[k].cpu()
+            if not torch.equal(a, runs["cpu"].metrics[k]):
+                raise AssertionError(f"{app}/{n} {tech}/{mapper}: per-epoch "
+                                     f"{k} differs between card and CPU")
+        for k in ("cycles", "opc"):
+            a = runs[dev].metrics[k].cpu().double()
+            b = runs["cpu"].metrics[k].double()
+            if not torch.allclose(a, b, rtol=1e-5, atol=0):
+                raise AssertionError(f"{app}/{n} {tech}/{mapper}: {k} off by "
+                                     f"more than rtol 1e-5")
+        same = card["cycles"] == cpu["cycles"]
+        log(f"[cells] {app}/{n} {tech}/{mapper}/{forced} seed 2: ops "
+            f"{card['ops']:.0f}, per-epoch action/invoke/valid/util equal, "
+            f"cycles card {card['cycles']!r} cpu {cpu['cycles']!r} "
+            f"({'==' if same else 'within rtol 1e-5'})")
+
+
+def phase_main_path(dev) -> dict[str, int]:
+    import math
+    import torch
+    from repro_torch.kernels.dueling_qnet import ops as qops
+    from repro_torch.kernels.epoch_fused import ops as eops
+    from repro_torch.nmp.config import NMPConfig
+    from repro_torch.nmp.engine import run_episode, run_program
+    from repro_torch.nmp.stats import summarize
+    from repro_torch.nmp.traces import make_trace
+    cfg = NMPConfig()
+    tr = make_trace("BP", n_ops=BP_OPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eops.reset_launches()
+    qops.reset_launches()
+    t0 = time.perf_counter()
+    results = run_program(tr, cfg, "bnmp", "aimm", episodes=2, seed=0,
+                          device=dev)
+    torch.cuda.synchronize()
+    t_prog = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tom = run_episode(tr, cfg, "pei", "tom", seed=0, device=dev)
+    torch.cuda.synchronize()
+    t_tom = time.perf_counter() - t0
+    launches = {**eops.launches, **qops.launches}
+    peak = torch.cuda.max_memory_allocated()
+
+    epochs = 0
+    for i, res in enumerate(results + [tom]):
+        s = summarize(res)
+        n_ep = int(res.metrics["valid"].shape[0])
+        epochs += n_ep
+        assert s["ops"] == BP_OPS, s["ops"]
+        assert math.isfinite(s["cycles"]) and s["cycles"] > 0, s["cycles"]
+        label = (f"run_program bnmp/aimm episode {i}" if i < len(results)
+                 else "run_episode pei/tom")
+        log(f"[main] {label}: {n_ep} epochs, ops {s['ops']:.0f}, cycles "
+            f"{s['cycles']!r}, OPC {s['opc']!r}, migrations "
+            f"{s['migrations']:.0f}")
+    agent = results[-1].agent
+    log(f"[main] agent after 2 episodes: train_steps "
+        f"{int(agent.train_steps[0])}, replay size "
+        f"{int(agent.replay.size[0])}")
+    log(f"[main] run_program 2 episodes: {t_prog:.3f} s "
+        f"({t_prog / 2:.3f} s/episode, {2 * 128 / t_prog:.1f} epochs/s); "
+        f"run_episode pei/tom: {t_tom:.3f} s ({128 / t_tom:.1f} epochs/s); "
+        f"peak device memory {peak / 2**20:.1f} MiB")
+    log(f"[main] launches: {json.dumps(launches)}")
+    assert launches["fused_epoch"] == epochs, (launches, epochs)
+    assert launches["dueling_qnet"] > 0 and launches["tom_scores"] > 0, \
+        launches
+    return launches
+
+
+def phase_profile(dev) -> None:
+    """torch.profiler over one warm BP/16384 episode of each main-path
+    program (after the main path was timed, so the profiler's host cost
+    does not touch those times); device busy share = summed kernel time /
+    wall time.  Fails if the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.nmp.config import NMPConfig
+    from repro_torch.nmp.engine import run_episode
+    from repro_torch.nmp.traces import make_trace
+    tr = make_trace("BP", n_ops=BP_OPS)
+    for tech, mapper in (("bnmp", "aimm"), ("pei", "tom")):
+        warm = run_episode(tr, NMPConfig(), tech, mapper, seed=0, device=dev)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run_episode(tr, NMPConfig(), tech, mapper, agent=warm.agent,
+                        seed=1, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = []
+        for e in prof.key_averages():
+            us = (getattr(e, "self_device_time_total", 0)
+                  or getattr(e, "self_cuda_time_total", 0))
+            if us > 0 and e.device_type.name == "CUDA":
+                rows.append((us, e.count, e.key))
+        dev_us = sum(r[0] for r in rows)
+        n_kern = sum(r[1] for r in rows)
+        assert dev_us > 0, "torch.profiler recorded no device time"
+        log(f"[profile] BP/{BP_OPS} {tech}/{mapper}, 128 epochs: wall "
+            f"{wall * 1e3:.1f} ms (profiler on), device kernels "
+            f"{dev_us / 1e3:.2f} ms in {n_kern} launches, busy share "
+            f"{dev_us / 1e6 / wall:.4f}, {n_kern / 128:.1f} launches/epoch")
+        for us, cnt, key in sorted(rows, reverse=True)[:8]:
+            log(f"[profile]   {us / 1e3:8.3f} ms {cnt:6d}x  {key[:90]}")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke "
+              "run needs a CUDA card", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import build
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    log(f"[card] {card}")
+    log(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+
+    t0 = time.perf_counter()
+    secs = build.build()
+    log(f"[build] {time.perf_counter() - t0:.2f} s wall for "
+        f"{sorted(secs) or 'nothing (cached)'} "
+        f"({', '.join(f'{k} {v:.2f} s' for k, v in secs.items())})")
+    for name in build.SOURCES:
+        logf = build.library_path(name).with_suffix(".so.log")
+        for line in logf.read_text().splitlines() if logf.exists() else []:
+            if "Used" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+
+    kernels = phase_kernels(dev)
+    phase_cells(dev)
+    launches = phase_main_path(dev)
+    phase_profile(dev)
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    log(f"[card] {card}")
+    print(json.dumps({"kernels": [{f: k[f] for f in order}
+                                  for k in kernels]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -92,6 +92,7 @@ def pytest_configure(config):
         "markers",
         "slow: multi-episode AIMM / large-trace tests (deselect with "
         "-m 'not slow')")
+    config.addinivalue_line("markers", "gpu: needs a CUDA card (skipped with a reason where there is none)")
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,133 @@
+"""The port's CUDA kernels against their plain-torch versions, on the card.
+
+Run on a machine with a CUDA card:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+Every test here needs the card: the `cuda` fixture skips it, with a reason,
+where there is none (decided when the test runs, never at import, so every
+pytest-xdist worker collects the same tests).  Bars: the epoch kernels are
+equal to their plain versions (`torch.equal`, the exact contract of the
+epoch core); the dueling-qnet kernel is within rtol/atol 1e-4.
+"""
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import epoch_inputs
+
+pytestmark = pytest.mark.gpu
+
+QKEYS = ("w0", "b0", "w1", "b1", "w_v", "b_v", "w_a", "b_a")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there (no "
+                    "interpret mode for CUDA C++)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _equal(got, want):
+    for a, b in zip(got, want):
+        if a is None or b is None:
+            assert a is None and b is None
+        else:
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("pei,aimm", [(False, False), (True, False),
+                                      (False, True), (True, True)])
+@pytest.mark.parametrize("app,epoch", [("BP", 37), ("KM", 5)])
+def test_fused_epoch_three_call_shapes_equal_plain(cuda, app, epoch, pei,
+                                                   aimm):
+    from repro_torch.kernels.epoch_fused import ops, ref
+    from repro_torch.nmp.config import NMPConfig
+    cfg = NMPConfig()
+    x, topo, pei_k, _ = epoch_inputs(cuda, app, 16384 if app == "BP" else
+                                     2048, seed=epoch, epoch=epoch)
+    win = [x[k] for k in ("dest", "src1", "src2", "valid")]
+    k = pei_k if pei else 0
+    tech = torch.tensor([2 if pei else 0], dtype=torch.int32, device=cuda)
+    rt = dict(n_mcs=cfg.n_mcs, packet_flits=cfg.packet_flits)
+    sp = ref.shared_stage(*win, x["epochs"], x["rb_stamp"],
+                          x["page_ema"] if pei else None, x["n_pages"],
+                          x["pei_idx"], pei_k=k, aimm=aimm)
+    rp = ref.route_stage(*win, sp.rb_winner, sp.pei_hot1, sp.pei_hot2,
+                         x["eff_table"], x["compute_remap"], tech,
+                         x["is_aimm"], x["pending"], topo.routes_flat,
+                         topo.hops_flat, topo.nearest_mc, pei=pei, aimm=aimm,
+                         **rt)
+    before = ops.launches["fused_epoch"]
+    _equal(ops.shared_parts(*win, x["epochs"], x["rb_stamp"], x["page_ema"],
+                            x["n_pages"], x["pei_idx"], pei_k=k, aimm=aimm),
+           sp)
+    _equal(ops.route_parts(*win, sp.rb_winner, sp.pei_hot1, sp.pei_hot2,
+                           x["eff_table"], x["compute_remap"], tech,
+                           x["is_aimm"], x["pending"], topo, pei_k=k,
+                           aimm=aimm, **rt), rp)
+    fsp, frp = ops.fused_parts(*win, x["epochs"], x["rb_stamp"],
+                               x["page_ema"], x["n_pages"], x["pei_idx"],
+                               x["eff_table"], x["compute_remap"], tech,
+                               x["is_aimm"], x["pending"], topo, pei_k=k,
+                               aimm=aimm, **rt)
+    torch.cuda.synchronize()
+    _equal(fsp, sp)
+    _equal(frp, rp)
+    assert ops.launches["fused_epoch"] == before + 3
+
+
+@pytest.mark.parametrize("n_valid", [128, 41])
+def test_tom_scores_equal_plain(cuda, n_valid):
+    from repro_torch.kernels.epoch_fused import ops, ref
+    from repro_torch.nmp.baselines import tom_candidates
+    from repro_torch.nmp.config import NMPConfig
+    x, _, _, tr = epoch_inputs(cuda, "SPMV", 2048, seed=n_valid, epoch=3)
+    valid = (torch.arange(128, device=cuda) < n_valid).float()[None]
+    cands = tom_candidates(tr.n_pages, NMPConfig(), cuda)
+    win = [x["dest"], x["src1"], x["src2"], valid]
+    got = ops.tom_scores(*win, cands, 16)
+    assert torch.equal(got, ref.tom_stage(*win, cands, 16))
+
+
+@pytest.mark.parametrize("n,agents", [(1, 1), (64, 1), (200, 1), (64, 3)])
+def test_dueling_qnet_within_tolerance(cuda, n, agents):
+    from repro_torch.core import dqn
+    from repro_torch.kernels.dueling_qnet import ops
+    from repro_torch.kernels.dueling_qnet.ref import dueling_qnet_ref
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    params = dqn.init_params(gen, dqn.DQNConfig(state_dim=106), agents, cuda)
+    xs = torch.rand((agents, n, 106), generator=gen, device=cuda) * 2
+    got = ops.qnet_forward(params, xs)
+    want = dueling_qnet_ref(xs, *[params[k] for k in QKEYS])
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_deterministic_cell_on_card_matches_cpu(cuda):
+    from repro_torch.nmp.config import NMPConfig
+    from repro_torch.nmp.engine import run_episode
+    from repro_torch.nmp.traces import make_trace
+    tr = make_trace("SPMV", n_ops=2048)
+    a = run_episode(tr, NMPConfig(), "pei", "tom", seed=2, device=cuda)
+    b = run_episode(tr, NMPConfig(), "pei", "tom", seed=2, device="cpu")
+    for k in ("action", "invoke", "valid", "util", "mean_hops"):
+        assert torch.equal(a.metrics[k].cpu(), b.metrics[k]), k
+    np.testing.assert_allclose(a.metrics["cycles"].cpu().numpy(),
+                               b.metrics["cycles"].numpy(), rtol=1e-5)
+
+
+def test_learned_aimm_episode_launches_every_kernel(cuda):
+    from repro_torch.kernels.dueling_qnet import ops as qops
+    from repro_torch.kernels.epoch_fused import ops as eops
+    from repro_torch.nmp.config import NMPConfig
+    from repro_torch.nmp.engine import run_episode
+    from repro_torch.nmp.traces import make_trace
+    eops.reset_launches()
+    qops.reset_launches()
+    res = run_episode(make_trace("KM", n_ops=1024), NMPConfig(), "bnmp",
+                      "aimm", seed=1, device=cuda)
+    assert float(res.env.ops_done) == 1024
+    assert eops.launches["fused_epoch"] == 8
+    assert qops.launches["dueling_qnet"] == 3 * 8

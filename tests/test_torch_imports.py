@@ -1,0 +1,89 @@
+"""Import hygiene and device policy of the PyTorch port (`repro_torch`).
+
+The port imports torch and numpy only: never jax and nothing of the JAX
+package `repro` (its tests are the only place both meet).  Its entry points
+run on CUDA unless the caller passes device="cpu", and asking for CUDA where
+there is none raises instead of dropping to the CPU.  Kernel wrappers pick
+kernel or plain version from the tensors' device alone: no try/except
+fallback and no environment knob.
+"""
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+OPS_FILES = sorted(PORT.rglob("ops.py"))
+
+
+def _imported_modules(path: Path) -> list[str]:
+    mods = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            mods += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods.append(node.module or "")
+    return mods
+
+
+def test_port_has_files_to_scan():
+    names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    for want in ("nmp/engine.py", "nmp/stats.py", "core/agent.py",
+                 "core/dqn.py", "kernels/epoch_fused/ops.py",
+                 "kernels/dueling_qnet/ops.py"):
+        assert want in names
+    assert (ROOT / "chip_smoke.py").exists()
+    assert {p.name for p in (PORT / "csrc").glob("*.cu")} == {
+        "epoch_fused.cu", "dueling_qnet.cu"}
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_port_imports_neither_jax_nor_reference(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+
+
+@pytest.mark.parametrize("path", OPS_FILES,
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_kernel_wrappers_have_no_fallback(path):
+    tree = ast.parse(path.read_text())
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), path
+    assert "environ" not in path.read_text(), path
+
+
+def test_entry_points_default_to_cuda():
+    from repro_torch.core.agent import cold_start
+    from repro_torch.nmp.engine import default_agent_cfg, run_episode
+    from repro_torch.nmp.config import NMPConfig
+    from repro_torch.nmp.traces import make_trace
+    tr = make_trace("KM", n_ops=128)
+    if torch.cuda.is_available():
+        res = run_episode(tr)
+        assert res.env.cycles.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            run_episode(tr)
+        with pytest.raises(RuntimeError, match="cuda"):
+            cold_start(0, default_agent_cfg(NMPConfig()))
+
+
+def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
+    from repro_torch.kernels.dueling_qnet import ops as qops
+    from repro_torch.kernels.epoch_fused import ops as eops
+    from repro_torch.nmp.config import NMPConfig
+    from repro_torch.nmp.engine import run_episode
+    from repro_torch.nmp.traces import make_trace
+    qops.reset_launches()
+    eops.reset_launches()
+    res = run_episode(make_trace("KM", n_ops=256), NMPConfig(), "pei", "tom",
+                      device="cpu")
+    assert res.env.cycles.device.type == "cpu"
+    assert np.isfinite(float(res.env.cycles))
+    assert eops.launches == {"fused_epoch": 0, "tom_scores": 0}
+    assert qops.launches == {"dueling_qnet": 0}
