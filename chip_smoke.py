@@ -22,7 +22,25 @@ Phases (each prints its lines; the run exits 0 only if every phase passes):
     set to 0 just before and read just after.
  5. profile: torch.profiler over one warm episode of each main-path
     program (device busy share, launches per epoch, top kernels by time).
- 6. a JSON line with every kernel's numbers, then the result line
+ 6. model-zoo kernels vs their plain-torch versions on the card, at the
+    main-path shapes (B 1, S 4096): flash attention at minitron-8b's
+    (H 32, K 8, hd 128) in bf16 and f32 within the bars of
+    `flash_attention/ref.py` BARS (elementwise, relative L2 overall and per
+    row), the SSD scan at mamba2-370m's (H 32, P 64, N 128, chunk 256)
+    within 1e-4, once with fast decay and once with the state carried
+    across chunks; graph-timed, with SDPA timed beside flash as the library
+    yardstick.
+ 7. card vs CPU: both archs at full width and depth 2, B 1, S 256, final
+    hidden state, the card (kernels) against the port's CPU path.
+ 8. the model zoo's main path at full width and depth, random weights from
+    a seed: prefill forward (`apply` + `logits`, B 1, S 4096) of
+    minitron-8b and mamba2-370m, 32 flash and 48 SSD launches per forward,
+    then the serving loop of `launch/serve.py` for each (4 requests,
+    batch 4), with the zoo kernels' counts set to 0 just before and read
+    just after.
+ 9. profile: torch.profiler over one warm prefill forward and one serving
+    loop of each arch (busy share, top kernels by device time).
+10. a JSON line with every kernel's numbers, then the result line
     {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA card it
@@ -41,6 +59,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 BP_OPS = 16384                 # paper-scale trace length
 W = 128
 
@@ -164,9 +183,11 @@ def eager_ms(fn, reps: int = 200) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
-    """Least time the card could take: max(bytes / HBM rate, ops / f32 rate)."""
-    tb, to = bytes_moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+def bound(bytes_moved: float, ops: float,
+          ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
+    """Least time the card could take: max(bytes / HBM rate, ops / the peak
+    rate of their type, float32 unless given)."""
+    tb, to = bytes_moved / HBM_BYTES_PER_S, ops / ops_per_s
     return (max(tb, to) * 1e3, "bytes" if tb >= to else "operations")
 
 
@@ -338,6 +359,307 @@ def phase_kernels(dev) -> list[dict]:
     return results
 
 
+# The model zoo's prefill shape: the repo's prefill_32k (S 32768, batch 32)
+# cut to S 4096 and batch 1 for the time limit.  S 4096 is above the
+# reference's DENSE_MAX_S (its chunked attention) and 16 SSD chunks of 256.
+ZOO_SEQ = 4096
+ZOO_BATCH = 1
+
+
+def flash_inputs(dev, dtype, seed: int = 0):
+    """q, k, v at minitron-8b's attention shape: (1, 4096, 32 | 8, 128)."""
+    import torch
+    from repro_torch.configs import get_config
+    a = get_config("minitron-8b").attn
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return [torch.randn((ZOO_BATCH, ZOO_SEQ, n, a.head_dim), generator=gen,
+                        device=dev).to(dtype)
+            for n in (a.n_heads, a.n_kv, a.n_kv)]
+
+
+def ssd_inputs(dev, carry: bool, seed: int = 0):
+    """x, b, c, dt, a at mamba2-370m's SSD shape, x and B/C scaled as the
+    model's own (after a SiLU'd conv).  `carry` False: dt = softplus(randn
+    - 2) ~ 0.13 and a = -(1..H), so each chunk's decay exp(seg_end) is below
+    e^-33 and the state hardly crosses a chunk.  `carry` True: dt = 0.01
+    softplus(randn) and a = -uniform(0.05, 1), a chunk's decay 0.17-0.99,
+    so every chunk's output leans on the state carried in from the ones
+    before (Mamba2's dt range is 1e-3 to 1e-1)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.mamba import dims
+    cfg = get_config("mamba2-370m")
+    _, H = dims(cfg.d_model, cfg.ssm)
+    P, N = cfg.ssm.head_dim, cfg.ssm.d_state
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+    x = torch.nn.functional.silu(rnd(ZOO_BATCH, ZOO_SEQ, H, P))
+    b = torch.nn.functional.silu(rnd(ZOO_BATCH, ZOO_SEQ, N))
+    c = torch.nn.functional.silu(rnd(ZOO_BATCH, ZOO_SEQ, N))
+    if carry:
+        dt = 0.01 * torch.nn.functional.softplus(rnd(ZOO_BATCH, ZOO_SEQ, H))
+        a = -(0.05 + 0.95 * torch.rand(H, generator=gen, device=dev))
+    else:
+        dt = torch.nn.functional.softplus(rnd(ZOO_BATCH, ZOO_SEQ, H) - 2.0)
+        a = -torch.arange(1, H + 1, device=dev, dtype=torch.float32)
+    return x, b, c, dt, a
+
+
+def phase_zoo_kernels(dev) -> list[dict]:
+    """Flash attention (minitron-8b shape, bf16 and f32) and the SSD scan
+    (mamba2-370m shape, f32) against their plain versions on the card."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import BARS as flash_bars
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.flash_attention.ref import compare as \
+        flash_compare
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+    results = []
+
+    def nb(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    # ---- flash attention ----
+    a = get_config("minitron-8b").attn
+    H, K, hd, S = a.n_heads, a.n_kv, a.head_dim, ZOO_SEQ
+    rep = H // K
+
+    def plain(q, k, v):
+        kk, vv = (t.repeat_interleave(rep, dim=2) for t in (k, v))
+        return attention_ref(q.transpose(1, 2), kk.transpose(1, 2),
+                             vv.transpose(1, 2)).transpose(1, 2)
+
+    frec = None
+    for dtype, rate in ((torch.bfloat16, BF16_OPS_PER_S),
+                        (torch.float32, F32_OPS_PER_S)):
+        q, k, v = flash_inputs(dev, dtype)
+        got = fops.gqa_flash_attention(q, k, v, causal=True)
+        want = plain(q, k, v)
+        torch.cuda.synchronize()
+        cmp, bar = flash_compare(got, want), flash_bars[dtype]
+        err = cmp["max_abs_err"]
+        if not cmp["ok"]:
+            raise AssertionError(f"flash_attention {dtype} differs from its "
+                                 f"plain version beyond {bar}: {cmp}")
+        k_ms = graph_ms(lambda: fops.gqa_flash_attention(q, k, v,
+                                                         causal=True), 20)
+        p_ms = graph_ms(lambda: plain(q, k, v), 5)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+        pairs = ZOO_BATCH * H * S * (S + 1) // 2      # causal (q, k) pairs
+        flops = 4 * hd * pairs
+        b_ms, b_by = bound(nb(q, k, v, got), flops, rate)
+        log(f"[zoo-kernels] flash_attention {str(dtype)[6:]} B={ZOO_BATCH} "
+            f"S={S} H={H} K={K} hd={hd}: max abs err {err:.3g}, relative L2 "
+            f"{cmp['rel_l2']:.3g}, worst row {cmp['row_rel_l2']:.3g} (bars "
+            f"{json.dumps(bar)});"
+            f" kernel {k_ms:.4f} ms/launch (graph), plain {p_ms:.4f} ms, "
+            f"SDPA {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+            f"{flops:.3g} FLOP)")
+        if dtype == torch.bfloat16:
+            frec = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        del q, k, v, got, want
+    results.append(dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:80", **frec))
+
+    # ---- SSD scan ----
+    cfg = get_config("mamba2-370m")
+    Q = cfg.ssm.chunk
+    err = 0.0
+    for carry in (False, True):
+        x, b, c, dt, av = ssd_inputs(dev, carry)
+        got = sops.ssd(x, b, c, dt, av, chunk=Q)
+        want = ssd_chunked(x, b, c, dt, av, chunk=Q)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        if not torch.allclose(got, want, rtol=1e-4, atol=1e-4):
+            raise AssertionError(f"ssd_scan (carry {carry}) differs from its"
+                                 f" plain version beyond 1e-4: {e}")
+        Bz, L, Hs, P = x.shape
+        seg_end = (dt[:, :Q] * av).sum(1)                   # chunk 0, (B, H)
+        log(f"[zoo-kernels] ssd_scan carry={carry}: chunk decay "
+            f"exp(seg_end) {float(seg_end.exp().min()):.3g}-"
+            f"{float(seg_end.exp().max()):.3g}, max |y| "
+            f"{float(want.abs().max()):.3g}, max abs err {e:.3g} (tol 1e-4)")
+        err = max(err, e)
+    k_ms = graph_ms(lambda: sops.ssd(x, b, c, dt, av, chunk=Q), 10)
+    p_ms = graph_ms(lambda: ssd_chunked(x, b, c, dt, av, chunk=Q), 5)
+    N = b.shape[-1]
+    nc = L // Q
+    # per chunk: the causal half of C.B^T once (shared by the heads); per
+    # head the causal intra product (C.B^T-weights) X, the inter term C.R
+    # for every chunk but the first (R_0 = 0) and the state update B^T (w x)
+    # for every chunk but the last (nothing reads its result)
+    flops = Bz * (nc * Q * (Q + 1) * N
+                  + Hs * (nc * P * Q * (Q + 1) + (nc - 1) * 4 * Q * N * P))
+    b_ms, b_by = bound(nb(x, b, c, dt, av, got), flops)
+    log(f"[zoo-kernels] ssd_scan B={Bz} L={L} H={Hs} P={P} N={N} chunk={Q}:"
+        f" max abs err {err:.3g} (tol 1e-4, both cases); kernel {k_ms:.4f} "
+        f"ms/launch (graph), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}, {flops:.4g} FLOP)")
+    results.append(dict(
+        name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan/kernel.py:74", max_abs_err=err,
+        ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None))
+    return results
+
+
+ZOO_ARCHS = ("minitron-8b", "mamba2-370m")
+
+
+def zoo_launches() -> dict[str, int]:
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd_scan import ops as sops
+    return {**fops.launches, **sops.launches}
+
+
+def reset_zoo_launches() -> None:
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd_scan import ops as sops
+    fops.reset_launches()
+    sops.reset_launches()
+
+
+def zoo_tokens(dev, cfg, seq: int, seed: int = 0):
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return torch.randint(1, cfg.vocab, (ZOO_BATCH, seq), generator=gen,
+                         device=dev)
+
+
+def phase_zoo_model(dev) -> dict[str, int]:
+    """The model zoo's main path at full width and depth, random weights from
+    a seed: the prefill forward (`apply` then `logits`, B 1, S 4096) twice
+    per arch, then the serving loop of `launch/serve.py` (4 requests,
+    batch 4, max-seq 128, max-new 16) on the same weights.  The kernels'
+    counts are zeroed just before and read just after; each forward must
+    launch flash once per attention layer and the SSD scan once per Mamba
+    layer."""
+    import torch
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import build_model
+    from repro_torch.models.model import count_params
+    full = SHAPES["prefill_32k"]
+    log(f"[zoo] prefill shape: {full.name} (S {full.seq}, batch "
+        f"{full.global_batch}) cut to S {ZOO_SEQ}, batch {ZOO_BATCH}")
+    reset_zoo_launches()
+    for arch in ZOO_ARCHS:
+        cfg = get_config(arch)
+        per_fwd = {"flash_attention": cfg.n_layers * sum(
+                       mx == "A" for mx, _ in cfg.pattern) // len(cfg.pattern),
+                   "ssd_scan": cfg.n_layers * sum(
+                       mx == "M" for mx, _ in cfg.pattern) // len(cfg.pattern)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(cfg, dev)
+        t0 = time.perf_counter()
+        params = model.init(0)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        toks = zoo_tokens(dev, cfg, ZOO_SEQ)
+        walls = []
+        with torch.inference_mode():
+            for _ in range(2):
+                before = zoo_launches()
+                t0 = time.perf_counter()
+                hidden, _ = model.apply(params, {"tokens": toks})
+                logits = model.logits(params, hidden)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                got = {k: v - before[k] for k, v in zoo_launches().items()}
+                if got != per_fwd:
+                    raise AssertionError(f"{arch} prefill launched {got}, "
+                                         f"expected {per_fwd}")
+            shape = (ZOO_BATCH, ZOO_SEQ, cfg.padded_vocab)
+            if tuple(logits.shape) != shape or not bool(
+                    torch.isfinite(logits).all()):
+                raise AssertionError(f"{arch} logits {tuple(logits.shape)} "
+                                     f"(want {shape}) or not finite")
+            peak = torch.cuda.max_memory_allocated()
+            lg_std = float(logits.float().std())
+            del logits, hidden
+            torch.cuda.reset_peak_memory_stats()
+            reqs, steps, t_serve = serve(arch, params=params, device=dev)
+            serve_peak = torch.cuda.max_memory_allocated()
+        if not all(r.done and len(r.generated) == 16 for r in reqs):
+            raise AssertionError(f"{arch} serve: not every request completed")
+        n = count_params(cfg)
+        log(f"[zoo] {arch}: {n / 1e9:.3f} B params ({cfg.n_layers} layers, "
+            f"d_model {cfg.d_model}), init {t_init:.2f} s; prefill B="
+            f"{ZOO_BATCH} S={ZOO_SEQ}: first {walls[0]:.3f} s, warm "
+            f"{walls[1]:.3f} s ({ZOO_BATCH * ZOO_SEQ / walls[1]:.0f} "
+            f"tokens/s), launches per forward {json.dumps(per_fwd)}, logits "
+            f"{shape} finite (std {lg_std:.3f}), peak device memory "
+            f"{peak / 2**30:.2f} GiB")
+        log(f"[zoo] {arch} serve: {len(reqs)}/{len(reqs)} requests done in "
+            f"{steps} decode steps, {t_serve:.3f} s ({steps / t_serve:.1f} "
+            f"steps/s, batch 4), peak device memory "
+            f"{serve_peak / 2**30:.2f} GiB")
+        del params, model
+        torch.cuda.empty_cache()
+    launches = zoo_launches()
+    log(f"[zoo] launches over the phase: {json.dumps(launches)}")
+    return launches
+
+
+def phase_zoo_card_vs_cpu(dev) -> None:
+    """Both archs at full width and depth 2 (one super-block pair), B 1,
+    S 256: the final hidden state on the card (kernels) against the port's
+    CPU path (plain versions) on the same weights, without the LM head.
+    Bar: rtol 2e-2, atol 2e-2 x max |CPU value| -- bf16 matmuls and
+    reductions round at other places on the two devices, and the flash
+    kernel rounds P to bf16 for its second product."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    for arch in ZOO_ARCHS:
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=2 * len(full.pattern))
+        card, cpu = build_model(cfg, dev), build_model(cfg, "cpu")
+        params = card.init(1)
+        on_cpu = _tree_to(params, "cpu")
+        toks = zoo_tokens(dev, cfg, 256, seed=1)
+        with torch.inference_mode():
+            h_card = card.apply(params, {"tokens": toks})[0].float().cpu()
+            t0 = time.perf_counter()
+            h_cpu = cpu.apply(on_cpu, {"tokens": toks.cpu()})[0].float()
+            t_cpu = time.perf_counter() - t0
+        atol = 2e-2 * float(h_cpu.abs().max())
+        err = float((h_card - h_cpu).abs().max())
+        rel = float((h_card - h_cpu).norm() / h_cpu.norm())
+        if not torch.allclose(h_card, h_cpu, rtol=2e-2, atol=atol):
+            raise AssertionError(f"{arch} depth 2: card and CPU differ beyond"
+                                 f" rtol 2e-2, atol {atol:.3g}: max abs "
+                                 f"{err:.3g}")
+        log(f"[zoo-cpu] {arch} depth 2, B 1, S 256, full width: card vs CPU "
+            f"max abs err {err:.4g} (atol {atol:.3g}, rtol 2e-2), relative "
+            f"L2 {rel:.3g}; CPU forward {t_cpu:.2f} s")
+        del params, on_cpu
+        torch.cuda.empty_cache()
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
 def phase_cells(dev) -> None:
     import torch
     from repro_torch.nmp.config import NMPConfig
@@ -424,42 +746,85 @@ def phase_main_path(dev) -> dict[str, int]:
     return launches
 
 
+def profiled(fn):
+    """Run fn() under torch.profiler; returns (wall s with the profiler on,
+    [(device us, launches, kernel name)] by kernel).  Fails if the profiler
+    saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        us = (getattr(e, "self_device_time_total", 0)
+              or getattr(e, "self_cuda_time_total", 0))
+        if us > 0 and e.device_type.name == "CUDA":
+            rows.append((us, e.count, e.key))
+    if not rows:
+        raise AssertionError("torch.profiler recorded no device time")
+    return wall, sorted(rows, reverse=True)
+
+
 def phase_profile(dev) -> None:
     """torch.profiler over one warm BP/16384 episode of each main-path
     program (after the main path was timed, so the profiler's host cost
     does not touch those times); device busy share = summed kernel time /
     wall time.  Fails if the profiler saw no device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.nmp.config import NMPConfig
     from repro_torch.nmp.engine import run_episode
     from repro_torch.nmp.traces import make_trace
     tr = make_trace("BP", n_ops=BP_OPS)
     for tech, mapper in (("bnmp", "aimm"), ("pei", "tom")):
         warm = run_episode(tr, NMPConfig(), tech, mapper, seed=0, device=dev)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run_episode(tr, NMPConfig(), tech, mapper, agent=warm.agent,
-                        seed=1, device=dev)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        rows = []
-        for e in prof.key_averages():
-            us = (getattr(e, "self_device_time_total", 0)
-                  or getattr(e, "self_cuda_time_total", 0))
-            if us > 0 and e.device_type.name == "CUDA":
-                rows.append((us, e.count, e.key))
+        wall, rows = profiled(lambda: run_episode(
+            tr, NMPConfig(), tech, mapper, agent=warm.agent, seed=1,
+            device=dev))
         dev_us = sum(r[0] for r in rows)
         n_kern = sum(r[1] for r in rows)
-        assert dev_us > 0, "torch.profiler recorded no device time"
         log(f"[profile] BP/{BP_OPS} {tech}/{mapper}, 128 epochs: wall "
             f"{wall * 1e3:.1f} ms (profiler on), device kernels "
             f"{dev_us / 1e3:.2f} ms in {n_kern} launches, busy share "
             f"{dev_us / 1e6 / wall:.4f}, {n_kern / 128:.1f} launches/epoch")
-        for us, cnt, key in sorted(rows, reverse=True)[:8]:
+        for us, cnt, key in rows[:8]:
             log(f"[profile]   {us / 1e3:8.3f} ms {cnt:6d}x  {key[:90]}")
+
+
+def phase_zoo_profile(dev) -> None:
+    """torch.profiler over one warm prefill forward (B 1, S 4096) and one
+    serving loop of each arch, after their timed runs: device busy share,
+    launches, and the top kernels by device time."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import build_model
+    for arch in ZOO_ARCHS:
+        cfg = get_config(arch)
+        model = build_model(cfg, dev)
+        params = model.init(0)
+        toks = zoo_tokens(dev, cfg, ZOO_SEQ)
+        prefill = lambda: model.logits(params, model.apply(
+            params, {"tokens": toks})[0])
+        with torch.inference_mode():
+            prefill()
+            runs = (("prefill", profiled(prefill)),
+                    ("serve", profiled(lambda: serve(arch, params=params,
+                                                     device=dev))))
+        for what, (wall, rows) in runs:
+            dev_us = sum(r[0] for r in rows)
+            log(f"[zoo-profile] {arch} {what}: wall {wall * 1e3:.1f} ms "
+                f"(profiler on), device kernels {dev_us / 1e3:.2f} ms in "
+                f"{sum(r[1] for r in rows)} launches, busy share "
+                f"{dev_us / 1e6 / wall:.4f}")
+            for us, cnt, key in rows[:6]:
+                log(f"[zoo-profile]   {us / 1e3:8.3f} ms {cnt:6d}x "
+                    f"({100 * us / dev_us:4.1f}%)  {key[:80]}")
+        del params, model
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -492,6 +857,10 @@ def main() -> int:
     phase_cells(dev)
     launches = phase_main_path(dev)
     phase_profile(dev)
+    kernels += phase_zoo_kernels(dev)
+    phase_zoo_card_vs_cpu(dev)
+    launches.update(phase_zoo_model(dev))
+    phase_zoo_profile(dev)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("epoch_fused", "dueling_qnet")
+SOURCES = ("epoch_fused", "dueling_qnet", "flash_attention", "ssd_scan")
 
 # sm_90a (Hopper).  -fmad=false: no a*b+c contraction, so the exact
 # contracts of the epoch core (EMA decay then +1.0 adds, TOM scores) hold.

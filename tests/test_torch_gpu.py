@@ -131,3 +131,68 @@ def test_learned_aimm_episode_launches_every_kernel(cuda):
     assert float(res.env.ops_done) == 1024
     assert eops.launches["fused_epoch"] == 8
     assert qops.launches["dueling_qnet"] == 3 * 8
+
+
+# ---------------------------------------------------------------------------
+# model-zoo kernels: flash attention (the bars of flash_attention/ref.py
+# BARS: elementwise, relative L2 overall and per row) and the SSD scan
+# (1e-4 f32 against the chunked plain version; 5e-2 for bf16 inputs, whose
+# output is rounded to bf16)
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [(S, hd, causal) for S in (100, 128, 384, 1000)
+               for hd in (16, 64, 128) for causal in (True, False)
+               if causal or S in (100, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("S,hd,causal", FLASH_CASES)
+def test_flash_attention_within_tolerance(cuda, S, hd, causal, dtype):
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import BARS, attention_ref
+    from repro_torch.kernels.flash_attention.ref import compare
+    gen = torch.Generator(device=cuda).manual_seed(S * hd)
+    B, H, K = 2, 8, 2
+    q, k, v = (0.5 * torch.randn((B, S, n, hd), generator=gen, device=cuda)
+               for n in (H, K, K))
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    before = ops.launches["flash_attention"]
+    got = ops.gqa_flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention"] == before + 1
+    kk, vv = (t.repeat_interleave(H // K, dim=2) for t in (k, v))
+    want = attention_ref(q.transpose(1, 2), kk.transpose(1, 2),
+                         vv.transpose(1, 2), causal=causal).transpose(1, 2)
+    assert got.dtype == dtype
+    cmp = compare(got, want)
+    assert cmp["ok"], (cmp, BARS[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("L,chunk,P,N", [(64, 32, 16, 8), (128, 128, 16, 16),
+                                         (256, 64, 64, 128),
+                                         (512, 256, 64, 128),
+                                         (192, 96, 48, 100)])
+def test_ssd_scan_within_tolerance(cuda, L, chunk, P, N, dtype):
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_ref
+    gen = torch.Generator(device=cuda).manual_seed(L + P + N)
+    B, H = 2, 4
+    rnd = lambda *s: 0.5 * torch.randn(s, generator=gen, device=cuda)
+    x, b, c = rnd(B, L, H, P), rnd(B, L, N), rnd(B, L, N)
+    dt = rnd(B, L, H).abs() * 0.2
+    a = -rnd(H).abs() - 0.1
+    x, b, c = x.to(dtype), b.to(dtype), c.to(dtype)
+    before = ops.launches["ssd_scan"]
+    got = ops.ssd(x, b, c, dt, a, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.launches["ssd_scan"] == before + 1
+    want = ssd_chunked(x, b, c, dt, a, chunk=chunk).to(dtype)
+    tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == torch.float32 and L <= 256:
+        torch.testing.assert_close(got, ssd_ref(x, b, c, dt, a), rtol=tol,
+                                   atol=tol)

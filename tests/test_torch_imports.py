@@ -34,11 +34,21 @@ def test_port_has_files_to_scan():
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     for want in ("nmp/engine.py", "nmp/stats.py", "core/agent.py",
                  "core/dqn.py", "kernels/epoch_fused/ops.py",
-                 "kernels/dueling_qnet/ops.py"):
+                 "kernels/dueling_qnet/ops.py",
+                 "kernels/flash_attention/ops.py",
+                 "kernels/flash_attention/ref.py",
+                 "kernels/ssd_scan/ops.py", "kernels/ssd_scan/ref.py",
+                 "configs/base.py", "configs/minitron_8b.py",
+                 "configs/mamba2_370m.py", "models/layers.py",
+                 "models/attention.py", "models/mamba.py",
+                 "models/transformer.py", "models/model.py",
+                 "models/convert.py", "train/serve_step.py",
+                 "launch/serve.py"):
         assert want in names
     assert (ROOT / "chip_smoke.py").exists()
     assert {p.name for p in (PORT / "csrc").glob("*.cu")} == {
-        "epoch_fused.cu", "dueling_qnet.cu"}
+        "epoch_fused.cu", "dueling_qnet.cu", "flash_attention.cu",
+        "ssd_scan.cu"}
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -71,6 +81,36 @@ def test_entry_points_default_to_cuda():
             run_episode(tr)
         with pytest.raises(RuntimeError, match="cuda"):
             cold_start(0, default_agent_cfg(NMPConfig()))
+
+
+def test_model_zoo_entry_points_default_to_cuda():
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import main
+    from repro_torch.models import build_model
+    if torch.cuda.is_available():
+        m = build_model(get_config("mamba2-370m", smoke=True))
+        assert m.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            build_model(get_config("mamba2-370m", smoke=True))
+        with pytest.raises(RuntimeError, match="cuda"):
+            main(["--arch", "mamba2-370m", "--smoke"])
+
+
+def test_zoo_wrappers_on_cpu_take_the_plain_version_and_count_nothing():
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd_scan import ops as sops
+    fops.reset_launches()
+    sops.reset_launches()
+    q = torch.randn((1, 64, 4, 16))
+    assert fops.gqa_flash_attention(q, q[:, :, :2], q[:, :, :2]).shape == \
+        q.shape
+    y = sops.ssd(torch.randn((1, 64, 2, 8)), torch.randn((1, 64, 4)),
+                 torch.randn((1, 64, 4)), torch.rand((1, 64, 2)) * 0.1,
+                 -torch.rand(2) - 0.1, chunk=32)
+    assert y.shape == (1, 64, 2, 8) and torch.isfinite(y).all()
+    assert fops.launches == {"flash_attention": 0}
+    assert sops.launches == {"ssd_scan": 0}
 
 
 def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
