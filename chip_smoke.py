@@ -24,12 +24,13 @@ Phases (each prints its lines; the run exits 0 only if every phase passes):
     program (device busy share, launches per epoch, top kernels by time).
  6. model-zoo kernels vs their plain-torch versions on the card, at the
     main-path shapes (B 1, S 4096): flash attention at minitron-8b's
-    (H 32, K 8, hd 128) in bf16 and f32 within the bars of
-    `flash_attention/ref.py` BARS (elementwise, relative L2 overall and per
-    row), the SSD scan at mamba2-370m's (H 32, P 64, N 128, chunk 256)
-    within 1e-4, once with fast decay and once with the state carried
-    across chunks; graph-timed, with SDPA timed beside flash as the library
-    yardstick.
+    (H 32, K 8, hd 128) in bf16 (the wgmma kernel) and f32 within the bars
+    of `flash_attention/ref.py` BARS (elementwise, relative L2 overall and
+    per row), and in bf16 at hd 32 (the mma.sync kernel); the SSD scan at
+    mamba2-370m's (H 32, P 64, N 128, chunk 256) within 1e-4, once with
+    fast decay and once with the state carried across chunks; graph-timed,
+    with SDPA timed beside flash as the library yardstick, and the SSD's
+    bound both on f32 CUDA cores and as a 3xTF32 split on the tensor cores.
  7. card vs CPU: both archs at full width and depth 2, B 1, S 256, final
     hidden state, the card (kernels) against the port's CPU path.
  8. the model zoo's main path at full width and depth, random weights from
@@ -60,6 +61,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
+TF32_OPS_PER_S = 495e12        # H100 SXM TF32 tensor cores, dense
 BP_OPS = 16384                 # paper-scale trace length
 W = 128
 
@@ -366,15 +368,16 @@ ZOO_SEQ = 4096
 ZOO_BATCH = 1
 
 
-def flash_inputs(dev, dtype, seed: int = 0):
-    """q, k, v at minitron-8b's attention shape: (1, 4096, 32 | 8, 128)."""
+def flash_inputs(dev, dtype, seed: int = 0, hd: int | None = None):
+    """q, k, v at minitron-8b's attention shape: (1, 4096, 32 | 8, 128),
+    or another head dim."""
     import torch
     from repro_torch.configs import get_config
     a = get_config("minitron-8b").attn
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return [torch.randn((ZOO_BATCH, ZOO_SEQ, n, a.head_dim), generator=gen,
-                        device=dev).to(dtype)
+    return [torch.randn((ZOO_BATCH, ZOO_SEQ, n, hd or a.head_dim),
+                        generator=gen, device=dev).to(dtype)
             for n in (a.n_heads, a.n_kv, a.n_kv)]
 
 
@@ -408,8 +411,9 @@ def ssd_inputs(dev, carry: bool, seed: int = 0):
 
 
 def phase_zoo_kernels(dev) -> list[dict]:
-    """Flash attention (minitron-8b shape, bf16 and f32) and the SSD scan
-    (mamba2-370m shape, f32) against their plain versions on the card."""
+    """Flash attention (minitron-8b shape, bf16 and f32; the mma.sync kernel
+    at hd 32) and the SSD scan (mamba2-370m shape, f32) against their plain
+    versions on the card."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_config
@@ -439,14 +443,20 @@ def phase_zoo_kernels(dev) -> list[dict]:
     for dtype, rate in ((torch.bfloat16, BF16_OPS_PER_S),
                         (torch.float32, F32_OPS_PER_S)):
         q, k, v = flash_inputs(dev, dtype)
+        kernel = fops.kernel_for(dtype, hd)
+        before = dict(fops.kernel_launches)
         got = fops.gqa_flash_attention(q, k, v, causal=True)
         want = plain(q, k, v)
         torch.cuda.synchronize()
+        if fops.kernel_launches[kernel] != before[kernel] + 1:
+            raise AssertionError(f"flash_attention {dtype} did not launch "
+                                 f"{kernel}: {fops.kernel_launches}")
         cmp, bar = flash_compare(got, want), flash_bars[dtype]
         err = cmp["max_abs_err"]
         if not cmp["ok"]:
-            raise AssertionError(f"flash_attention {dtype} differs from its "
-                                 f"plain version beyond {bar}: {cmp}")
+            raise AssertionError(f"flash_attention {dtype} ({kernel}) differs"
+                                 f" from its plain version beyond {bar}: "
+                                 f"{cmp}")
         k_ms = graph_ms(lambda: fops.gqa_flash_attention(q, k, v,
                                                          causal=True), 20)
         p_ms = graph_ms(lambda: plain(q, k, v), 5)
@@ -456,17 +466,32 @@ def phase_zoo_kernels(dev) -> list[dict]:
         pairs = ZOO_BATCH * H * S * (S + 1) // 2      # causal (q, k) pairs
         flops = 4 * hd * pairs
         b_ms, b_by = bound(nb(q, k, v, got), flops, rate)
-        log(f"[zoo-kernels] flash_attention {str(dtype)[6:]} B={ZOO_BATCH} "
-            f"S={S} H={H} K={K} hd={hd}: max abs err {err:.3g}, relative L2 "
-            f"{cmp['rel_l2']:.3g}, worst row {cmp['row_rel_l2']:.3g} (bars "
-            f"{json.dumps(bar)});"
+        log(f"[zoo-kernels] flash_attention {str(dtype)[6:]} ({kernel}) B="
+            f"{ZOO_BATCH} S={S} H={H} K={K} hd={hd}: max abs err {err:.3g}, "
+            f"relative L2 {cmp['rel_l2']:.3g}, worst row "
+            f"{cmp['row_rel_l2']:.3g} (bars {json.dumps(bar)});"
             f" kernel {k_ms:.4f} ms/launch (graph), plain {p_ms:.4f} ms, "
             f"SDPA {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
-            f"{flops:.3g} FLOP)")
+            f"{flops:.3g} FLOP; {flops / k_ms / 1e9:.1f} TFLOP/s)")
         if dtype == torch.bfloat16:
             frec = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
         del q, k, v, got, want
+    # the mma.sync kernel (bf16 at hd 16 and 32) at the main path's S and
+    # heads: off the main path, held to the same bars
+    a32 = flash_inputs(dev, torch.bfloat16, hd=32)
+    before = fops.kernel_launches["mma_sync_bf16"]
+    got = fops.gqa_flash_attention(*a32, causal=True)
+    cmp = flash_compare(got, plain(*a32))
+    if fops.kernel_launches["mma_sync_bf16"] != before + 1 or not cmp["ok"]:
+        raise AssertionError(f"flash_attention bf16 hd 32 (mma_sync_bf16): "
+                             f"{cmp}, launches {fops.kernel_launches}")
+    m_ms = graph_ms(lambda: fops.gqa_flash_attention(*a32, causal=True), 20)
+    log(f"[zoo-kernels] flash_attention bf16 (mma_sync_bf16) hd=32 S={S} "
+        f"H={H} K={K}: max abs err {cmp['max_abs_err']:.3g}, relative L2 "
+        f"{cmp['rel_l2']:.3g}, worst row {cmp['row_rel_l2']:.3g}; kernel "
+        f"{m_ms:.4f} ms/launch (graph)")
+    del a32, got
     results.append(dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu",
@@ -502,11 +527,17 @@ def phase_zoo_kernels(dev) -> list[dict]:
     # for every chunk but the last (nothing reads its result)
     flops = Bz * (nc * Q * (Q + 1) * N
                   + Hs * (nc * P * Q * (Q + 1) + (nc - 1) * 4 * Q * N * P))
-    b_ms, b_by = bound(nb(x, b, c, dt, av, got), flops)
+    moved = nb(x, b, c, dt, av, got)
+    f_ms, f_by = bound(moved, flops)
+    # the kernel's route: three TF32 tensor-core products per f32 product
+    t_ms, t_by = bound(moved, 3 * flops, TF32_OPS_PER_S)
+    b_ms, b_by = min((f_ms, f_by), (t_ms, t_by))
     log(f"[zoo-kernels] ssd_scan B={Bz} L={L} H={Hs} P={P} N={N} chunk={Q}:"
         f" max abs err {err:.3g} (tol 1e-4, both cases); kernel {k_ms:.4f} "
-        f"ms/launch (graph), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by}, {flops:.4g} FLOP)")
+        f"ms/launch (graph), plain {p_ms:.4f} ms, bound {f_ms:.4f} ms on f32 "
+        f"CUDA cores ({f_by}), {t_ms:.4f} ms as 3xTF32 on the tensor cores "
+        f"({t_by}), "
+        f"{flops:.4g} FLOP, {moved} B")
     results.append(dict(
         name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan/kernel.py:74", max_abs_err=err,

@@ -9,29 +9,46 @@
 //
 // Bound on this card: at the main-path shape (B 1, S 4096, H 32, hd 128,
 // bf16) the causal half of the two products is ~1.4e11 FLOP against ~84 MB
-// of q/k/v/o, so it is bound by operations (tensor-core rate), not bytes.
-// Design: one block per (batch*head, query tile of 64 rows); the K and V
-// tiles (64 rows) are staged through shared memory and reused by the
-// block's four warps; the online-softmax state lives in registers.
-//   * bf16: each warp owns 16 query rows and runs both products on the
-//     tensor cores with mma.sync m16n8k16 (bf16 in, f32 accumulate), its K
-//     and V fragments read by ldmatrix (.trans for V).  The scores'
-//     accumulator fragment is re-packed in registers as the A operand of
-//     the P.V product, so P never touches shared memory.  P is rounded to
-//     bf16 for that product (the reference keeps it in f32; the bar against
-//     the plain version is the reference's bf16 tolerance).  The softmax
-//     runs in log2 units (scale * log2(e) folded in, ex2.approx), and only
-//     tiles that reach the diagonal or the ragged end are masked.
+// of q/k/v/o, so it is bound by operations (the bf16 tensor-core rate), not
+// bytes.  Three kernels, chosen by the wrapper (ops.py) from dtype and head
+// dim alone:
+//   * bf16, hd 64 and 128 (the main path): `flash_wgmma_kernel`, Hopper's
+//     route to the full tensor-core rate.  One block per (batch*head,
+//     128-row query tile): two consumer warpgroups of 64 rows and one
+//     producer warp.  The producer loads the Q tile once and streams
+//     128-key K/V tiles into a two-stage ring with TMA (full / empty
+//     mbarrier per stage), so no consumer thread spends instructions or
+//     registers on addresses; each staged tile serves 128 query rows.
+//     S = Q K^T runs as wgmma m64n128k16 with both operands in shared
+//     memory (K-major, TMA's 128-byte swizzle); P V as wgmma with P in
+//     registers (the bf16 re-pack of the f32 score accumulators, never in
+//     shared memory) and V the N-major shared operand.  Within a
+//     warpgroup the products and the softmax take turns; the other
+//     warpgroup's products fill the gap.  (Issuing S_j together with
+//     P_{j-1} V_{j-1}, with or without named-barrier turns between the
+//     warpgroups, needs ~230 registers a thread; at the 168 that ptxas
+//     grants this block it spilled and serialised the wgmmas, and ran
+//     slower.)  P is rounded to bf16 for that product (the reference keeps
+//     it in f32; the bar against the plain version is `BARS` in ref.py).
+//     The softmax runs in log2 units.  For scale > 0 the row max is taken
+//     over the raw scores and scaled once, so p = exp2(x * scale * log2(e)
+//     - m) is one FMA and one ex2 (this source compiles without
+//     -fmad=false); for scale <= 0 a second instantiation scales each
+//     score first, as the other two kernels do, so every scale is taken.
+//   * bf16, hd 16 and 32: `flash_bf16_kernel`, 64-row query tiles of four
+//     warps, mma.sync m16n8k16 with ldmatrix fragments, K/V double-buffered
+//     with cp.async (the first tensor-core design; a 64-column TMA panel
+//     would be mostly padding at these widths).
 //   * f32: CUDA-core FMAs (no TF32: the f32 bar is 2e-5), 4 x 4 register
 //     tiles, P through shared memory.
-// Kept from the reference: the finite -1e30 mask value (never -inf, so a
-// fully masked tile gives finite p that the next tile's correction wipes),
-// the finaliser's max(l, 1e-30), and the causal skip rule (a KV tile runs
-// iff its first key <= the tile's last query row).  Keys at or past S are
-// masked too, so a ragged S needs no padding here.
-// K/V tiles are double-buffered with cp.async (tile j + 1 in flight while j
-// is computed).  Not yet used: wgmma, TMA, a producer warp.
+// Kept from the reference in all three: the finite -1e30 mask value (never
+// -inf, so a fully masked tile gives finite p that the next tile's
+// correction wipes), the finaliser's max(l, 1e-30), and the causal skip rule
+// (a KV tile runs iff its first key <= the tile's last query row), heaviest
+// query tiles first.  Keys at or past S are masked (TMA fills rows past S
+// with zeros), so a ragged S needs no padding here.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -39,11 +56,11 @@
 namespace {
 
 constexpr float kMaskValue = -1e30f;
-constexpr int kBQ = 64;        // query rows per block
+constexpr int kBQ = 64;        // query rows per block (mma.sync and f32)
 constexpr int kThreads = 128;  // four warps
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync)
+// bf16, hd 16 and 32: tensor cores (mma.sync)
 // ---------------------------------------------------------------------------
 
 constexpr int kBKV16 = 64;     // keys per tile
@@ -294,6 +311,399 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
+// bf16, hd 64 and 128: wgmma fed by TMA (warp-specialised)
+// ---------------------------------------------------------------------------
+
+constexpr int kWgBQ = 128;       // query rows per block: two warpgroups of 64
+constexpr int kWgBKV = 128;      // keys per K/V tile
+constexpr int kWgStages = 2;     // K/V ring depth
+constexpr int kWgConsumers = 256;
+constexpr int kWgThreads = kWgConsumers + 32;   // + one producer warp
+constexpr int kPanel = 64;       // bf16 columns per 128-byte swizzled row
+constexpr int kPanelBytes = kWgBQ * kPanel * 2; // one 128-row panel: 16 KB
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Spin until the barrier's phase of parity `parity` has completed.  A wait
+// that never ends (a lost TMA load, a miscounted arrival) traps after ~2^28
+// tries instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  for (uint32_t tries = 0; !done; ++tries) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    if (tries == (1u << 28)) __trap();
+  }
+}
+
+// One TMA box of the 4-D map (hd, heads, S, B) into shared memory; rows
+// past S arrive as zeros and still count their bytes on the barrier.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int col, int head,
+                                         int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(col), "r"(head), "r"(row), "r"(batch)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile (the layout
+// TMA's CU_TENSOR_MAP_SWIZZLE_128B writes): start address, leading byte
+// offset (K-major: unused; N-major: the next 64-column panel), stride byte
+// offset 1024 (the next 8 rows), swizzle mode 1 (128 B).
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from touching registers of an asynchronous wgmma
+// across its wait (or before the fence of the next one).
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
+}
+
+// d (64 x 128, f32) += A (64 x 16, bf16, shared, K-major) . B (16 x 128, bf16,
+// shared, K-major); scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
+                                            uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 128, f32) += A (64 x 16, bf16, registers) . B (16 x 128, bf16,
+// shared, N-major: the transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 64, f32) += A (64 x 16, bf16, registers) . B (16 x 64, bf16,
+// shared, N-major: the transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <int HD>
+struct WgSmem {
+  // each tile: HD / 64 panels of [128 rows][64 columns], 128-byte swizzled
+  __nv_bfloat16 q[HD / kPanel][kWgBQ * kPanel];
+  __nv_bfloat16 k[kWgStages][HD / kPanel][kWgBKV * kPanel];
+  __nv_bfloat16 v[kWgStages][HD / kPanel][kWgBKV * kPanel];
+  uint64_t q_full, full[kWgStages], empty[kWgStages];
+};
+
+template <int HD>
+__device__ __forceinline__ void wgmma_pv(float (&acc)[HD / 2],
+                                         const uint32_t (&a)[4], uint64_t d);
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&acc)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t d) {
+  wgmma_rs_n64(acc, a, d);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float (&acc)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t d) {
+  wgmma_rs_n128(acc, a, d);
+}
+
+// S (64 x 128 keys) = Q K^T: k-steps of 16 over the head dim, k-step kk 32
+// bytes into panel kk / 4 (inside the swizzle atom).
+template <int HD>
+__device__ __forceinline__ void qk_tile(float (&s)[64],
+                                        const __nv_bfloat16 (*q)[kWgBQ * kPanel],
+                                        const __nv_bfloat16 (*k)[kWgBKV * kPanel],
+                                        int wg) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    wgmma_ss_n128(s,
+                  sw128_desc(q[kk / 4] + wg * 64 * kPanel + (kk % 4) * 16, 16),
+                  sw128_desc(k[kk / 4] + (kk % 4) * 16, 16), kk > 0);
+}
+
+// acc += P V: k-step kk is keys 16 kk .. + 15, 2048 bytes into each panel.
+template <int HD>
+__device__ __forceinline__ void pv_tile(float (&acc)[HD / 2],
+                                        const uint32_t (&pa)[kWgBKV / 16][4],
+                                        const __nv_bfloat16 (*v)[kWgBKV * kPanel]) {
+#pragma unroll
+  for (int kk = 0; kk < kWgBKV / 16; ++kk)
+    wgmma_pv<HD>(acc, pa[kk],
+                 sw128_desc(v[0] + kk * 16 * kPanel, kPanelBytes));
+}
+
+// The online softmax of one score tile: mask (only tiles that reach the
+// diagonal or the ragged end), update m and l, rescale acc, and re-pack P
+// as bf16 A fragments (column tiles 2 kk, 2 kk + 1 are k-step kk).
+// kRawMax (scale > 0, the models' case): x -> x * scale_log2 is monotone,
+// so the row max is taken over the raw scores (a masked score is mask_x =
+// -1e30 / scale_log2) and scaled once, and p = exp2(x * scale_log2 - m) is
+// one FMA and one ex2.  Otherwise (scale <= 0) each score is scaled before
+// the mask and the max (mask_x = -1e30), one multiply more per score.
+template <int HD, bool kRawMax>
+__device__ __forceinline__ void softmax_tile(
+    float (&s)[64], float (&acc)[HD / 2], uint32_t (&pa)[kWgBKV / 16][4],
+    float& m0, float& m1, float& l0, float& l1, int kv0, int S, int causal,
+    int wg_row0, int r0, int r1, int t, float scale_log2, float mask_x) {
+  const bool masked =
+      kv0 + kWgBKV > S || (causal && kv0 + kWgBKV - 1 > wg_row0);
+  float mx0 = kMaskValue, mx1 = kMaskValue;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    float x = kRawMax ? s[i] : s[i] * scale_log2;
+    if (masked) {
+      const int row = (i & 2) ? r1 : r0;
+      const int col = kv0 + (i >> 2) * 8 + 2 * t + (i & 1);
+      if (col >= S || (causal && col > row)) x = mask_x;
+    }
+    s[i] = x;
+    if (i & 2) mx1 = fmaxf(mx1, x); else mx0 = fmaxf(mx0, x);
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  const float mn0 = fmaxf(m0, kRawMax ? mx0 * scale_log2 : mx0);
+  const float mn1 = fmaxf(m1, kRawMax ? mx1 * scale_log2 : mx1);
+  const float corr0 = exp2_approx(m0 - mn0), corr1 = exp2_approx(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const float mn = (i & 2) ? mn1 : mn0;
+    const float p = exp2_approx(kRawMax ? s[i] * scale_log2 - mn : s[i] - mn);
+    s[i] = p;
+    if (i & 2) ps1 += p; else ps0 += p;
+  }
+  // each thread keeps a partial row sum; the quad is summed at the end
+  l0 = l0 * corr0 + ps0;
+  l1 = l1 * corr1 + ps1;
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] *= (i & 2) ? corr1 : corr0;
+#pragma unroll
+  for (int kk = 0; kk < kWgBKV / 16; ++kk) {
+    pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// Accumulator layout of wgmma m64nN (per warpgroup), with w = warp in the
+// warpgroup, g = lane / 4, t = lane % 4: d[4 j + e] holds row 16 w + g
+// (+ 8 for e >= 2), column 8 j + 2 t + (e & 1).  The register A operand of
+// m64nNk16 has mma.sync m16n8k16's A layout per warp, so the scores' column
+// tiles 2 kk and 2 kk + 1 are the A fragment of the P.V k-step kk.
+// This is the consumer warpgroups' side of `flash_wgmma_kernel`.
+template <int HD, bool kRawMax>
+__device__ __forceinline__ void flash_consume(WgSmem<HD>& sm,
+                                              __nv_bfloat16* __restrict__ o,
+                                              int S, int H, int b, int h,
+                                              int q0, int n_tiles, float scale,
+                                              int causal, int wg) {
+  constexpr int NO = HD / 2;                // output accumulators per thread
+  const int w = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + wg * 64 + w * 16 + g, r1 = r0 + 8;
+  const int wg_row0 = q0 + wg * 64;
+  const float scale_log2 = scale * 1.4426950408889634f;
+  const float mask_x = kRawMax ? kMaskValue / scale_log2 : kMaskValue;
+
+  float acc[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+  // running max in log2 units: exp(x * scale) = exp2(x * scale * log2(e))
+  float m0 = kMaskValue, m1 = kMaskValue, l0 = 0.f, l1 = 0.f;
+
+  // Per K/V tile: S = Q K^T, wait; the online softmax; P V, wait; release
+  // the stage.  The two warpgroups run this loop independently, so one's
+  // softmax tends to overlap the other's products.
+  mbar_wait(&sm.q_full, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s_ = j % kWgStages;
+    mbar_wait(&sm.full[s_], (j / kWgStages) & 1);
+    float s[64];
+    wgmma_fence();
+    qk_tile<HD>(s, sm.q, sm.k[s_], wg);
+    wgmma_commit();
+    wgmma_wait0();
+    reg_fence(s);
+    uint32_t pa[kWgBKV / 16][4];
+    softmax_tile<HD, kRawMax>(s, acc, pa, m0, m1, l0, l1, j * kWgBKV, S,
+                              causal, wg_row0, r0, r1, t, scale_log2, mask_x);
+    wgmma_fence();
+    pv_tile<HD>(acc, pa, sm.v[s_]);
+    wgmma_commit();
+    wgmma_wait0();
+    reg_fence(acc);
+    reg_fence(pa);   // P stays live until its product has read it
+    mbar_arrive(&sm.empty[s_]);   // this thread is done with the stage
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  const size_t qrow = (size_t)H * HD;
+  __nv_bfloat16* ob = o + (size_t)b * S * qrow + (size_t)h * HD;
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    const int c = n * 8 + 2 * t;
+    if (r0 < S)
+      *reinterpret_cast<uint32_t*>(ob + r0 * qrow + c) =
+          pack_bf16(acc[4 * n] * inv0, acc[4 * n + 1] * inv0);
+    if (r1 < S)
+      *reinterpret_cast<uint32_t*>(ob + r1 * qrow + c) =
+          pack_bf16(acc[4 * n + 2] * inv1, acc[4 * n + 3] * inv1);
+  }
+}
+
+template <int HD, bool kRawMax>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   __nv_bfloat16* __restrict__ o, int S, int H, int K,
+                   float scale, int causal) {
+  constexpr int NP = HD / kPanel;           // 64-column panels per row
+  extern __shared__ unsigned char wg_smem_raw[];
+  // TMA's 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  WgSmem<HD>& sm = *reinterpret_cast<WgSmem<HD>*>(
+      (reinterpret_cast<uintptr_t>(wg_smem_raw) + 1023) & ~uintptr_t(1023));
+
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int kh = h / (H / K);
+  // causal: the last query tiles have the most KV tiles; start them first,
+  // all heads' at once (blockIdx.x runs fastest)
+  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kWgBQ;
+  const int kv_end = causal ? min(S, q0 + kWgBQ) : S;
+  const int n_tiles = (kv_end + kWgBKV - 1) / kWgBKV;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kWgConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int role = threadIdx.x / 128;   // 0, 1: consumers; 2: producer
+  if (role == kWgConsumers / 128) {
+    // ---- producer: one lane issues every TMA load ----
+    if (threadIdx.x == kWgConsumers) {
+      mbar_expect_tx(&sm.q_full, NP * kPanelBytes);
+      for (int p = 0; p < NP; ++p)
+        tma_load(sm.q[p], &tm_q, &sm.q_full, p * kPanel, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kWgStages, round = j / kWgStages;
+        if (round > 0) mbar_wait(&sm.empty[s], (round - 1) & 1);
+        mbar_expect_tx(&sm.full[s], 2 * NP * kPanelBytes);
+        for (int p = 0; p < NP; ++p) {
+          tma_load(sm.k[s][p], &tm_k, &sm.full[s], p * kPanel, kh, j * kWgBKV,
+                   b);
+          tma_load(sm.v[s][p], &tm_v, &sm.full[s], p * kPanel, kh, j * kWgBKV,
+                   b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63 ----
+    flash_consume<HD, kRawMax>(sm, o, S, H, b, h, q0, n_tiles, scale, causal,
+                               role);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // f32: CUDA cores
 // ---------------------------------------------------------------------------
 
@@ -473,6 +883,75 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   return (int)cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime,
+// so the library links against nothing but cudart.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The 4-D map (hd, heads, S, B) of a (B, S, heads, hd) bf16 tensor, boxes of
+// 64 columns x 1 head x 128 rows, 128-byte swizzle, zeros out of bounds.
+cudaError_t head_map(CUtensorMap* map, const void* base, int B, int S,
+                     int heads, int hd) {
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2,
+                                 (cuuint64_t)heads * hd * 2,
+                                 (cuuint64_t)S * heads * hd * 2};
+  const cuuint32_t box[4] = {kPanel, 1, kWgBQ, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                         const_cast<void*>(base), dims, strides, box, unit,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int HD, bool kRawMax>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
+                 int S, int H, int K, float scale, int causal,
+                 cudaStream_t stream) {
+  constexpr size_t smem = sizeof(WgSmem<HD>) + 1024;   // + alignment slack
+  // once per instantiation, outside any CUDA-graph capture that follows
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_wgmma_kernel<HD, kRawMax>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  CUtensorMap tq, tk, tv;
+  cudaError_t e = head_map(&tq, q, B, S, H, HD);
+  if (e == cudaSuccess) e = head_map(&tk, k, B, S, K, HD);
+  if (e == cudaSuccess) e = head_map(&tv, v, B, S, K, HD);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(B * H, (S + kWgBQ - 1) / kWgBQ);
+  flash_wgmma_kernel<HD, kRawMax><<<grid, kWgThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, H, K, scale, causal);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -482,29 +961,32 @@ const char* repro_cuda_error_string(int code) {
 }
 
 // q, o (B, S, H, hd); k, v (B, S, K, hd); contiguous, 16-byte aligned.
-// is_bf16: 1 for bfloat16 tensors, 0 for float32.  hd in {16, 32, 64, 128}.
-// Returns a cudaError_t (cudaErrorInvalidValue for an unsupported hd).
+// kernel: 0 f32 (CUDA cores), 1 bf16 mma.sync (hd 16, 32), 2 bf16 wgmma +
+// TMA (hd 64, 128).  Returns a cudaError_t (cudaErrorInvalidValue for a
+// kernel / hd pair outside those).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int B, int S, int H, int K, int hd,
-                           float scale, int causal, int is_bf16,
+                           float scale, int causal, int kernel,
                            void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (B == 0 || S == 0) return 0;
-#define REPRO_FLASH_CASE(D)                                                  \
-  case D:                                                                    \
-    return is_bf16 ? launch_bf16<D>(q, k, v, o, B, S, H, K, scale, causal,   \
-                                    stream)                                  \
-                   : launch_f32<D>(q, k, v, o, B, S, H, K, scale, causal,    \
-                                   stream);
-  switch (hd) {
-    REPRO_FLASH_CASE(16)
-    REPRO_FLASH_CASE(32)
-    REPRO_FLASH_CASE(64)
-    REPRO_FLASH_CASE(128)
-    default:
-      return (int)cudaErrorInvalidValue;
+#define REPRO_FLASH_ARGS q, k, v, o, B, S, H, K, scale, causal, stream
+  switch (kernel * 1000 + hd) {
+    case 16: return launch_f32<16>(REPRO_FLASH_ARGS);
+    case 32: return launch_f32<32>(REPRO_FLASH_ARGS);
+    case 64: return launch_f32<64>(REPRO_FLASH_ARGS);
+    case 128: return launch_f32<128>(REPRO_FLASH_ARGS);
+    case 1016: return launch_bf16<16>(REPRO_FLASH_ARGS);
+    case 1032: return launch_bf16<32>(REPRO_FLASH_ARGS);
+    case 2064:
+      return scale > 0.f ? launch_wgmma<64, true>(REPRO_FLASH_ARGS)
+                         : launch_wgmma<64, false>(REPRO_FLASH_ARGS);
+    case 2128:
+      return scale > 0.f ? launch_wgmma<128, true>(REPRO_FLASH_ARGS)
+                         : launch_wgmma<128, false>(REPRO_FLASH_ARGS);
+    default: return (int)cudaErrorInvalidValue;
   }
-#undef REPRO_FLASH_CASE
+#undef REPRO_FLASH_ARGS
 }
 
 }  // extern "C"

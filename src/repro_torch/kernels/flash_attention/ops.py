@@ -4,12 +4,15 @@
 `gqa_flash_attention` takes the plain version (ref.py, on the GQA-expanded
 K/V) for CPU tensors and launches the CUDA kernel (csrc/flash_attention.cu)
 for CUDA tensors; anything else raises, and there is no fallback from kernel
-to plain.  The kernel reads K/V at head h // (H / K) itself, so nothing is
+to plain.  Which CUDA kernel runs follows from dtype and head dim alone
+(`kernel_for`): bf16 at hd 64 and 128 (the models' widths) takes the
+wgmma + TMA kernel, bf16 at hd 16 and 32 the mma.sync kernel, float32 the
+CUDA-core kernel.  The kernel reads K/V at head h // (H / K) itself, so nothing is
 expanded on the card, and it masks keys at or past S.  Neither path pads:
 a causal ragged S gives the padded reference's result as it stands, and
 only the reference's refusal of a non-causal S off its block multiple is
 kept, so a caller sees the reference's contract.  `launches` counts kernel
-launches and nothing else.
+launches and nothing else; `kernel_launches` splits that count by kernel.
 """
 from __future__ import annotations
 
@@ -21,14 +24,26 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 BLOCK_Q = 128           # the reference kernel's blocks: they set which
-BLOCK_KV = 256          # non-causal S it refuses; the CUDA kernel tiles by 64
+BLOCK_KV = 256          # non-causal S it refuses; the CUDA kernels tile
 HEAD_DIMS = (16, 32, 64, 128)
+# the C launcher's kernel ids
+KERNELS = {"cuda_core_f32": 0, "mma_sync_bf16": 1, "wgmma_bf16": 2}
 
 launches = {"flash_attention": 0}
+kernel_launches = dict.fromkeys(KERNELS, 0)
 
 
 def reset_launches() -> None:
     launches["flash_attention"] = 0
+    for name in kernel_launches:
+        kernel_launches[name] = 0
+
+
+def kernel_for(dtype: torch.dtype, hd: int) -> str:
+    """The CUDA kernel a (dtype, head dim) pair takes: by shape only."""
+    if dtype == torch.float32:
+        return "cuda_core_f32"
+    return "wgmma_bf16" if hd >= 64 else "mma_sync_bf16"
 
 
 def _lib():
@@ -79,6 +94,7 @@ def gqa_flash_attention(q, k, v, *, causal: bool = True,
     if hd not in HEAD_DIMS:
         raise ValueError(f"gqa_flash_attention: head_dim {hd} not in "
                          f"{HEAD_DIMS}")
+    kernel = kernel_for(q.dtype, hd)
     q, k, v = (t.contiguous() for t in (q, k, v))
     q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     out = torch.empty_like(q)
@@ -86,8 +102,8 @@ def gqa_flash_attention(q, k, v, *, causal: bool = True,
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H, K,
-        hd, float(scale), int(causal), int(q.dtype == torch.bfloat16),
-        stream)
-    build.check(lib, code, "flash_attention")
+        hd, float(scale), int(causal), KERNELS[kernel], stream)
+    build.check(lib, code, f"flash_attention ({kernel})")
     launches["flash_attention"] += 1
+    kernel_launches[kernel] += 1
     return out

@@ -6,10 +6,10 @@ the CUDA kernel (csrc/ssd_scan.cu) for CUDA tensors; anything else raises,
 and there is no fallback from kernel to plain.  The reference wrapper's
 VMEM head-group split is the TPU's concern and has no counterpart: the CUDA
 kernel sizes its work by shared memory and registers (one head and chunk
-per block, 64 x 64 tiles).  One launch runs the kernel's four stages
-(C.B^T once for all heads, the intra term and chunk states, the in-order
-state recurrence, the inter term) on the current stream; the wrapper
-allocates their scratch.
+per block, 64 x 64 tiles, products on the tensor cores as a 3xTF32 split).
+One launch runs the kernel's stages (the in-chunk cumsum and C.B^T once
+for all heads, the chunk states, the in-order state recurrence, then
+y = intra + inter) on the current stream; the wrapper allocates their scratch.
 `launches` counts launches and nothing else.
 """
 from __future__ import annotations
@@ -21,7 +21,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 
-MAX_HEAD_DIM = 64       # P: the kernel's register micro-tiles
+MAX_HEAD_DIM = 64       # P: one 64-column tile
 MAX_D_STATE = 128       # N
 
 launches = {"ssd_scan": 0}
@@ -35,7 +35,7 @@ def _lib():
     lib = build.load("ssd_scan")
     fn = lib.ssd_scan_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
@@ -70,12 +70,14 @@ def ssd(x, b, c, dt, a, *, chunk: int = 128):
     nc = L // chunk
     states = torch.empty((Bsz, nc, H, N, P), **f32)    # S_c, then R_c
     seg_end = torch.empty((Bsz, nc, H), **f32)
+    seg = torch.empty((Bsz, L, H), **f32)             # in-chunk cumsum
     cb = torch.empty((Bsz, nc, chunk, chunk), **f32)   # C_i . B_j per chunk
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.ssd_scan_launch(*[t.data_ptr() for t in xs], y.data_ptr(),
                                states.data_ptr(), seg_end.data_ptr(),
-                               cb.data_ptr(), Bsz, L, H, P, N, chunk, stream)
+                               seg.data_ptr(), cb.data_ptr(), Bsz, L, H, P,
+                               N, chunk, stream)
     build.check(lib, code, "ssd_scan")
     launches["ssd_scan"] += 1
     return y.to(x.dtype)

@@ -196,3 +196,87 @@ def test_ssd_scan_within_tolerance(cuda, L, chunk, P, N, dtype):
     if dtype == torch.float32 and L <= 256:
         torch.testing.assert_close(got, ssd_ref(x, b, c, dt, a), rtol=tol,
                                    atol=tol)
+
+
+@pytest.mark.parametrize("dtype,hd,kernel", [
+    (torch.bfloat16, 16, "mma_sync_bf16"), (torch.bfloat16, 32,
+                                            "mma_sync_bf16"),
+    (torch.bfloat16, 64, "wgmma_bf16"), (torch.bfloat16, 128, "wgmma_bf16"),
+    (torch.float32, 64, "cuda_core_f32"), (torch.float32, 128,
+                                           "cuda_core_f32")])
+def test_flash_attention_kernel_follows_shape(cuda, dtype, hd, kernel):
+    """The wrapper picks the kernel from dtype and head dim alone, and the
+    one it picked is within BARS of the plain version."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import BARS, attention_ref
+    from repro_torch.kernels.flash_attention.ref import compare
+    assert ops.kernel_for(dtype, hd) == kernel
+    gen = torch.Generator(device=cuda).manual_seed(hd)
+    q, k, v = (torch.randn((1, 300, n, hd), generator=gen,
+                           device=cuda).to(dtype) for n in (4, 1, 1))
+    before = dict(ops.kernel_launches)
+    got = ops.gqa_flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert {n: c - before[n] for n, c in ops.kernel_launches.items()} == {
+        n: int(n == kernel) for n in ops.KERNELS}
+    want = attention_ref(q.transpose(1, 2), *(t.repeat_interleave(
+        4, dim=2).transpose(1, 2) for t in (k, v))).transpose(1, 2)
+    cmp = compare(got, want)
+    assert cmp["ok"], (cmp, BARS[dtype])
+
+
+@pytest.mark.parametrize("scale", [0.3, 0.0, -0.2])
+@pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 32),
+                                      (torch.bfloat16, 128),
+                                      (torch.float32, 128)],
+                         ids=["mma_sync", "wgmma", "f32"])
+def test_flash_attention_any_scale(cuda, dtype, hd, scale):
+    """Every kernel takes the caller's scale, zero and negative too, as the
+    plain version does."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import BARS, attention_ref
+    from repro_torch.kernels.flash_attention.ref import compare
+    gen = torch.Generator(device=cuda).manual_seed(hd)
+    q, k, v = (torch.randn((1, 300, n, hd), generator=gen,
+                           device=cuda).to(dtype) for n in (4, 1, 1))
+    got = ops.gqa_flash_attention(q, k, v, causal=True, scale=scale)
+    want = attention_ref(q.transpose(1, 2), *(t.repeat_interleave(
+        4, dim=2).transpose(1, 2) for t in (k, v)),
+        scale=scale).transpose(1, 2)
+    cmp = compare(got, want)
+    assert cmp["ok"], (cmp, BARS[dtype])
+
+
+def test_flash_attention_many_query_tiles_ragged_tail(cuda):
+    """hd 128, GQA ratio 4, unit-variance inputs: S 2176 (17 query tiles of
+    128 on the wgmma kernel) and S 2139 (a ragged last query and K/V tile,
+    which TMA fills with zeros and the kernel masks)."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import BARS, attention_ref
+    from repro_torch.kernels.flash_attention.ref import compare
+    gen = torch.Generator(device=cuda).manual_seed(2176)
+    for S in (2176, 2176 - 37):
+        q, k, v = (torch.randn((2, S, n, 128), generator=gen,
+                               device=cuda).bfloat16() for n in (8, 2, 2))
+        before = ops.kernel_launches["wgmma_bf16"]
+        got = ops.gqa_flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        assert ops.kernel_launches["wgmma_bf16"] == before + 1
+        want = attention_ref(q.transpose(1, 2), *(t.repeat_interleave(
+            4, dim=2).transpose(1, 2) for t in (k, v))).transpose(1, 2)
+        cmp = compare(got, want)
+        assert cmp["ok"], (S, cmp, BARS[torch.bfloat16])
+
+
+@pytest.mark.parametrize("carry", [False, True])
+def test_ssd_scan_main_shape(cuda, carry):
+    """mamba2-370m's SSD shape (L 4096, H 32, P 64, N 128, chunk 256), once
+    with the state carried across chunks (decay 0.17-0.99 per chunk)."""
+    from chip_smoke import ssd_inputs
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+    x, b, c, dt, a = ssd_inputs(cuda, carry)
+    got = ops.ssd(x, b, c, dt, a, chunk=256)
+    want = ssd_chunked(x, b, c, dt, a, chunk=256)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
