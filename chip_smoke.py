@@ -9,11 +9,12 @@ Phases (each prints its lines; the run exits 0 only if every phase passes):
     kernels from `src/repro_torch/csrc/` (one nvcc per source, in parallel).
  2. kernels vs their plain-torch versions on the card, at main-path shapes
     from a real BP/16384 window (P = 4096, W = 128, pei_k = 206):
-    fused_epoch in its three call shapes and tom_scores must be equal
-    (torch.equal), dueling_qnet at B = 1 and B = 64 within 1e-4.  Times:
-    device time per launch from a CUDA graph of many launches (warmed),
-    for the kernel and for the plain version; the eager per-call time of
-    the wrapper too.
+    fused_epoch in its three call shapes at both flag sets (bnmp+aimm,
+    pei) and tom_scores must be equal (torch.equal), dueling_qnet at B = 1
+    and B = 64 within 1e-4.  Times: device time per launch from a CUDA
+    graph of many launches (warmed), for the kernel and for the plain
+    version; the eager per-call time of the wrapper too; and the launch
+    floor (a graph-timed one-element in-place add) beside each bound.
  3. deterministic cells on the card against the port's own CPU path:
     SPMV/2048 pei/tom and KM/384 pei/aimm with forced action 5, seed 2.
  4. the main path at full size: `run_program(BP/16384, "bnmp", "aimm",
@@ -21,7 +22,8 @@ Phases (each prints its lines; the run exits 0 only if every phase passes):
     `run_episode(BP/16384, "pei", "tom")`, with the kernels' launch counts
     set to 0 just before and read just after.
  5. profile: torch.profiler over one warm episode of each main-path
-    program (device busy share, launches per epoch, top kernels by time).
+    program (device busy share, launches per epoch, top kernels by time,
+    and the AIMM kernels' rows wherever they rank).
  6. model-zoo kernels vs their plain-torch versions on the card, at the
     main-path shapes (B 1, S 4096): flash attention at minitron-8b's
     (H 32, K 8, hd 128) in bf16 (the wgmma kernel) and f32 within the bars
@@ -119,6 +121,26 @@ def epoch_inputs(device, app: str = "BP", n_ops: int = BP_OPS, seed: int = 0,
     return x, topo, pei_top_k(P, cfg), tr
 
 
+def qnet_inputs(device, seed: int = 0):
+    """Dueling-qnet weights at the main path's shape (state 106, hidden
+    128/128, 8 actions; random biases) and states of 1 row (act) and 64
+    rows (TD targets): (params, {rows: states})."""
+    import torch
+    from repro_torch.core import dqn
+    from repro_torch.nmp.config import NMPConfig
+    from repro_torch.nmp.engine import default_agent_cfg
+    acfg = default_agent_cfg(NMPConfig())
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    params = dqn.init_params(gen, acfg.dqn, 1, device)
+    for k in params:
+        if k.startswith("b"):
+            params[k] = 0.1 * torch.randn(params[k].shape, generator=gen,
+                                          device=device)
+    return params, {n: torch.rand((1, n, acfg.dqn.state_dim), generator=gen,
+                                  device=device) * 2 for n in (1, 64)}
+
+
 def _tensors(obj):
     import torch
     if isinstance(obj, torch.Tensor):
@@ -185,6 +207,14 @@ def eager_ms(fn, reps: int = 200) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def launch_floor_ms(dev) -> float:
+    """Graph-timed device time of a one-element in-place add: what any
+    launch costs on this card however little it does."""
+    import torch
+    one = torch.zeros(1, device=dev)
+    return graph_ms(lambda: one.add_(1.0))
+
+
 def bound(bytes_moved: float, ops: float,
           ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     """Least time the card could take: max(bytes / HBM rate, ops / the peak
@@ -199,16 +229,17 @@ def bound(bytes_moved: float, ops: float,
 
 def phase_kernels(dev) -> list[dict]:
     import torch
-    from repro_torch.core import dqn
     from repro_torch.kernels.dueling_qnet import ops as qops
     from repro_torch.kernels.dueling_qnet.ref import dueling_qnet_ref
     from repro_torch.kernels.epoch_fused import ops as eops
     from repro_torch.kernels.epoch_fused import ref as eref
     from repro_torch.nmp.baselines import tom_candidates
     from repro_torch.nmp.config import NMPConfig
-    from repro_torch.nmp.engine import default_agent_cfg
     cfg = NMPConfig()
     x, topo, pei_k, tr = epoch_inputs(dev)
+    floor = launch_floor_ms(dev)
+    log(f"[kernels] launch floor: {floor:.5f} ms (a one-element in-place "
+        f"add, graph-timed)")
     P, C, L, M = tr.n_pages, cfg.n_cubes, topo.n_links, cfg.n_mcs
     log(f"[kernels] inputs: BP/{BP_OPS} window, P={P} W={W} C={C} L={L} "
         f"pei_k={pei_k}")
@@ -243,7 +274,7 @@ def phase_kernels(dev) -> list[dict]:
     n_pages_touched = int(pages.numel())
 
     # ---- fused_epoch: all three call shapes, at both main-path flag sets --
-    fused_rec = None
+    fused_rec = {}
     for label, pei, aimm, tech_id in (("bnmp+aimm", False, True, 0),
                                       ("pei", True, False, 2)):
         tech = torch.tensor([tech_id], dtype=torch.int32, device=dev)
@@ -285,15 +316,18 @@ def phase_kernels(dev) -> list[dict]:
         log(f"[kernels] fused_epoch {label}: equal in all three call shapes;"
             f" kernel {k_ms:.5f} ms/launch (graph), plain {p_ms:.5f} ms, "
             f"eager wrapper call {call_ms:.5f} ms, bound {b_ms:.6f} ms "
-            f"({b_by}, {moved} B)")
+            f"({b_by}, {moved} B), launch floor {floor:.5f} ms")
         if label == "bnmp+aimm":
-            fused_rec = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+            fused_rec.update(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                              bound_ms=b_ms, bound_by=b_by)
+        else:
+            fused_rec.update(pei_max_abs_err=err, pei_ms=k_ms,
+                             pei_plain_ms=p_ms, pei_bound_ms=b_ms)
     results.append(dict(
         name="fused_epoch", route="cuda",
         source="src/repro_torch/csrc/epoch_fused.cu",
         replaces="src/repro/kernels/epoch_fused/kernel.py:42",
-        **fused_rec, library_ms=None))
+        **fused_rec, library_ms=None, launch_floor_ms=floor))
 
     # ---- tom_scores ----
     cands = tom_candidates(P, cfg, dev)
@@ -309,7 +343,7 @@ def phase_kernels(dev) -> list[dict]:
     b_ms, b_by = bound(moved, K * W * 12)
     log(f"[kernels] tom_scores K={K}: equal; kernel {k_ms:.5f} ms/launch "
         f"(graph), plain {p_ms:.5f} ms, eager wrapper call {call_ms:.5f} ms,"
-        f" bound {b_ms:.6f} ms ({b_by})")
+        f" bound {b_ms:.6f} ms ({b_by}), launch floor {floor:.5f} ms")
     results.append(dict(
         name="tom_scores", route="cuda",
         source="src/repro_torch/csrc/epoch_fused.cu",
@@ -318,19 +352,10 @@ def phase_kernels(dev) -> list[dict]:
         bound_ms=b_ms, bound_by=b_by, library_ms=None))
 
     # ---- dueling_qnet at B = 1 (act) and B = 64 (TD targets) ----
-    acfg = default_agent_cfg(cfg)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    params = dqn.init_params(gen, acfg.dqn, 1, dev)
-    for k in params:
-        if k.startswith("b"):
-            params[k] = 0.1 * torch.randn(params[k].shape, generator=gen,
-                                          device=dev)
+    params, rows = qnet_inputs(dev)
     keys = ("w0", "b0", "w1", "b1", "w_v", "b_v", "w_a", "b_a")
-    qrec = None
-    for n in (1, 64):
-        xs = torch.rand((1, n, acfg.dqn.state_dim), generator=gen,
-                        device=dev) * 2
+    qrec = {}
+    for n, xs in rows.items():
         got = qops.qnet_forward(params, xs)
         want = dueling_qnet_ref(xs, *[params[k] for k in keys])
         if not torch.allclose(got, want, rtol=1e-4, atol=1e-4):
@@ -349,15 +374,18 @@ def phase_kernels(dev) -> list[dict]:
         log(f"[kernels] dueling_qnet B={n}: max abs err {err:.3g} (tol 1e-4);"
             f" kernel {k_ms:.5f} ms/launch (graph), plain {p_ms:.5f} ms, "
             f"eager wrapper call {call_ms:.5f} ms, bound {b_ms:.6f} ms "
-            f"({b_by})")
+            f"({b_by}), launch floor {floor:.5f} ms")
         if n == 64:
-            qrec = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+            qrec.update(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                         bound_ms=b_ms, bound_by=b_by)
+        else:
+            qrec.update(n1_max_abs_err=err, n1_ms=k_ms, n1_plain_ms=p_ms,
+                        n1_bound_ms=b_ms)
     results.append(dict(
         name="dueling_qnet", route="cuda",
         source="src/repro_torch/csrc/dueling_qnet.cu",
         replaces="src/repro/kernels/dueling_qnet/kernel.py:43",
-        **qrec, library_ms=None))
+        **qrec, library_ms=None, launch_floor_ms=floor))
     return results
 
 
@@ -743,6 +771,7 @@ def phase_main_path(dev) -> dict[str, int]:
                           device=dev)
     torch.cuda.synchronize()
     t_prog = time.perf_counter() - t0
+    fused_prog = eops.launches["fused_epoch"]
     t0 = time.perf_counter()
     tom = run_episode(tr, cfg, "pei", "tom", seed=0, device=dev)
     torch.cuda.synchronize()
@@ -770,11 +799,19 @@ def phase_main_path(dev) -> dict[str, int]:
         f"({t_prog / 2:.3f} s/episode, {2 * 128 / t_prog:.1f} epochs/s); "
         f"run_episode pei/tom: {t_tom:.3f} s ({128 / t_tom:.1f} epochs/s); "
         f"peak device memory {peak / 2**20:.1f} MiB")
-    log(f"[main] launches: {json.dumps(launches)}")
+    # by shape: the fused epoch per program (flag set), the qnet per row
+    # count (1: act; 64: the TD step's target and online networks)
+    split = {"fused_epoch": dict(launches_bnmp_aimm=fused_prog,
+                                 launches_pei=launches["fused_epoch"]
+                                 - fused_prog),
+             "dueling_qnet": {f"launches_n{n}": c for n, c in
+                              sorted(qops.launches_by_rows.items())}}
+    log(f"[main] launches: {json.dumps(launches)}; by shape "
+        f"{json.dumps(split)}")
     assert launches["fused_epoch"] == epochs, (launches, epochs)
     assert launches["dueling_qnet"] > 0 and launches["tom_scores"] > 0, \
         launches
-    return launches
+    return launches, split
 
 
 def profiled(fn):
@@ -823,6 +860,11 @@ def phase_profile(dev) -> None:
             f"{dev_us / 1e6 / wall:.4f}, {n_kern / 128:.1f} launches/epoch")
         for us, cnt, key in rows[:8]:
             log(f"[profile]   {us / 1e3:8.3f} ms {cnt:6d}x  {key[:90]}")
+        for us, cnt, key in rows:   # the AIMM kernels, wherever they rank
+            if any(k in key for k in ("fused_epoch_kernel", "tom_scores_kernel",
+                                      "dueling_qnet_kernel")):
+                log(f"[profile]   port kernel {us / 1e3:8.3f} ms {cnt:6d}x "
+                    f"({us / cnt:.2f} us each)  {key[:70]}")
 
 
 def phase_zoo_profile(dev) -> None:
@@ -886,7 +928,7 @@ def main() -> int:
 
     kernels = phase_kernels(dev)
     phase_cells(dev)
-    launches = phase_main_path(dev)
+    launches, split = phase_main_path(dev)
     phase_profile(dev)
     kernels += phase_zoo_kernels(dev)
     phase_zoo_card_vs_cpu(dev)
@@ -894,11 +936,14 @@ def main() -> int:
     phase_zoo_profile(dev)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        k.update(split.get(k["name"], {}))
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"[card] {card}")
-    print(json.dumps({"kernels": [{f: k[f] for f in order}
-                                  for k in kernels]}))
+    print(json.dumps({"kernels": [
+        {**{f: k[f] for f in order},
+         **{f: v for f, v in k.items() if f not in order}}
+        for k in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,22 +1,29 @@
 #!/usr/bin/env python3
-"""Time the first CUDA versions of the flash-attention and SSD-scan kernels
-(commit 7317b40: mma.sync flash, f32 CUDA-core SSD) beside the current ones,
-in turns on one card, at the main-path shapes of chip_smoke.py.
+"""Time earlier CUDA versions of the port's kernels beside the current ones,
+in turns on one card, at the main-path shapes of chip_smoke.py: the first
+flash-attention and SSD-scan kernels (commit 7317b40: mma.sync flash, f32
+CUDA-core SSD) and the first dueling-qnet and fused-epoch kernels (commit
+191cdc3, before their Hopper redesign).
 
     mkdir -p build/baseline
     for n in flash_attention ssd_scan; do
         git show 7317b40:src/repro_torch/csrc/$n.cu > build/baseline/$n.cu
     done
+    for n in dueling_qnet epoch_fused; do
+        git show 191cdc3:src/repro_torch/csrc/$n.cu > build/baseline/$n.cu
+    done
     python3 same_call_baseline.py build/baseline
 
-Those two sources have a C interface of their own, written out here
-(flash's last int picks bf16; the SSD launcher takes nine buffers), so the
-script builds only files whose sha256 is theirs and refuses any other.
-They are built with the flags they were measured with (-fmad=false).  Each
-kernel, earlier and current, is held against the plain version first;
-then each pair is timed with chip_smoke.py's `graph_ms` in the order
-earlier, current, current, earlier.  The last line is a JSON object with
-the times.
+The zoo sources have a C interface of their own, written out here (flash's
+last int picks bf16; the SSD launcher takes nine buffers); the AIMM sources
+have the current launchers' interface, so the current wrappers call them.
+The script builds only files whose sha256 is that of those commits and
+refuses any other.  They are built with the flags they were measured with
+(-fmad=false).  Each kernel, earlier and current, is held against the plain
+version first (the fused epoch in both main-path flag sets, equal; the
+qnet at 64 and 1 rows, within 1e-4); then each pair is timed with
+chip_smoke.py's `graph_ms` in the order earlier, current, current, earlier.
+The last line is a JSON object with the times.
 """
 from __future__ import annotations
 
@@ -27,29 +34,34 @@ import subprocess
 import sys
 from pathlib import Path
 
-from chip_smoke import (ROOT, card_line, flash_inputs, graph_ms, log,
-                        max_abs_err, ssd_inputs)
+from chip_smoke import (ROOT, all_equal, card_line, epoch_inputs,
+                        flash_inputs, graph_ms, log, max_abs_err, qnet_inputs,
+                        ssd_inputs)
 
-SHA256 = {
-    "flash_attention":
-        "fb7d5216653cb9ee143bd4cfe2fb906b748c303a906bc1902a795f55c4a83ceb",
-    "ssd_scan":
-        "8073ea2bb0d37a08e520b5ccce65fe411a47ee7934c4f8297b6d4d6e0a23a448",
+SHA256 = {   # name: (commit, sha256 of its csrc/<name>.cu there)
+    "flash_attention": ("7317b40", "fb7d5216653cb9ee143bd4cfe2fb906b"
+                        "748c303a906bc1902a795f55c4a83ceb"),
+    "ssd_scan": ("7317b40", "8073ea2bb0d37a08e520b5ccce65fe41"
+                 "1a47ee7934c4f8297b6d4d6e0a23a448"),
+    "dueling_qnet": ("191cdc3", "152632dd4d17b6fa72daa2f2b3799"
+                     "67d53c333651c2f8be87273998f7c163d70"),
+    "epoch_fused": ("191cdc3", "3a91eed7b6bddf733f5c721c5846d"
+                    "2546fca038542f95dafbbc271237ae4fdcd"),
 }
 
 
 def build_earlier(src_dir: Path) -> dict[str, ctypes.CDLL]:
-    """Check, build (one nvcc per source, in parallel) and load the two
+    """Check, build (one nvcc per source, in parallel) and load the
     earlier sources in `src_dir`."""
     from repro_torch.kernels import build
     out_dir = ROOT / "build" / "baseline_lib"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, want in SHA256.items():
+    for name, (commit, want) in SHA256.items():
         src = src_dir / f"{name}.cu"
         got = hashlib.sha256(src.read_bytes()).hexdigest()
         if got != want:
-            raise SystemExit(f"{src}: sha256 {got} is not that of 7317b40's "
+            raise SystemExit(f"{src}: sha256 {got} is not that of {commit}'s "
                              f"{name}.cu, whose C interface this script "
                              f"calls")
         out = out_dir / f"{name}.so"
@@ -64,6 +76,8 @@ def build_earlier(src_dir: Path) -> dict[str, ctypes.CDLL]:
         if proc.returncode != 0:
             raise RuntimeError(f"earlier {name}.cu failed to build:\n{text}")
         libs[name] = ctypes.CDLL(str(out))
+        libs[name].repro_cuda_error_string.argtypes = [ctypes.c_int]
+        libs[name].repro_cuda_error_string.restype = ctypes.c_char_p
     fn = libs["flash_attention"].flash_attention_launch
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
@@ -74,6 +88,22 @@ def build_earlier(src_dir: Path) -> dict[str, ctypes.CDLL]:
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return libs
+
+
+def through(lib: ctypes.CDLL, name: str, fn):
+    """fn with the port's wrapper of `csrc/<name>.cu` launching from `lib`
+    (an earlier build with the same C interface) instead of the current
+    library."""
+    from repro_torch.kernels import build
+
+    def run():
+        current = build.load(name)
+        build._LIBS[name] = lib
+        try:
+            return fn()
+        finally:
+            build._LIBS[name] = current
+    return run
 
 
 def in_turns(earlier, current, reps: int) -> tuple[list, list]:
@@ -169,6 +199,61 @@ def main() -> int:
         f"(state carried): earlier {e_ms[0]:.4f} / {e_ms[1]:.4f} ms, current"
         f" {c_ms[0]:.4f} / {c_ms[1]:.4f} ms (graph); max abs err earlier "
         f"{errs[0]:.3g}, current {errs[1]:.3g} (tol 1e-4)")
+
+    # ---- the AIMM kernels: fused epoch (both flag sets), dueling qnet ----
+    from repro_torch.kernels.dueling_qnet import ops as qops
+    from repro_torch.kernels.dueling_qnet.ref import dueling_qnet_ref
+    from repro_torch.kernels.epoch_fused import ops as eops
+    from repro_torch.kernels.epoch_fused import ref as eref
+    from repro_torch.nmp.config import NMPConfig
+    cfg = NMPConfig()
+    x, topo, pei_k, _ = epoch_inputs(dev)
+    win = [x[k] for k in ("dest", "src1", "src2", "valid")]
+    rt = dict(n_mcs=cfg.n_mcs, packet_flits=cfg.packet_flits)
+    for label, pei, aimm, tech_id in (("bnmp+aimm", False, True, 0),
+                                      ("pei", True, False, 2)):
+        tech = torch.tensor([tech_id], dtype=torch.int32, device=dev)
+        k = pei_k if pei else 0
+        current = lambda: eops.fused_parts(
+            *win, x["epochs"], x["rb_stamp"], x["page_ema"], x["n_pages"],
+            x["pei_idx"], x["eff_table"], x["compute_remap"], tech,
+            x["is_aimm"], x["pending"], topo, pei_k=k, aimm=aimm, **rt)
+        earlier = through(libs["epoch_fused"], "epoch_fused", current)
+        sp = eref.shared_stage(*win, x["epochs"], x["rb_stamp"],
+                               x["page_ema"] if pei else None, x["n_pages"],
+                               x["pei_idx"], pei_k=k, aimm=aimm)
+        rp = eref.route_stage(*win, sp.rb_winner, sp.pei_hot1, sp.pei_hot2,
+                              x["eff_table"], x["compute_remap"], tech,
+                              x["is_aimm"], x["pending"], topo.routes_flat,
+                              topo.hops_flat, topo.nearest_mc, pei=pei,
+                              aimm=aimm, **rt)
+        if not (all_equal(earlier(), (sp, rp))
+                and all_equal(current(), (sp, rp))):
+            raise AssertionError(f"fused_epoch {label}: not equal to plain")
+        e_ms, c_ms = in_turns(earlier, current, 100)
+        result[f"fused_epoch_{label}"] = dict(earlier_ms=e_ms, current_ms=c_ms)
+        log(f"[same-call] fused_epoch {label}: earlier {e_ms[0]:.5f} / "
+            f"{e_ms[1]:.5f} ms, current {c_ms[0]:.5f} / {c_ms[1]:.5f} ms "
+            f"(graph); both equal to the plain version")
+    params, rows = qnet_inputs(dev)
+    keys = ("w0", "b0", "w1", "b1", "w_v", "b_v", "w_a", "b_a")
+    for n, xs in rows.items():
+        current = lambda: qops.qnet_forward(params, xs)
+        earlier = through(libs["dueling_qnet"], "dueling_qnet", current)
+        want = dueling_qnet_ref(xs, *[params[k] for k in keys])
+        outs = [earlier(), current()]
+        errs = [max_abs_err(q, want) for q in outs]
+        if not all(torch.allclose(q, want, rtol=1e-4, atol=1e-4)
+                   for q in outs):
+            raise AssertionError(f"dueling_qnet N={n} beyond 1e-4: {errs}")
+        e_ms, c_ms = in_turns(earlier, current, 100)
+        result[f"dueling_qnet_n{n}"] = dict(
+            earlier_ms=e_ms, current_ms=c_ms, earlier_max_abs_err=errs[0],
+            current_max_abs_err=errs[1])
+        log(f"[same-call] dueling_qnet N={n}: earlier {e_ms[0]:.5f} / "
+            f"{e_ms[1]:.5f} ms, current {c_ms[0]:.5f} / {c_ms[1]:.5f} ms "
+            f"(graph); max abs err earlier {errs[0]:.3g}, current "
+            f"{errs[1]:.3g} (tol 1e-4)")
     print(json.dumps(result), flush=True)
     return 0
 

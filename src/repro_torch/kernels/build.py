@@ -24,13 +24,13 @@ SOURCES = ("epoch_fused", "dueling_qnet", "flash_attention", "ssd_scan")
 
 # sm_90a (Hopper) for every source.  -fmad=false (no a*b+c contraction)
 # only where a contract is exact: the epoch core's EMA decay then +1.0 adds
-# and TOM scores, and the dueling Q-network whose recorded numbers were taken
-# with it.  The zoo kernels' bars are tolerances, so their softmax and decay
-# arithmetic may contract into FMAs.
+# and TOM scores.  The dueling Q-network's and the zoo kernels' bars are
+# tolerances, so their products, softmax and decay arithmetic may contract
+# into FMAs.
 BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 EXACT_FLAGS = ("-fmad=false",)
-SOURCE_FLAGS = {"epoch_fused": EXACT_FLAGS, "dueling_qnet": EXACT_FLAGS,
+SOURCE_FLAGS = {"epoch_fused": EXACT_FLAGS, "dueling_qnet": (),
                 "flash_attention": (), "ssd_scan": ()}
 
 

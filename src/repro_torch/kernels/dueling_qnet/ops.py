@@ -3,7 +3,8 @@
 `qnet_forward` takes the plain version (ref.py) for CPU tensors and launches
 the CUDA kernel (csrc/dueling_qnet.cu) for CUDA tensors; anything else
 raises.  There is no fallback from kernel to plain.  `launches` counts the
-kernel's launches and nothing else.
+kernel's launches and nothing else; `launches_by_rows` splits them by the
+batch's row count N.
 """
 from __future__ import annotations
 
@@ -15,12 +16,14 @@ from repro_torch.kernels import build
 from repro_torch.kernels.dueling_qnet.ref import dueling_qnet_ref
 
 launches = {"dueling_qnet": 0}
+launches_by_rows: dict[int, int] = {}
 
 _KEYS = ("w0", "b0", "w1", "b1", "w_v", "b_v", "w_a", "b_a")
 
 
 def reset_launches() -> None:
     launches["dueling_qnet"] = 0
+    launches_by_rows.clear()
 
 
 def _lib():
@@ -62,4 +65,5 @@ def qnet_forward(params: dict, states: torch.Tensor) -> torch.Tensor:
                                    q.data_ptr(), G, N, S, H1, H2, A, stream)
     build.check(lib, code, "dueling_qnet")
     launches["dueling_qnet"] += 1
+    launches_by_rows[N] = launches_by_rows.get(N, 0) + 1
     return q

@@ -16,12 +16,13 @@ def test_every_source_has_its_flags():
         assert (build.CSRC / f"{name}.cu").exists(), name
 
 
-@pytest.mark.parametrize("name", ["epoch_fused", "dueling_qnet"])
+@pytest.mark.parametrize("name", ["epoch_fused"])
 def test_exact_kernels_keep_fmad_false(name):
     assert "-fmad=false" in build.nvcc_flags(name)
 
 
-@pytest.mark.parametrize("name", ["flash_attention", "ssd_scan"])
+@pytest.mark.parametrize("name", ["dueling_qnet", "flash_attention",
+                                  "ssd_scan"])
 def test_zoo_kernels_may_contract(name):
     assert not any(f.startswith("-fmad") for f in build.nvcc_flags(name))
 

@@ -79,6 +79,137 @@ def test_fused_epoch_three_call_shapes_equal_plain(cuda, app, epoch, pei,
     assert ops.launches["fused_epoch"] == before + 3
 
 
+def _synthetic_epoch(dev, B, P, seed, *, W=128, pages=None, valid=None,
+                     ema=None):
+    """B lanes of fused-kernel inputs over P pages and a W-op window, made
+    with numpy from a seed: a different window, stamps, tables and EMA per
+    lane.  `pages`, `valid` and `ema` (numpy, (B, W) / (B, P)) override the
+    random ones."""
+    from repro_torch.nmp.config import NMPConfig
+    from repro_torch.nmp.engine import pei_hot_index, pei_top_k
+    from repro_torch.nmp.topology import topology_tensors
+    cfg = NMPConfig()
+    rng = np.random.default_rng(seed)
+    C = cfg.n_cubes
+    topo = topology_tensors(cfg, dev)
+    win = {k: (pages if pages is not None else
+               rng.integers(0, P, (B, W))).astype(np.int32)
+           for k in ("dest", "src1", "src2")}
+    if ema is None:
+        ema = (rng.choice(np.array([0.0, 0.9, 1.0, 1.81], np.float32), (B, P))
+               + (rng.random((B, P)) < 0.2) * rng.random((B, P)))
+    on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    x = dict(
+        **{k: on(v) for k, v in win.items()},
+        valid=on((np.ones((B, W)) if valid is None else valid
+                  ).astype(np.float32)),
+        epochs=on(rng.integers(0, 100, B).astype(np.float32)),
+        rb_stamp=on(rng.integers(0, 3 * W * 100, (B, P + 1)).astype(np.int32)),
+        page_ema=on(np.asarray(ema, np.float32)),
+        n_pages=on(np.full(B, P, np.int32)),
+        pei_idx=on(np.full(B, pei_hot_index(P, cfg), np.int32)),
+        eff_table=on(rng.integers(0, C, (B, P)).astype(np.int32)),
+        compute_remap=on(np.where(rng.random((B, P)) < 0.7, -1,
+                                  rng.integers(0, C + 1, (B, P))
+                                  ).astype(np.int32)),
+        is_aimm=on(rng.random(B) < 0.75),
+        pending=on(np.where(rng.random((B, topo.n_links)) < 0.3, 256.0, 0.0
+                            ).astype(np.float32)))
+    return x, topo, pei_top_k(P, cfg)
+
+
+def _check_three_shapes(dev, x, topo, pei_k, pei, aimm):
+    """shared_parts, route_parts and fused_parts equal to the plain version
+    (torch.equal), lanes alternating between the bnmp and the pei technique
+    where pei is on."""
+    from repro_torch.kernels.epoch_fused import ops, ref
+    from repro_torch.nmp.config import NMPConfig
+    cfg = NMPConfig()
+    B = x["dest"].shape[0]
+    win = [x[k] for k in ("dest", "src1", "src2", "valid")]
+    k = pei_k if pei else 0
+    tech = torch.tensor([2 * (i % 2) if pei else 0 for i in range(B)],
+                        dtype=torch.int32, device=dev)
+    rt = dict(n_mcs=cfg.n_mcs, packet_flits=cfg.packet_flits)
+    sp = ref.shared_stage(*win, x["epochs"], x["rb_stamp"],
+                          x["page_ema"] if pei else None, x["n_pages"],
+                          x["pei_idx"], pei_k=k, aimm=aimm)
+    rp = ref.route_stage(*win, sp.rb_winner, sp.pei_hot1, sp.pei_hot2,
+                         x["eff_table"], x["compute_remap"], tech,
+                         x["is_aimm"], x["pending"], topo.routes_flat,
+                         topo.hops_flat, topo.nearest_mc, pei=pei, aimm=aimm,
+                         **rt)
+    _equal(ops.shared_parts(*win, x["epochs"], x["rb_stamp"], x["page_ema"],
+                            x["n_pages"], x["pei_idx"], pei_k=k, aimm=aimm),
+           sp)
+    _equal(ops.route_parts(*win, sp.rb_winner, sp.pei_hot1, sp.pei_hot2,
+                           x["eff_table"], x["compute_remap"], tech,
+                           x["is_aimm"], x["pending"], topo, pei_k=k,
+                           aimm=aimm, **rt), rp)
+    fsp, frp = ops.fused_parts(*win, x["epochs"], x["rb_stamp"],
+                               x["page_ema"], x["n_pages"], x["pei_idx"],
+                               x["eff_table"], x["compute_remap"], tech,
+                               x["is_aimm"], x["pending"], topo, pei_k=k,
+                               aimm=aimm, **rt)
+    torch.cuda.synchronize()
+    _equal(fsp, sp)
+    _equal(frp, rp)
+
+
+FLAG_SETS = pytest.mark.parametrize("pei,aimm", [(False, True), (True, False),
+                                                 (True, True)],
+                                    ids=["bnmp+aimm", "pei", "pei+aimm"])
+
+
+@FLAG_SETS
+@pytest.mark.parametrize("P,W", [(4096, 128), (4093, 128), (1030, 300),
+                                 (30000, 128)])
+def test_fused_epoch_distinct_lanes(cuda, P, W, pei, aimm):
+    """B = 4 lanes with different windows and tables in one launch; P not a
+    multiple of 4 puts every lane's P-sized rows on another 16-byte offset,
+    a window wider than the block's 256 threads takes the loops' later
+    rounds, and P = 30000 rows do not fit in shared memory (the kernel
+    works on them in device memory)."""
+    x, topo, pei_k = _synthetic_epoch(cuda, 4, P, seed=P, W=W)
+    _check_three_shapes(cuda, x, topo, pei_k, pei, aimm)
+
+
+@FLAG_SETS
+def test_fused_epoch_one_page_window(cuda, pei, aimm):
+    """Every access of the window on one page, dest = src1 = src2: 384 +1.0s
+    onto one EMA entry, one stamp race winner, every count on one key."""
+    x, topo, pei_k = _synthetic_epoch(cuda, 2, 4096, seed=7,
+                                      pages=np.full((2, 128), 123))
+    _check_three_shapes(cuda, x, topo, pei_k, pei, aimm)
+
+
+@FLAG_SETS
+def test_fused_epoch_all_invalid_window(cuda, pei, aimm):
+    x, topo, pei_k = _synthetic_epoch(cuda, 2, 4096, seed=8,
+                                      valid=np.zeros((2, 128)))
+    _check_three_shapes(cuda, x, topo, pei_k, pei, aimm)
+
+
+@pytest.mark.parametrize("P", [4096, 4095])
+def test_fused_epoch_pei_ties_at_threshold(cuda, P):
+    """The r-th largest EMA inside a run of equal values (10 pages above it,
+    r + 10 pages at it), and the window's sources on pages at, above and
+    below it."""
+    from repro_torch.nmp.config import NMPConfig
+    from repro_torch.nmp.engine import pei_hot_index
+    m = P - pei_hot_index(P, NMPConfig())
+    rng = np.random.default_rng(P)
+    ema = np.zeros((2, P), np.float32)
+    ema[:, :] = rng.random((2, P)).astype(np.float32) * 0.99
+    perm = rng.permutation(P)
+    ema[:, perm[:10]] = 5.0
+    ema[:, perm[10:m + 20]] = 1.0
+    pages = rng.choice(perm[:m + 60], (2, 128))
+    x, topo, pei_k = _synthetic_epoch(cuda, 2, P, seed=P, pages=pages,
+                                      ema=ema)
+    _check_three_shapes(cuda, x, topo, pei_k, True, False)
+
+
 @pytest.mark.parametrize("n_valid", [128, 41])
 def test_tom_scores_equal_plain(cuda, n_valid):
     from repro_torch.kernels.epoch_fused import ops, ref
@@ -92,7 +223,8 @@ def test_tom_scores_equal_plain(cuda, n_valid):
     assert torch.equal(got, ref.tom_stage(*win, cands, 16))
 
 
-@pytest.mark.parametrize("n,agents", [(1, 1), (64, 1), (200, 1), (64, 3)])
+@pytest.mark.parametrize("agents", [1, 3])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 200])
 def test_dueling_qnet_within_tolerance(cuda, n, agents):
     from repro_torch.core import dqn
     from repro_torch.kernels.dueling_qnet import ops
@@ -101,6 +233,32 @@ def test_dueling_qnet_within_tolerance(cuda, n, agents):
     params = dqn.init_params(gen, dqn.DQNConfig(state_dim=106), agents, cuda)
     xs = torch.rand((agents, n, 106), generator=gen, device=cuda) * 2
     got = ops.qnet_forward(params, xs)
+    want = dueling_qnet_ref(xs, *[params[k] for k in QKEYS])
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("S,hidden,A", [(37, (96, 64), 5), (37, (90, 62), 5),
+                                        (106, (300, 128), 8)],
+                         ids=["bulk", "unaligned", "wide"])
+def test_dueling_qnet_other_widths(cuda, S, hidden, A):
+    """Widths other than the production one: odd state and action counts
+    (bulk copies still apply), hidden widths that are not a multiple of 4
+    floats (the threads copy the weights), and a layer wider than one
+    256-unit group."""
+    from repro_torch.core import dqn
+    from repro_torch.kernels.dueling_qnet import ops
+    from repro_torch.kernels.dueling_qnet.ref import dueling_qnet_ref
+    gen = torch.Generator(device=cuda).manual_seed(S + A)
+    params = dqn.init_params(gen, dqn.DQNConfig(state_dim=S, n_actions=A,
+                                                hidden=hidden), 2, cuda)
+    for k in params:
+        if k.startswith("b"):
+            params[k] = 0.1 * torch.randn(params[k].shape, generator=gen,
+                                          device=cuda)
+    xs = torch.rand((2, 40, S), generator=gen, device=cuda) * 2
+    before = ops.launches["dueling_qnet"]
+    got = ops.qnet_forward(params, xs)
+    assert ops.launches["dueling_qnet"] == before + 1
     want = dueling_qnet_ref(xs, *[params[k] for k in QKEYS])
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
