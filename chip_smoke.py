@@ -10,17 +10,24 @@ Phases (each prints its lines; the run exits 0 only if every phase passes):
  2. kernels vs their plain-torch versions on the card, at main-path shapes
     from a real BP/16384 window (P = 4096, W = 128, pei_k = 206):
     fused_epoch in its three call shapes at both flag sets (bnmp+aimm,
-    pei) and tom_scores must be equal (torch.equal), dueling_qnet at B = 1
-    and B = 64 within 1e-4.  Times: device time per launch from a CUDA
-    graph of many launches (warmed), for the kernel and for the plain
-    version; the eager per-call time of the wrapper too; and the launch
-    floor (a graph-timed one-element in-place add) beside each bound.
+    pei) and tom_scores in both its forms (the standalone kernel, and
+    folded into the shared stage of the pei flag set, as the PEI + TOM
+    episode launches it, in the fused and shared call shapes) must be
+    equal (torch.equal), dueling_qnet at B = 1 and B = 64 within 1e-4.
+    Times: device time per launch from a CUDA graph of many launches
+    (warmed), for the kernel and for the plain version; the eager per-call
+    time of the wrapper too; the pei flag set with and without the TOM
+    fold in turns (without, with, with, without); and the launch floor (a
+    graph-timed one-element in-place add) beside each bound.
  3. deterministic cells on the card against the port's own CPU path:
     SPMV/2048 pei/tom and KM/384 pei/aimm with forced action 5, seed 2.
  4. the main path at full size: `run_program(BP/16384, "bnmp", "aimm",
     episodes=2)` (learned AIMM, the paper's Table-1 system) and
     `run_episode(BP/16384, "pei", "tom")`, with the kernels' launch counts
-    set to 0 just before and read just after.
+    set to 0 just before and read just after.  The TOM scores ride in the
+    fused epoch launch: every PEI + TOM epoch counts one folded scoring
+    and no standalone tom_scores launch; the kernels line gives
+    tom_scores the sum of both counts, and each beside it.
  5. profile: torch.profiler over one warm episode of each main-path
     program (device busy share, launches per epoch, top kernels by time,
     and the AIMM kernels' rows wherever they rank).
@@ -247,12 +254,12 @@ def phase_kernels(dev) -> list[dict]:
     rt = dict(n_mcs=M, packet_flits=cfg.packet_flits)
     results = []
 
-    def fused_kernel(pei, aimm, tech):
+    def fused_kernel(pei, aimm, tech, **tom):
         return eops.fused_parts(
             *win, x["epochs"], x["rb_stamp"], x["page_ema"], x["n_pages"],
             x["pei_idx"], x["eff_table"], x["compute_remap"], tech,
             x["is_aimm"], x["pending"], topo, pei_k=pei_k if pei else 0,
-            aimm=aimm, **rt)
+            aimm=aimm, **rt, **tom)
 
     def fused_plain(pei, aimm, tech):
         sp = eref.shared_stage(*win, x["epochs"], x["rb_stamp"],
@@ -329,27 +336,54 @@ def phase_kernels(dev) -> list[dict]:
         replaces="src/repro/kernels/epoch_fused/kernel.py:42",
         **fused_rec, library_ms=None, launch_floor_ms=floor))
 
-    # ---- tom_scores ----
+    # ---- tom_scores: the standalone kernel, and folded into the shared
+    # stage of the pei flag set (the PEI + TOM episode's one launch) ----
     cands = tom_candidates(P, cfg, dev)
     got = eops.tom_scores(*win, cands, C)
     want = eref.tom_stage(*win, cands, C)
     if not torch.equal(got, want):
         raise AssertionError("tom_scores differs from its plain version")
+    tech = torch.tensor([2], dtype=torch.int32, device=dev)
+    fsp, frp = fused_kernel(True, False, tech, tom_cands=cands)
+    ssp = eops.shared_parts(*win, x["epochs"], x["rb_stamp"], x["page_ema"],
+                            x["n_pages"], x["pei_idx"], pei_k=pei_k,
+                            aimm=False, tom_cands=cands, n_cubes=C)
+    wsp, wrp = fused_plain(True, False, tech)
+    for shape, sp_got, rest in (("fused", fsp, (frp, wrp)),
+                                ("shared", ssp, ((), ()))):
+        if not (torch.equal(sp_got.tom_scores, want) and all_equal(
+                (sp_got._replace(tom_scores=None), rest[0]),
+                (wsp, rest[1]))):
+            raise AssertionError(f"tom_scores folded into fused_epoch (pei, "
+                                 f"{shape} shape) differs from the plain "
+                                 f"versions")
     k_ms = graph_ms(lambda: eops.tom_scores(*win, cands, C))
     p_ms = graph_ms(lambda: eref.tom_stage(*win, cands, C))
     call_ms = eager_ms(lambda: eops.tom_scores(*win, cands, C))
+    # the pei flag set without and with the fold, in turns
+    no_tom = lambda: fused_kernel(True, False, tech)
+    fold = lambda: fused_kernel(True, False, tech, tom_cands=cands)
+    turns = [graph_ms(f) for f in (no_tom, fold, fold, no_tom)]
+    fold_ms, pei_ms = min(turns[1:3]), min(turns[0], turns[3])
     K = cands.shape[0]
     moved = nb(*win) + 4 * K * n_pages_touched + nb(got)
     b_ms, b_by = bound(moved, K * W * 12)
-    log(f"[kernels] tom_scores K={K}: equal; kernel {k_ms:.5f} ms/launch "
-        f"(graph), plain {p_ms:.5f} ms, eager wrapper call {call_ms:.5f} ms,"
-        f" bound {b_ms:.6f} ms ({b_by}), launch floor {floor:.5f} ms")
+    log(f"[kernels] tom_scores K={K}: standalone equal, folded equal in the"
+        f" fused and shared shapes; kernel {k_ms:.5f} ms/launch (graph), "
+        f"plain {p_ms:.5f} ms, eager wrapper call {call_ms:.5f} ms, bound "
+        f"{b_ms:.6f} ms ({b_by}), launch floor {floor:.5f} ms")
+    log(f"[kernels] fused_epoch pei in turns without / with / with / "
+        f"without the TOM fold: {' / '.join(f'{t:.5f}' for t in turns)} "
+        f"ms/launch (graph): the fold adds {fold_ms - pei_ms:.5f} ms")
     results.append(dict(
         name="tom_scores", route="cuda",
         source="src/repro_torch/csrc/epoch_fused.cu",
         replaces="src/repro/kernels/epoch_fused/kernel.py:158",
-        max_abs_err=max_abs_err(got, want), ms=k_ms, plain_ms=p_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        max_abs_err=max(max_abs_err(got, want),
+                        max_abs_err(fsp.tom_scores, want)),
+        ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, launch_floor_ms=floor, folded_pei_ms=fold_ms,
+        pei_without_tom_ms=pei_ms, fold_turns_ms=turns))
 
     # ---- dueling_qnet at B = 1 (act) and B = 64 (TD targets) ----
     params, rows = qnet_inputs(dev)
@@ -800,17 +834,26 @@ def phase_main_path(dev) -> dict[str, int]:
         f"run_episode pei/tom: {t_tom:.3f} s ({128 / t_tom:.1f} epochs/s); "
         f"peak device memory {peak / 2**20:.1f} MiB")
     # by shape: the fused epoch per program (flag set), the qnet per row
-    # count (1: act; 64: the TD step's target and online networks)
+    # count (1: act; 64: the TD step's target and online networks), the TOM
+    # scorer standalone and folded into the fused epoch launch
     split = {"fused_epoch": dict(launches_bnmp_aimm=fused_prog,
                                  launches_pei=launches["fused_epoch"]
                                  - fused_prog),
              "dueling_qnet": {f"launches_n{n}": c for n, c in
-                              sorted(qops.launches_by_rows.items())}}
+                              sorted(qops.launches_by_rows.items())},
+             "tom_scores": dict(
+                 launches_standalone=launches["tom_scores"],
+                 launches_folded=launches["tom_scores_folded"])}
     log(f"[main] launches: {json.dumps(launches)}; by shape "
         f"{json.dumps(split)}")
+    tom_epochs = int(tom.metrics["valid"].shape[0])
     assert launches["fused_epoch"] == epochs, (launches, epochs)
-    assert launches["dueling_qnet"] > 0 and launches["tom_scores"] > 0, \
-        launches
+    assert launches["dueling_qnet"] > 0, launches
+    assert launches["tom_scores"] == 0, launches
+    assert launches["tom_scores_folded"] == tom_epochs, (launches,
+                                                         tom_epochs)
+    # the TOM scorer's count on the main path: its scorings in any form
+    launches["tom_scores"] += launches.pop("tom_scores_folded")
     return launches, split
 
 

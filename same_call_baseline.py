@@ -2,8 +2,11 @@
 """Time earlier CUDA versions of the port's kernels beside the current ones,
 in turns on one card, at the main-path shapes of chip_smoke.py: the first
 flash-attention and SSD-scan kernels (commit 7317b40: mma.sync flash, f32
-CUDA-core SSD) and the first dueling-qnet and fused-epoch kernels (commit
-191cdc3, before their Hopper redesign).
+CUDA-core SSD), the first dueling-qnet and fused-epoch kernels (commit
+191cdc3, before their Hopper redesign), and the epoch source of commit
+f3c081c (the fused epoch redesigned, the TOM scorer of one warp per
+candidate, before the scorer's redesign and its fold into the fused
+launch) for the TOM scorer and the fused epoch's flag sets without TOM.
 
     mkdir -p build/baseline
     for n in flash_attention ssd_scan; do
@@ -12,6 +15,8 @@ CUDA-core SSD) and the first dueling-qnet and fused-epoch kernels (commit
     for n in dueling_qnet epoch_fused; do
         git show 191cdc3:src/repro_torch/csrc/$n.cu > build/baseline/$n.cu
     done
+    git show f3c081c:src/repro_torch/csrc/epoch_fused.cu \
+        > build/baseline/epoch_fused_f3c081c.cu
     python3 same_call_baseline.py build/baseline
 
 The zoo sources have a C interface of their own, written out here (flash's
@@ -20,8 +25,9 @@ have the current launchers' interface, so the current wrappers call them.
 The script builds only files whose sha256 is that of those commits and
 refuses any other.  They are built with the flags they were measured with
 (-fmad=false).  Each kernel, earlier and current, is held against the plain
-version first (the fused epoch in both main-path flag sets, equal; the
-qnet at 64 and 1 rows, within 1e-4); then each pair is timed with
+version first (the fused epoch in both main-path flag sets and the TOM
+scorer, equal; the qnet at 64 and 1 rows, within 1e-4); then each pair is
+timed with
 chip_smoke.py's `graph_ms` in the order earlier, current, current, earlier.
 The last line is a JSON object with the times.
 """
@@ -38,7 +44,7 @@ from chip_smoke import (ROOT, all_equal, card_line, epoch_inputs,
                         flash_inputs, graph_ms, log, max_abs_err, qnet_inputs,
                         ssd_inputs)
 
-SHA256 = {   # name: (commit, sha256 of its csrc/<name>.cu there)
+SHA256 = {   # file stem: (commit, sha256 of the csrc/ source there)
     "flash_attention": ("7317b40", "fb7d5216653cb9ee143bd4cfe2fb906b"
                         "748c303a906bc1902a795f55c4a83ceb"),
     "ssd_scan": ("7317b40", "8073ea2bb0d37a08e520b5ccce65fe41"
@@ -47,6 +53,8 @@ SHA256 = {   # name: (commit, sha256 of its csrc/<name>.cu there)
                      "67d53c333651c2f8be87273998f7c163d70"),
     "epoch_fused": ("191cdc3", "3a91eed7b6bddf733f5c721c5846d"
                     "2546fca038542f95dafbbc271237ae4fdcd"),
+    "epoch_fused_f3c081c": ("f3c081c", "5d9671986f7f7acdf9911132fc10bb"
+                            "dc1e6a8ca51587cedc05302de14959399a"),
 }
 
 
@@ -61,9 +69,9 @@ def build_earlier(src_dir: Path) -> dict[str, ctypes.CDLL]:
         src = src_dir / f"{name}.cu"
         got = hashlib.sha256(src.read_bytes()).hexdigest()
         if got != want:
-            raise SystemExit(f"{src}: sha256 {got} is not that of {commit}'s "
-                             f"{name}.cu, whose C interface this script "
-                             f"calls")
+            raise SystemExit(f"{src}: sha256 {got} is not that of the "
+                             f"{commit} source this script expects there, "
+                             f"whose C interface it calls")
         out = out_dir / f"{name}.so"
         cmd = [build._nvcc(), *build.BASE_FLAGS, *build.EXACT_FLAGS, "-o",
                str(out), str(src)]
@@ -200,14 +208,18 @@ def main() -> int:
         f" {c_ms[0]:.4f} / {c_ms[1]:.4f} ms (graph); max abs err earlier "
         f"{errs[0]:.3g}, current {errs[1]:.3g} (tol 1e-4)")
 
-    # ---- the AIMM kernels: fused epoch (both flag sets), dueling qnet ----
+    # ---- the AIMM kernels: fused epoch (both flag sets, against both
+    # earlier sources), TOM scorer, dueling qnet ----
     from repro_torch.kernels.dueling_qnet import ops as qops
     from repro_torch.kernels.dueling_qnet.ref import dueling_qnet_ref
     from repro_torch.kernels.epoch_fused import ops as eops
     from repro_torch.kernels.epoch_fused import ref as eref
+    from repro_torch.nmp.baselines import tom_candidates
     from repro_torch.nmp.config import NMPConfig
     cfg = NMPConfig()
-    x, topo, pei_k, _ = epoch_inputs(dev)
+    x, topo, pei_k, tr = epoch_inputs(dev)
+    epoch_libs = {SHA256[k][0]: libs[k]
+                  for k in ("epoch_fused", "epoch_fused_f3c081c")}
     win = [x[k] for k in ("dest", "src1", "src2", "valid")]
     rt = dict(n_mcs=cfg.n_mcs, packet_flits=cfg.packet_flits)
     for label, pei, aimm, tech_id in (("bnmp+aimm", False, True, 0),
@@ -218,7 +230,6 @@ def main() -> int:
             *win, x["epochs"], x["rb_stamp"], x["page_ema"], x["n_pages"],
             x["pei_idx"], x["eff_table"], x["compute_remap"], tech,
             x["is_aimm"], x["pending"], topo, pei_k=k, aimm=aimm, **rt)
-        earlier = through(libs["epoch_fused"], "epoch_fused", current)
         sp = eref.shared_stage(*win, x["epochs"], x["rb_stamp"],
                                x["page_ema"] if pei else None, x["n_pages"],
                                x["pei_idx"], pei_k=k, aimm=aimm)
@@ -227,14 +238,31 @@ def main() -> int:
                               x["is_aimm"], x["pending"], topo.routes_flat,
                               topo.hops_flat, topo.nearest_mc, pei=pei,
                               aimm=aimm, **rt)
-        if not (all_equal(earlier(), (sp, rp))
-                and all_equal(current(), (sp, rp))):
+        if not all_equal(current(), (sp, rp)):
             raise AssertionError(f"fused_epoch {label}: not equal to plain")
-        e_ms, c_ms = in_turns(earlier, current, 100)
-        result[f"fused_epoch_{label}"] = dict(earlier_ms=e_ms, current_ms=c_ms)
-        log(f"[same-call] fused_epoch {label}: earlier {e_ms[0]:.5f} / "
-            f"{e_ms[1]:.5f} ms, current {c_ms[0]:.5f} / {c_ms[1]:.5f} ms "
-            f"(graph); both equal to the plain version")
+        for commit, lib in epoch_libs.items():
+            earlier = through(lib, "epoch_fused", current)
+            if not all_equal(earlier(), (sp, rp)):
+                raise AssertionError(f"fused_epoch {label} of {commit}: not "
+                                     f"equal to plain")
+            e_ms, c_ms = in_turns(earlier, current, 100)
+            result[f"fused_epoch_{label}_vs_{commit}"] = dict(
+                earlier_ms=e_ms, current_ms=c_ms)
+            log(f"[same-call] fused_epoch {label}: {commit} {e_ms[0]:.5f} / "
+                f"{e_ms[1]:.5f} ms, current {c_ms[0]:.5f} / {c_ms[1]:.5f} ms "
+                f"(graph); both equal to the plain version")
+    cands = tom_candidates(tr.n_pages, cfg, dev)
+    C = cfg.n_cubes
+    current = lambda: eops.tom_scores(*win, cands, C)
+    earlier = through(epoch_libs["f3c081c"], "epoch_fused", current)
+    want = eref.tom_stage(*win, cands, C)
+    if not (torch.equal(earlier(), want) and torch.equal(current(), want)):
+        raise AssertionError("tom_scores: not equal to plain")
+    e_ms, c_ms = in_turns(earlier, current, 100)
+    result["tom_scores_vs_f3c081c"] = dict(earlier_ms=e_ms, current_ms=c_ms)
+    log(f"[same-call] tom_scores K={cands.shape[0]}: f3c081c {e_ms[0]:.5f} / "
+        f"{e_ms[1]:.5f} ms, current {c_ms[0]:.5f} / {c_ms[1]:.5f} ms (graph);"
+        f" both equal to the plain version")
     params, rows = qnet_inputs(dev)
     keys = ("w0", "b0", "w1", "b1", "w_v", "b_v", "w_a", "b_a")
     for n, xs in rows.items():

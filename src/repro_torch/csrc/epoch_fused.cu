@@ -40,6 +40,27 @@
 //    window's valid flags are 0/1 as the engine makes them; any other valid
 //    value takes plain atomics.
 //
+// The TOM candidate scores depend only on the window and the static
+// candidate table, so they ride in the shared stage's launch: with kTom,
+// fused_epoch_kernel also scores the candidates (SharedParts' tom_scores),
+// and a TOM epoch is one launch.  tom_scores_kernel is the same scorer
+// alone, for the reference's own call shape.  Both run tom_warp, one warp
+// per candidate over the whole window: all its candidate gathers of a round
+// issued together, integer counts in registers where the valid flags are
+// 0/1 (per-cube op counts from ballots, lane c counting cube c), sums and
+// the max over cubes by warp reductions; no shared-memory atomics (the
+// warps of a block would all add into the same few counters) and no
+// barrier.
+// What bounds the scorer is its 3K gathers per op, 2304 scattered 4-byte
+// reads at K = 6, W = 128, which one SM's load unit takes a cache line at a
+// time.  So the standalone kernel runs a one-warp block per (lane,
+// candidate), K SMs for one lane, each reading the window's ops straight
+// from device memory; and the fold lands the candidate table in shared
+// memory by one more bulk copy, issued with the others (96 KB at P = 4096,
+// where it fits beside the rows), and scores after the stamp race, when
+// the copy has long arrived; where the table does not fit, it gathers from
+// device memory at the same point.
+//
 // Exactness (the reference's contract, kernels/epoch_fused/ref.py): every
 // value summed is an exact small integer in f32 (0/1 validity, winner flags,
 // route incidence times packet_flits, their counts below 2^24), or a +1.0
@@ -60,8 +81,24 @@ constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kLdbId = 1;   // repro.nmp.baselines.TECHNIQUES.index("ldb")
 constexpr int kPeiId = 2;   // TECHNIQUES.index("pei")
+constexpr int kTomR = 4;    // 32-op chunks a TOM warp gathers per round
 
 __host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
+
+// The TOM scorer's inputs and output (ref.tom_stage).
+struct TomArgs {
+  const int* cands;   // (K, P) candidate page -> cube tables
+  float* out;         // (B, K) scores
+  int K, C;
+  float inv_c, recip; // float32 1/C and 1/(1 - 1/C) (tom_score_constants)
+};
+
+// Shared words of the TOM scorer: a row of C per-cube sums for each warp
+// (used where they cannot stay in registers: C > 32 or valid flags that are
+// not all 0/1).
+__host__ __device__ constexpr int tom_words(int C) {
+  return kWarps * round4(C);
+}
 
 struct FusedArgs {
   // window, (B, W)
@@ -100,6 +137,8 @@ struct FusedArgs {
   int W, P, C, L, M, pei_k;
   int run_shared, run_route, pei, aimm, bulk_routes;
   float packet_flits;
+  TomArgs tom;                  // read only by the kTom instantiations
+  int tom_smem;                 // the candidate table lands in shared memory
 };
 
 // Dynamic shared-memory plan in 4-byte words; every region starts on 16
@@ -109,9 +148,10 @@ struct FusedArgs {
 // same offset within 16 bytes as its row in device memory.
 struct Plan {
   int routes, hops, hist, lpart, ops, acc, dist, mcq, nmc, win, st, ema,
-      touch, cnt, bytes, total;
+      touch, cnt, tom, tcands, bytes, total;
   __host__ __device__ Plan(int W, int C, int L, int M, int P, int run_route,
-                           int run_shared, int pei, int aimm, int rows) {
+                           int run_shared, int pei, int aimm, int rows,
+                           int tom_w, int tcands_w) {
     const int CC = run_route ? C * C : 0;
     const int ns = run_shared && rows ? round4(P + 1) + 4 : 0;
     routes = 0;
@@ -128,15 +168,17 @@ struct Plan {
     ema = st + ns;
     touch = ema + (pei ? ns : 0);
     cnt = touch + (aimm ? ns : 0);     // EMA counts where there is no touch
-    bytes = cnt + (pei && !aimm ? ns : 0);  // winner (3W), hot1, hot2 (W),
-                                            // first (3W)
+    tom = cnt + (pei && !aimm ? ns : 0);    // TOM rows (tom_words)
+    tcands = tom + tom_w;              // TOM candidate table (K * P)
+    bytes = tcands + tcands_w;         // winner (3W), hot1, hot2 (W),
+                                       // first (3W)
     total = bytes + round4((8 * W + 3) / 4);
   }
 };
 
 // The static shared memory of fused_epoch_kernel: the radix select's
-// histogram and state, and the bulk copies' barrier.
-constexpr int kStaticSmem = 256 * 4 + 8 + 8;
+// histogram and state, and the bulk copies' two barriers.
+constexpr int kStaticSmem = 256 * 4 + 8 + 16;
 constexpr int kMaxSmem = 232448 - kStaticSmem - 128;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -318,6 +360,104 @@ __device__ __forceinline__ const int* pick(int which, const int* a,
   return which == 0 ? a : (which == 1 ? b : c);
 }
 
+// ---------------- TOM candidate scores (ref.tom_stage) ----------------
+// Warp-level: one warp scores candidate k over the whole window.  Its lanes
+// take the ops 32 at a time, kTomR chunks a round, reading each op by
+// op(w, dest, src1, src2, valid) and issuing the round's 3 * kTomR gathers
+// of candidate cubes from `cands` (device or shared memory) together.
+// binary (valid flags 0/1, given by `binary_of` after the first round's
+// gathers are issued, from that round's flags): the co-location
+// half-counts 2*co = (x == d) + (y == d) and the valid count are integer
+// counts in registers, summed by warp reductions, and with C <= 32 lane c
+// counts the ops on cube c from ballots of the cube bits, so the max over
+// cubes is one warp reduction: no shared memory, no atomics, exact in any
+// order.  Otherwise the per-cube sums go to the warp's row `s_row` (C words
+// in shared memory) by atomics, integer or float.  The score then follows
+// the reference's float32 expression step by step (the division by the
+// constant (1 - 1/C) as a multiply by its float32 reciprocal, as XLA
+// compiles it); lane 0 writes it.
+template <class Op, class Binary>
+__device__ __forceinline__ void tom_warp(const TomArgs& ta, int k,
+                                         const int* cands, int W, int P,
+                                         float* s_row, int b, Op op,
+                                         Binary binary_of) {
+  const int lane = threadIdx.x & 31, C = ta.C;
+  const int* cand = cands + (size_t)k * P;
+  unsigned* row = reinterpret_cast<unsigned*>(s_row);
+  for (int c = lane; c < C; c += 32) row[c] = 0u;
+  __syncwarp();
+  bool binary = true, regs = true;
+  unsigned n_cube = 0, n_co2 = 0, n_v = 0;
+  float f_co = 0.f, f_v = 0.f;
+  for (int w0 = 0; w0 < W; w0 += 32 * kTomR) {
+    int d[kTomR], x[kTomR], y[kTomR];
+    float v[kTomR];
+#pragma unroll
+    for (int r = 0; r < kTomR; ++r) {
+      const int w = w0 + 32 * r + lane;
+      d[r] = x[r] = y[r] = 0;
+      v[r] = 0.f;
+      if (w < W) op(w, d[r], x[r], y[r], v[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < kTomR; ++r) {
+      if (w0 + 32 * r >= W) break;   // warp-uniform
+      d[r] = cand[d[r]];
+      x[r] = cand[x[r]];
+      y[r] = cand[y[r]];
+    }
+    if (w0 == 0) {
+      binary = binary_of(v);
+      regs = binary && C <= 32;
+    }
+#pragma unroll
+    for (int r = 0; r < kTomR; ++r) {
+      if (w0 + 32 * r >= W) break;   // warp-uniform
+      const bool on = v[r] != 0.f;   // 0 past the window's end
+      if (binary) {
+        n_co2 += on ? (x[r] == d[r]) + (y[r] == d[r]) : 0u;
+        n_v += on;
+        if (regs) n_cube += count_key(C, on, d[r], 1.f);
+        else if (on) atomicAdd(row + d[r], 1u);
+      } else {
+        f_co += ((x[r] == d[r] ? 1.f : 0.f) + (y[r] == d[r] ? 1.f : 0.f))
+                * 0.5f * v[r];
+        f_v += v[r];
+        if (on) atomicAdd(s_row + d[r], v[r]);
+      }
+    }
+  }
+  __syncwarp();
+  float mx, co_sum, vsum;
+  if (binary) {
+    unsigned m = regs && lane < C ? n_cube : 0u;
+    for (int c = lane; !regs && c < C; c += 32) m = max(m, row[c]);
+    mx = (float)__reduce_max_sync(kFull, m);
+    co_sum = (float)__reduce_add_sync(kFull, n_co2) * 0.5f;
+    vsum = (float)__reduce_add_sync(kFull, n_v);
+  } else {
+    float m = __int_as_float(0xff800000);   // -inf
+    for (int c = lane; c < C; c += 32) m = fmaxf(m, s_row[c]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      m = fmaxf(m, __shfl_xor_sync(kFull, m, off));
+      f_co += __shfl_xor_sync(kFull, f_co, off);
+      f_v += __shfl_xor_sync(kFull, f_v, off);
+    }
+    mx = m;
+    co_sum = f_co;
+    vsum = f_v;
+  }
+  if (lane == 0) {
+    const float total = fmaxf(vsum, 1.f);
+    const float co_frac = co_sum / total;
+    float imb = (mx / total - ta.inv_c) * ta.recip;
+    imb = fminf(fmaxf(imb, 0.f), 1.f);
+    ta.out[(size_t)b * ta.K + k] = co_frac - 0.5f * imb;
+  }
+  __syncwarp();   // the row is free for the warp's next candidate
+}
+
 // kSharedRows: the lane's P-sized working rows live in shared memory (where
 // they fit), else the output rows in device memory are worked on directly.
 //
@@ -329,20 +469,28 @@ __device__ __forceinline__ const int* pick(int which, const int* a,
 // one at a time from the thread whose access won its page's stamp race.
 // Any other window adds its float values with float atomics.  Both give
 // the reference's bits under its contract.
-template <bool kSharedRows>
+//
+// kTom: the shared stage also scores the TOM candidates (a.tom), a warp
+// per candidate after the stamp race, from the candidate table that a bulk
+// copy on a barrier of its own landed in shared memory where a.tom_smem,
+// else from device memory.
+template <bool kSharedRows, bool kTom>
 __global__ void __launch_bounds__(kThreads)
 fused_epoch_kernel(FusedArgs a) {
   extern __shared__ __align__(128) float smem[];
   __shared__ unsigned s_rhist[256];
   __shared__ unsigned s_sel[2];
   __shared__ __align__(8) uint64_t s_bar;
+  __shared__ __align__(8) uint64_t s_bar_tom;
 
   const int b = blockIdx.x, tid = threadIdx.x, nt = kThreads;
   const int lane = tid & 31, warp = tid >> 5;
   const int W = a.W, P = a.P, C = a.C, L = a.L, M = a.M, W3 = 3 * W;
   const int CC = C * C;
+  const bool bulk_tom = kTom && a.tom_smem;
   const Plan pl(W, C, L, M, P, a.run_route, a.run_shared, a.pei, a.aimm,
-                kSharedRows);
+                kSharedRows, kTom ? tom_words(a.tom.C) : 0,
+                bulk_tom ? round4(a.tom.K * P) : 0);
   float* s_routes = smem + pl.routes;
   float* s_hops = smem + pl.hops;
   float* s_hist = smem + pl.hist;
@@ -352,6 +500,8 @@ fused_epoch_kernel(FusedArgs a) {
   float* s_dist = smem + pl.dist;
   float* s_mcq = smem + pl.mcq;
   int* s_nmc = reinterpret_cast<int*>(smem + pl.nmc);
+  float* s_tom = smem + pl.tom;
+  int* s_tcands = reinterpret_cast<int*>(smem + pl.tcands);
   unsigned char* s_win = reinterpret_cast<unsigned char*>(smem + pl.bytes);
   unsigned char* s_hot1 = s_win + W3;
   unsigned char* s_hot2 = s_hot1 + W;
@@ -393,17 +543,23 @@ fused_epoch_kernel(FusedArgs a) {
     const size_t o = (size_t)b * W + tid;
     pdp = a.dest[o]; pp1 = a.src1[o]; pp2 = a.src2[o]; pv = a.valid[o];
   }
-  if ((bulk_rows || bulk_route) && tid < 32) {
+  const uint32_t tom_bytes = bulk_tom ? a.tom.K * P * 4 : 0;
+  if ((bulk_rows || bulk_route || bulk_tom) && tid < 32) {
     const RowBody sb = bulk_rows ? RowBody(st_in, P + 1) : RowBody();
     const RowBody eb = bulk_rows && a.pei ? RowBody(ema_in, P) : RowBody();
     if (tid == 0) {
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-                   :: "r"(smem_u32(&s_bar)));
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-      const uint32_t bytes = (bulk_route ? CC * L * 4 + CC * 4 : 0) +
-                             sb.bytes + eb.bytes;
-      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                   :: "r"(smem_u32(&s_bar)), "r"(bytes) : "memory");
+      auto expect = [](uint64_t* bar, uint32_t bytes) {
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                     :: "r"(smem_u32(bar)));
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+        asm volatile(
+            "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+            :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+      };
+      if (bulk_rows || bulk_route)
+        expect(&s_bar, (bulk_route ? CC * L * 4 + CC * 4 : 0) + sb.bytes +
+                           eb.bytes);
+      if (bulk_tom) expect(&s_bar_tom, tom_bytes);
     }
     __syncwarp();
     if (tid == 0 && bulk_route)
@@ -413,6 +569,8 @@ fused_epoch_kernel(FusedArgs a) {
       bulk_g2s(s_st + sb.head, st_in + sb.head, sb.bytes, &s_bar);
     if (tid == 3 && eb.bytes)
       bulk_g2s(s_ema + eb.head, ema_in + eb.head, eb.bytes, &s_bar);
+    if (tid == 4 && bulk_tom)
+      bulk_g2s(s_tcands, a.tom.cands, tom_bytes, &s_bar_tom);
   }
   if (bulk_rows) {
     row_ends(s_st, st_in, P + 1, 0);
@@ -517,6 +675,20 @@ fused_epoch_kernel(FusedArgs a) {
       } else {
         if (a.pei) atomicAdd(&ema[page], v);
         if (a.aimm) atomicAdd(&touch[page], v);
+      }
+    }
+    if (kTom) {   // a warp per candidate, over the window in shared memory
+      auto op = [&](int w, int& d, int& x, int& y, float& v) {
+        d = s_dest[w]; x = s_src1[w]; y = s_src2[w]; v = s_valid[w];
+      };
+      auto window_binary = [&](const float (&)[kTomR]) { return binary; };
+      float* s_row = s_tom + warp * round4(a.tom.C);
+      if (bulk_tom && warp < a.tom.K) mbar_wait(&s_bar_tom, 0);
+      for (int k = warp; k < a.tom.K; k += kWarps) {
+        if (bulk_tom)
+          tom_warp(a.tom, k, s_tcands, W, P, s_row, b, op, window_binary);
+        else
+          tom_warp(a.tom, k, a.tom.cands, W, P, s_row, b, op, window_binary);
       }
     }
     __syncthreads();
@@ -666,73 +838,93 @@ fused_epoch_kernel(FusedArgs a) {
   for (int m = tid; m < M; m += nt) a.mcq[(size_t)b * M + m] = value(s_mcq, m);
 }
 
-// One block per lane, one warp per TOM candidate mapping.  Every sum is of
-// halves or 0/1 values, so the warp reductions are exact in any order; the
-// score then follows the reference's float32 expression step by step
-// (division by the constant (1 - 1/C) as a multiply by its float32
-// reciprocal, as XLA compiles it).
-__global__ void tom_scores_kernel(const int* dest, const int* src1,
-                                  const int* src2, const float* valid,
-                                  const int* cands, float* out, int W, int P,
-                                  int K, int C, float inv_c, float recip) {
-  extern __shared__ float s_cnt[];  // (K, C) per-cube op counts
-  const int b = blockIdx.x;
-  const int k = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int i = threadIdx.x; i < K * C; i += blockDim.x) s_cnt[i] = 0.f;
-  __syncthreads();
-  if (k >= K) return;
-  const int* cand = cands + (size_t)k * P;
-  float co_sum = 0.f, vsum = 0.f;
-  for (int w = lane; w < W; w += 32) {
-    const size_t o = (size_t)b * W + w;
-    const int d = cand[dest[o]], x = cand[src1[o]], y = cand[src2[o]];
-    const float v = valid[o];
-    const float co = ((x == d ? 1.f : 0.f) + (y == d ? 1.f : 0.f)) * 0.5f;
-    co_sum += co * v;
-    vsum += v;
-    atomicAdd(&s_cnt[k * C + d], v);
-  }
+// The TOM scorer alone (ops.tom_scores): a one-warp block per (lane,
+// candidate), so the K candidates' gathers go through K SMs' load units, not
+// one.  The warp reads the window's ops straight from device memory, so its
+// gathers follow the window's loads with nothing in between, and decides
+// from the window's valid flags by a warp vote whether its sums are integer
+// counts.
+__global__ void __launch_bounds__(32)
+tom_scores_kernel(const int* dest, const int* src1, const int* src2,
+                  const float* valid, TomArgs ta, int W, int P) {
+  extern __shared__ __align__(16) float s_row[];   // the warp's row (C)
+  const int b = blockIdx.x, lane = threadIdx.x;
+  const size_t row0 = (size_t)b * W;
+  auto op = [&](int w, int& d, int& x, int& y, float& v) {
+    d = dest[row0 + w]; x = src1[row0 + w]; y = src2[row0 + w];
+    v = valid[row0 + w];
+  };
+  auto is01 = [](float v) { return v == 0.f || v == 1.f; };
+  auto window_binary = [&](const float (&v)[kTomR]) {
+    bool ok = true;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    co_sum += __shfl_xor_sync(0xffffffffu, co_sum, off);
-    vsum += __shfl_xor_sync(0xffffffffu, vsum, off);
-  }
-  __syncwarp();
-  if (lane == 0) {
-    float mx = s_cnt[k * C];
-    for (int c = 1; c < C; ++c) mx = fmaxf(mx, s_cnt[k * C + c]);
-    const float total = fmaxf(vsum, 1.f);
-    const float co_frac = co_sum / total;
-    float imb = (mx / total - inv_c) * recip;
-    imb = fminf(fmaxf(imb, 0.f), 1.f);
-    out[(size_t)b * K + k] = co_frac - 0.5f * imb;
-  }
+    for (int r = 0; r < kTomR; ++r) ok = ok && is01(v[r]);
+    for (int w = 32 * kTomR + lane; w < W; w += 32)
+      ok = ok && is01(valid[row0 + w]);
+    return __all_sync(kFull, ok) != 0;
+  };
+  tom_warp(ta, blockIdx.y, ta.cands, W, P, s_row, b, op, window_binary);
 }
 
-template <bool kSharedRows>
+// Sets the kernel's dynamic shared-memory limit to `smem` where that is
+// above what it was set to (the attribute only grows).
+template <class Kernel>
+int reserve_smem(Kernel kernel, size_t smem, size_t& smem_set) {
+  if (smem <= smem_set) return 0;
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  smem_set = smem;
+  return 0;
+}
+
+template <bool kSharedRows, bool kTom>
 int launch(const FusedArgs& a, int B, size_t smem, void* stream) {
-  static size_t smem_set = 48 * 1024 - kStaticSmem;   // the attribute only grows
-  if (smem > smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fused_epoch_kernel<kSharedRows>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    smem_set = smem;
-  }
-  fused_epoch_kernel<kSharedRows><<<B, kThreads, smem,
-                                    static_cast<cudaStream_t>(stream)>>>(a);
+  static size_t smem_set = 48 * 1024 - kStaticSmem;
+  const int e = reserve_smem(fused_epoch_kernel<kSharedRows, kTom>, smem,
+                             smem_set);
+  if (e) return e;
+  fused_epoch_kernel<kSharedRows, kTom><<<B, kThreads, smem,
+                                          static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-const char* repro_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+// The fused launch with or without the TOM fold (tom.cands null).
+int fused_launch(FusedArgs& a, int B, void* stream) {
+  // one bulk copy of the route and hop tables where both are 16-byte
+  // multiples on 16-byte addresses; else the threads copy them
+  auto aligned = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  };
+  const int C = a.C, L = a.L, W = a.W, M = a.M, P = a.P;
+  a.bulk_routes = a.run_route && (C * C * L) % 4 == 0 && (C * C) % 4 == 0 &&
+                  aligned(a.routes_flat) && aligned(a.hops_flat);
+  const bool tom = a.tom.cands != nullptr;
+  if (tom && (!a.run_shared || a.tom.K < 1 || a.tom.C < 1))
+    return (int)cudaErrorInvalidValue;
+  const int tw = tom ? tom_words(a.tom.C) : 0;
+  auto words = [&](int rows, int tc) {
+    return Plan(W, C, L, M, P, a.run_route, a.run_shared, a.pei, a.aimm,
+                rows, tw, tc).total;
+  };
+  // the lane's P-sized working rows in shared memory where they fit; then
+  // the TOM candidate table where it fits too (one bulk copy: 16-byte
+  // multiple on a 16-byte address, below the barrier's 2^20-byte count)
+  const bool rows = words(1, 0) <= kMaxSmem / 4;
+  const int tc = round4(a.tom.K * P);
+  a.tom_smem = tom && (a.tom.K * P) % 4 == 0 && aligned(a.tom.cands) &&
+               (size_t)a.tom.K * P * 4 < (1u << 20) &&
+               words(rows, tc) <= kMaxSmem / 4;
+  const size_t smem = (size_t)words(rows, a.tom_smem ? tc : 0) * 4;
+  if (tom)
+    return rows ? launch<true, true>(a, B, smem, stream)
+                : launch<false, true>(a, B, smem, stream);
+  return rows ? launch<true, false>(a, B, smem, stream)
+              : launch<false, false>(a, B, smem, stream);
 }
 
-int fused_epoch_launch(
+FusedArgs fused_args(
     const void* dest, const void* src1, const void* src2, const void* valid,
     const void* epochs, const void* rb_stamp_in, void* rb_stamp,
     void* rb_winner, const void* page_ema_in, void* page_ema,
@@ -741,9 +933,9 @@ int fused_epoch_launch(
     const void* technique, const void* is_aimm, const void* pending,
     const void* routes_flat, const void* hops_flat, const void* nearest_mc,
     void* ccube, void* loads, void* hops_op, void* ops_c, void* acc_c,
-    void* distinct_c, void* mcq, int B, int W, int P, int C, int L, int M,
+    void* distinct_c, void* mcq, int W, int P, int C, int L, int M,
     int pei_k, int run_shared, int run_route, int pei, int aimm,
-    float packet_flits, void* stream) {
+    float packet_flits) {
   FusedArgs a;
   a.dest = static_cast<const int*>(dest);
   a.src1 = static_cast<const int*>(src1);
@@ -778,34 +970,70 @@ int fused_epoch_launch(
   a.W = W; a.P = P; a.C = C; a.L = L; a.M = M; a.pei_k = pei_k;
   a.run_shared = run_shared; a.run_route = run_route;
   a.pei = pei; a.aimm = aimm; a.packet_flits = packet_flits;
-  // one bulk copy of the route and hop tables where both are 16-byte
-  // multiples on 16-byte addresses; else the threads copy them
-  auto aligned = [](const void* p) {
-    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-  };
-  a.bulk_routes = run_route && (C * C * L) % 4 == 0 && (C * C) % 4 == 0 &&
-                  aligned(routes_flat) && aligned(hops_flat);
+  a.tom = TomArgs{nullptr, nullptr, 0, 0, 0.f, 0.f};
+  a.tom_smem = 0;
+  return a;
+}
 
-  // the lane's P-sized working rows in shared memory where they fit
-  const bool rows = Plan(W, C, L, M, P, run_route, run_shared, pei, aimm, 1)
-                        .total <= kMaxSmem / 4;
-  const size_t smem =
-      (size_t)Plan(W, C, L, M, P, run_route, run_shared, pei, aimm, rows)
-          .total * 4;
-  return rows ? launch<true>(a, B, smem, stream)
-              : launch<false>(a, B, smem, stream);
+}  // namespace
+
+extern "C" {
+
+const char* repro_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+#define FUSED_PARAMS                                                        \
+    const void *dest, const void *src1, const void *src2, const void *valid, \
+    const void *epochs, const void *rb_stamp_in, void *rb_stamp,             \
+    void *rb_winner, const void *page_ema_in, void *page_ema,                \
+    const void *n_pages, const void *pei_idx, void *pei_hot1,                \
+    void *pei_hot2, void *touch_cnt, const void *eff_table,                  \
+    const void *compute_remap, const void *technique, const void *is_aimm,   \
+    const void *pending, const void *routes_flat, const void *hops_flat,     \
+    const void *nearest_mc, void *ccube, void *loads, void *hops_op,         \
+    void *ops_c, void *acc_c, void *distinct_c, void *mcq, int B, int W,     \
+    int P, int C, int L, int M, int pei_k, int run_shared, int run_route,    \
+    int pei, int aimm, float packet_flits
+#define FUSED_ARGS                                                          \
+    dest, src1, src2, valid, epochs, rb_stamp_in, rb_stamp, rb_winner,       \
+    page_ema_in, page_ema, n_pages, pei_idx, pei_hot1, pei_hot2, touch_cnt,  \
+    eff_table, compute_remap, technique, is_aimm, pending, routes_flat,      \
+    hops_flat, nearest_mc, ccube, loads, hops_op, ops_c, acc_c, distinct_c,  \
+    mcq, W, P, C, L, M, pei_k, run_shared, run_route, pei, aimm,             \
+    packet_flits
+
+int fused_epoch_launch(FUSED_PARAMS, void* stream) {
+  FusedArgs a = fused_args(FUSED_ARGS);
+  return fused_launch(a, B, stream);
+}
+
+// fused_epoch_launch with the TOM fold: tom_out (B, K) receives the scores
+// of the K candidate tables tom_cands (K, P) over C cubes (run_shared only).
+int fused_epoch_tom_launch(FUSED_PARAMS, const void* tom_cands, void* tom_out,
+                           int K, int tom_c, float inv_c, float recip,
+                           void* stream) {
+  FusedArgs a = fused_args(FUSED_ARGS);
+  a.tom = TomArgs{static_cast<const int*>(tom_cands),
+                  static_cast<float*>(tom_out), K, tom_c, inv_c, recip};
+  return fused_launch(a, B, stream);
 }
 
 int tom_scores_launch(const void* dest, const void* src1, const void* src2,
                       const void* valid, const void* cands, void* out, int B,
                       int W, int P, int K, int C, float inv_c, float recip,
                       void* stream) {
-  const size_t smem = (size_t)K * C * sizeof(float);
-  tom_scores_kernel<<<B, 32 * K, smem, static_cast<cudaStream_t>(stream)>>>(
+  static size_t smem_set = 48 * 1024;
+  const size_t smem = (size_t)round4(C) * 4;
+  const int e = reserve_smem(tom_scores_kernel, smem, smem_set);
+  if (e) return e;
+  const TomArgs ta{static_cast<const int*>(cands), static_cast<float*>(out),
+                   K, C, inv_c, recip};
+  tom_scores_kernel<<<dim3(B, K), 32, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(dest), static_cast<const int*>(src1),
-      static_cast<const int*>(src2), static_cast<const float*>(valid),
-      static_cast<const int*>(cands), static_cast<float*>(out), W, P, K, C,
-      inv_c, recip);
+      static_cast<const int*>(src2), static_cast<const float*>(valid), ta, W,
+      P);
   return (int)cudaGetLastError();
 }
 

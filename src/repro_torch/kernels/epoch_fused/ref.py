@@ -35,6 +35,7 @@ class SharedParts(NamedTuple):
     pei_hot1: torch.Tensor | None     # (B, W) bool src1 above PEI threshold
     pei_hot2: torch.Tensor | None     # (B, W) bool
     touch_cnt: torch.Tensor | None    # (B, P) f32 window touch counts (AIMM)
+    tom_scores: torch.Tensor | None = None  # (B, K) f32 TOM candidate scores
 
 
 class RouteParts(NamedTuple):

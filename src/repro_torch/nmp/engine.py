@@ -6,8 +6,8 @@ One AIMM episode is a Python loop over epochs; each epoch runs
   shared + route stages : one launch of the fused epoch kernel
              (kernels/epoch_fused): row-buffer stamps, PEI threshold, access
              EMA, page touch counts, technique + compute-remap scheduling,
-             per-link flit loads, hop and per-cube counts
-  TOM      : one launch of the TOM scoring kernel for TOM programs
+             per-link flit loads, hop and per-cube counts, and for TOM
+             programs the TOM candidates' scores in the same launch
   time     : cycles = mc_inject + max(compute, link, dram serialization)
              + mean latency + NMP-table overflow stalls + migration stalls
   feedback : OPC = ops/cycles; reward = sign(dOPC); state vector
@@ -345,8 +345,8 @@ def _fetch_window(env: EnvState, trace: dict, ctx: TraceCtx,
 
 def _epoch_sim(env: EnvState, win: Window, tom_cands: torch.Tensor,
                ctx: TraceCtx, cfg: NMPConfig, spec: StateSpec,
-               agent_cfg: AgentConfig, flags: BodyFlags, topo: TopoTensors,
-               tom_scores_all: torch.Tensor | None) -> EpochMid:
+               agent_cfg: AgentConfig, flags: BodyFlags,
+               topo: TopoTensors) -> EpochMid:
     """Everything up to (but excluding) the agent's action: scheduling,
     routing, timing, reward bookkeeping, hot-page selection and the state
     vector, for every lane."""
@@ -369,13 +369,15 @@ def _epoch_sim(env: EnvState, win: Window, tom_cands: torch.Tensor,
     else:
         eff_table = env.page_to_cube
 
-    # ---- shared + route stages: ONE launch of the fused epoch kernel ----
+    # ---- shared + route stages, and the TOM candidates' scores on this
+    # window (SharedEpoch.tom_scores): ONE launch of the fused epoch kernel
     sparts, rparts = epoch_ops.fused_parts(
         dest, src1, src2, valid, env.epochs, env.rb_stamp,
         env.page_access_ema, ctx.n_pages, ctx.pei_idx, eff_table,
         env.compute_remap, ctx.technique, is_aimm, env.pending_mig_loads,
         topo, pei_k=flags.pei_k, aimm=flags.any_aimm, n_mcs=cfg.n_mcs,
-        packet_flits=cfg.packet_flits)
+        packet_flits=cfg.packet_flits,
+        tom_cands=tom_cands if flags.any_tom else None)
     page_ema = (sparts.page_ema if sparts.page_ema is not None
                 else env.page_access_ema)
     ccube, loads, hops_op = rparts.ccube, rparts.loads, rparts.hops_op
@@ -503,7 +505,7 @@ def _epoch_sim(env: EnvState, win: Window, tom_cands: torch.Tensor,
                      < ctx.n_pages[:, None]).to(torch.float32)
         pc = torch.clamp(phase, 0, K - 1).long()
         scored = env.tom_scores.clone()
-        scored[rows, pc] = tom_scores_all[rows, pc]
+        scored[rows, pc] = sparts.tom_scores[rows, pc]
         tom_scores = _where(is_tom & (phase < K), scored, env.tom_scores)
         commit = is_tom & (phase == K)
         best = torch.argmax(tom_scores, dim=1).to(torch.int32)
@@ -546,14 +548,6 @@ def _epoch_sim(env: EnvState, win: Window, tom_cands: torch.Tensor,
         touches_hot=touches_hot, ccube_hot=ccube_hot, svec=svec,
         tom_scores=tom_scores, tom_active=tom_active,
         mig_stall_tom=mig_stall_tom, migrated_tom=migrated_tom, energy=en)
-
-
-def _tom_window_scores(win: Window, tom_cands: torch.Tensor,
-                       cfg: NMPConfig) -> torch.Tensor:
-    """(B, K) co-location scores of every TOM candidate on each lane's
-    window: one launch of the TOM scoring kernel."""
-    return epoch_ops.tom_scores(win.dest, win.src1, win.src2, win.valid,
-                                tom_cands, cfg.n_cubes)
 
 
 # ---------------------------------------------------------------------------
@@ -782,10 +776,8 @@ def _epoch(env: EnvState, agent: AgentState | None, trace: dict,
            flags: BodyFlags, topo: TopoTensors, gen: torch.Generator):
     """One epoch over the B lanes."""
     win = _fetch_window(env, trace, ctx, cfg)
-    tom_scores_all = (_tom_window_scores(win, tom_cands, cfg)
-                      if flags.any_tom else None)
     mid = _epoch_sim(env, win, tom_cands, ctx, cfg, spec, agent_cfg, flags,
-                     topo, tom_scores_all)
+                     topo)
     is_aimm = ctx.mapper == MAPPER_ID["aimm"]
     forced = ctx.forced_action
     scripted = torch.where(mid.invoke, forced, torch.full_like(forced,

@@ -1,6 +1,7 @@
 """The port's fused epoch core (repro_torch.kernels.epoch_fused, CPU path =
 plain torch) against the JAX reference's stage dispatchers, in all three
-call shapes (shared only, route only, both fused) and the TOM scorer.
+call shapes (shared only, route only, both fused) and the TOM scorer, alone
+and folded into the shared stage (`tom_cands`).
 
 The reference runs through its own CPU paths: `backend="jnp"` and the
 Pallas kernel in interpret mode (`"pallas_interpret"`), under `jax.jit` as
@@ -24,6 +25,7 @@ from repro.nmp.engine import pei_hot_index, pei_top_k
 from repro.nmp.topology import get_topology
 from repro.nmp.traces import make_trace
 from repro_torch.kernels.epoch_fused import ops as t_ops
+from repro_torch.nmp.baselines import tom_candidates
 from repro_torch.nmp.config import NMPConfig as TCfg
 from repro_torch.nmp.topology import topology_tensors
 
@@ -76,6 +78,18 @@ def _eq(got: torch.Tensor, want, name):
     assert np.array_equal(got.astype(want.dtype), want), name
 
 
+def _shared_eq(got, want):
+    """The port's SharedParts against the reference's, field by field.  The
+    reference's has no tom_scores field (its SharedEpoch carries them); the
+    port's is None where the call had no tom_cands."""
+    assert got.tom_scores is None
+    for f in want._fields:
+        if getattr(want, f) is None:
+            assert getattr(got, f) is None, f
+        else:
+            _eq(getattr(got, f), getattr(want, f), f)
+
+
 def _j_shared(x, pei, aimm, backend):
     fn = jax.jit(functools.partial(j_ops.shared_parts,
                                    pei_k=x["pei_k"] if pei else 0, aimm=aimm,
@@ -84,12 +98,23 @@ def _j_shared(x, pei, aimm, backend):
               x["rb_stamp"], x["page_ema"], x["n_pages"], x["pei_idx"])
 
 
-def _t_shared(x, pei, aimm):
+def _t_shared(x, pei, aimm, **tom):
     return t_ops.shared_parts(
         _b(x["dest"]), _b(x["src1"]), _b(x["src2"]), _b(x["valid"]),
         _b(x["epochs"]), _b(x["rb_stamp"]), _b(x["page_ema"]),
         _b(x["n_pages"]), _b(x["pei_idx"]), pei_k=x["pei_k"] if pei else 0,
-        aimm=aimm)
+        aimm=aimm, **tom)
+
+
+def _t_fused(x, pei, aimm, tech, is_aimm, **tom):
+    return t_ops.fused_parts(
+        _b(x["dest"]), _b(x["src1"]), _b(x["src2"]), _b(x["valid"]),
+        _b(x["epochs"]), _b(x["rb_stamp"]), _b(x["page_ema"]),
+        _b(x["n_pages"]), _b(x["pei_idx"]), _b(x["eff_table"]),
+        _b(x["compute_remap"]), _b(tech), _b(np.bool_(is_aimm)),
+        _b(x["pending"]), topology_tensors(TCfg(), CPU),
+        pei_k=x["pei_k"] if pei else 0, aimm=aimm, n_mcs=CFG.n_mcs,
+        packet_flits=CFG.packet_flits, **tom)
 
 
 @pytest.mark.parametrize("pei,aimm", FLAGS, ids=FLAG_IDS)
@@ -99,11 +124,7 @@ def test_shared_stage_equal(backend, app, n_ops, pei, aimm):
     x = _inputs(app, n_ops, seed=1)
     want = _j_shared(x, pei, aimm, backend)
     got = _t_shared(x, pei, aimm)
-    for f in got._fields:
-        if getattr(want, f) is None:
-            assert getattr(got, f) is None, f
-        else:
-            _eq(getattr(got, f), getattr(want, f), f)
+    _shared_eq(got, want)
 
 
 def test_shared_stage_partial_window_and_threshold_ties():
@@ -112,8 +133,7 @@ def test_shared_stage_partial_window_and_threshold_ties():
     x["page_ema"] = np.full_like(x["page_ema"], 0.9)
     want = _j_shared(x, True, True, "jnp")
     got = _t_shared(x, True, True)
-    for f in got._fields:
-        _eq(getattr(got, f), getattr(want, f), f)
+    _shared_eq(got, want)
 
 
 def _route_inputs(x, pei, aimm, backend):
@@ -165,40 +185,33 @@ def test_fused_call_equal(pei, aimm, is_aimm):
                   x["rb_stamp"], x["page_ema"], x["n_pages"], x["pei_idx"],
                   x["eff_table"], x["compute_remap"], tech,
                   np.bool_(is_aimm), x["pending"])
-    gsp, grp = t_ops.fused_parts(
-        _b(x["dest"]), _b(x["src1"]), _b(x["src2"]), _b(x["valid"]),
-        _b(x["epochs"]), _b(x["rb_stamp"]), _b(x["page_ema"]),
-        _b(x["n_pages"]), _b(x["pei_idx"]), _b(x["eff_table"]),
-        _b(x["compute_remap"]), _b(tech), _b(np.bool_(is_aimm)),
-        _b(x["pending"]), topology_tensors(TCfg(), CPU),
-        pei_k=x["pei_k"] if pei else 0, aimm=aimm, n_mcs=CFG.n_mcs,
-        packet_flits=CFG.packet_flits)
-    for f in gsp._fields:
-        if getattr(wsp, f) is None:
-            assert getattr(gsp, f) is None, f
-        else:
-            _eq(getattr(gsp, f), getattr(wsp, f), f)
+    gsp, grp = _t_fused(x, pei, aimm, tech, is_aimm)
+    _shared_eq(gsp, wsp)
     for f in grp._fields:
         _eq(getattr(grp, f), getattr(wrp, f), f)
 
 
 def test_three_call_shapes_agree():
-    """fused == shared then route, inside the port."""
+    """fused == shared then route, inside the port (the TOM scores of the
+    shared stage included)."""
     x = _inputs("BP", 16384, seed=5)
     topo = topology_tensors(TCfg(), CPU)
+    cands = tom_candidates(int(x["n_pages"]), TCfg(), CPU)
     args = [_b(x[k]) for k in ("dest", "src1", "src2", "valid")]
     common = dict(pei_k=x["pei_k"], aimm=True)
     rt = dict(n_mcs=CFG.n_mcs, packet_flits=CFG.packet_flits)
     sp = t_ops.shared_parts(*args, _b(x["epochs"]), _b(x["rb_stamp"]),
                             _b(x["page_ema"]), _b(x["n_pages"]),
-                            _b(x["pei_idx"]), **common)
+                            _b(x["pei_idx"]), **common, tom_cands=cands,
+                            n_cubes=CFG.n_cubes)
     rest = (_b(x["eff_table"]), _b(x["compute_remap"]), _b(np.int32(2)),
             _b(np.bool_(True)), _b(x["pending"]), topo)
     rp = t_ops.route_parts(*args, sp.rb_winner, sp.pei_hot1, sp.pei_hot2,
                            *rest, **common, **rt)
     fsp, frp = t_ops.fused_parts(*args, _b(x["epochs"]), _b(x["rb_stamp"]),
                                  _b(x["page_ema"]), _b(x["n_pages"]),
-                                 _b(x["pei_idx"]), *rest, **common, **rt)
+                                 _b(x["pei_idx"]), *rest, **common, **rt,
+                                 tom_cands=cands)
     for a, b in list(zip(sp, fsp)) + list(zip(rp, frp)):
         assert torch.equal(a, b)
 
@@ -218,3 +231,54 @@ def test_tom_scores_equal(backend, app, n_ops, n_valid):
                            _b(x["valid"]), torch.from_numpy(cands.copy()),
                            CFG.n_cubes)
     _eq(got, want, "tom_scores")
+
+
+@pytest.mark.parametrize("call", ["shared", "fused"])
+@pytest.mark.parametrize("n_valid", [W, 50, 1], ids=["full", "partial",
+                                                    "one"])
+@pytest.mark.parametrize("backend,app,n_ops", BACKEND_APP,
+                         ids=[b for b, _, _ in BACKEND_APP])
+def test_folded_tom_scores_equal(backend, app, n_ops, n_valid, call):
+    """The TOM scores that the shared stage computes when it is given
+    `tom_cands` (shared_parts or fused_parts) against the reference's
+    tom_scores op, equal to the port's standalone op, with every other
+    output of the stage as without TOM."""
+    from repro.nmp.baselines import tom_candidates as j_tom_candidates
+    x = _inputs(app, n_ops, seed=7, n_valid=n_valid)
+    cands = np.asarray(j_tom_candidates(int(x["n_pages"]), CFG))
+    fn = jax.jit(functools.partial(j_ops.tom_scores, n_cubes=CFG.n_cubes,
+                                   backend=backend))
+    want = fn(x["dest"], x["src1"], x["src2"], x["valid"], cands)
+    tc = torch.from_numpy(cands.copy())
+    if call == "shared":
+        got = _t_shared(x, True, True, tom_cands=tc, n_cubes=CFG.n_cubes)
+        base = _t_shared(x, True, True)
+    else:
+        tech = np.int32(2)
+        got, grp = _t_fused(x, True, True, tech, True, tom_cands=tc)
+        base, brp = _t_fused(x, True, True, tech, True)
+        for a, b in zip(grp, brp):
+            assert torch.equal(a, b)
+    _eq(got.tom_scores, want, "tom_scores")
+    alone = t_ops.tom_scores(_b(x["dest"]), _b(x["src1"]), _b(x["src2"]),
+                             _b(x["valid"]), tc, CFG.n_cubes)
+    assert torch.equal(got.tom_scores, alone)
+    assert base.tom_scores is None
+    for f in base._fields:
+        if f != "tom_scores":
+            assert torch.equal(getattr(got, f), getattr(base, f)), f
+
+
+def test_folded_tom_needs_the_shared_stage_and_n_cubes():
+    x = _inputs("KM", 2048, seed=3)
+    cands = tom_candidates(int(x["n_pages"]), TCfg(), CPU)
+    with pytest.raises(ValueError, match="n_cubes"):
+        _t_shared(x, True, True, tom_cands=cands)
+    with pytest.raises(ValueError, match="run_shared"):
+        t_ops.fused_epoch_call(
+            _b(x["dest"]), _b(x["src1"]), _b(x["src2"]), _b(x["valid"]),
+            rb_winner=torch.zeros((1, 3 * W), dtype=torch.bool),
+            eff_table=_b(x["eff_table"]), technique=_b(np.int32(0)),
+            pending_mig_loads=_b(x["pending"]),
+            topo=topology_tensors(TCfg(), CPU), run_shared=False,
+            n_mcs=CFG.n_mcs, packet_flits=CFG.packet_flits, tom_cands=cands)

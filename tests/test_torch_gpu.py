@@ -210,7 +210,7 @@ def test_fused_epoch_pei_ties_at_threshold(cuda, P):
     _check_three_shapes(cuda, x, topo, pei_k, True, False)
 
 
-@pytest.mark.parametrize("n_valid", [128, 41])
+@pytest.mark.parametrize("n_valid", [128, 41, 1])
 def test_tom_scores_equal_plain(cuda, n_valid):
     from repro_torch.kernels.epoch_fused import ops, ref
     from repro_torch.nmp.baselines import tom_candidates
@@ -221,6 +221,109 @@ def test_tom_scores_equal_plain(cuda, n_valid):
     win = [x["dest"], x["src1"], x["src2"], valid]
     got = ops.tom_scores(*win, cands, 16)
     assert torch.equal(got, ref.tom_stage(*win, cands, 16))
+
+
+def _tom_window(dev, B, W, P, seed, fractional):
+    """B lanes of a W-op window over P pages; valid flags 0/1, or (the
+    kernels' float path) multiples of 1/4, whose sums are exact in any
+    order."""
+    rng = np.random.default_rng(seed)
+    on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    pages = [on(rng.integers(0, P, (B, W)).astype(np.int32))
+             for _ in range(3)]
+    levels = np.array([0.0, 0.25, 0.5, 0.75, 1.0] if fractional
+                      else [0.0, 1.0, 1.0, 1.0], np.float32)
+    return pages + [on(rng.choice(levels, (B, W)))]
+
+
+@pytest.mark.parametrize("K,W,fractional,C", [
+    (1, 128, False, 16), (32, 128, False, 16), (6, 128, True, 16),
+    (6, 130, True, 16), (32, 300, False, 16), (6, 128, False, 40)],
+    ids=["k1", "k32", "fractional", "odd-width", "k32-wide", "40-cubes"])
+def test_tom_scores_float_path_and_k_range(cuda, K, W, fractional, C):
+    """The standalone scorer at the ends of its K range, on a window whose
+    valid flags are not all 0/1 (float sums), widths that are not a
+    multiple of 32 or take several rounds of 128 ops, and more cubes than a
+    warp has lanes (per-cube counts in shared memory); random candidate
+    tables, 3 lanes."""
+    from repro_torch.kernels.epoch_fused import ops, ref
+    P = 3000
+    win = _tom_window(cuda, 3, W, P, seed=K + W, fractional=fractional)
+    gen = torch.Generator(device=cuda).manual_seed(K)
+    cands = torch.randint(0, C, (K, P), generator=gen, device=cuda,
+                          dtype=torch.int32)
+    before = ops.launches["tom_scores"]
+    got = ops.tom_scores(*win, cands, C)
+    assert ops.launches["tom_scores"] == before + 1
+    assert torch.equal(got, ref.tom_stage(*win, cands, C))
+
+
+@pytest.mark.parametrize("P,W", [(4096, 128), (30000, 128), (1030, 300)])
+@pytest.mark.parametrize("pei,aimm,fractional", [
+    (True, False, False), (False, True, False), (False, True, True)],
+    ids=["pei", "bnmp+aimm", "bnmp+aimm-fractional"])
+def test_tom_fold_equal_plain(cuda, pei, aimm, fractional, P, W):
+    """The TOM scores folded into the shared stage (shared_parts and
+    fused_parts given tom_cands): equal to the plain version and to the
+    standalone kernel, with the launch's other outputs equal to those of
+    the same launch without TOM.  P = 30000 takes the instantiation whose
+    rows stay in device memory; W = 300 takes the fold's later rounds.
+    Valid flags in quarters take the float sums (not with PEI: float
+    atomics onto an EMA are not exact in every order)."""
+    from repro_torch.kernels.epoch_fused import ops, ref
+    from repro_torch.nmp.baselines import tom_candidates
+    from repro_torch.nmp.config import NMPConfig
+    cfg = NMPConfig()
+    valid = None
+    if fractional:
+        valid = np.random.default_rng(P).choice(
+            np.array([0.0, 0.25, 0.5, 1.0], np.float32), (4, W))
+    x, topo, pei_k = _synthetic_epoch(cuda, 4, P, seed=P + W, W=W,
+                                      valid=valid)
+    cands = tom_candidates(P, cfg, cuda)
+    win = [x[k] for k in ("dest", "src1", "src2", "valid")]
+    k = pei_k if pei else 0
+    tech = torch.tensor([2 * (i % 2) if pei else 0 for i in range(4)],
+                        dtype=torch.int32, device=cuda)
+    rt = dict(n_mcs=cfg.n_mcs, packet_flits=cfg.packet_flits)
+    want = ref.tom_stage(*win, cands, cfg.n_cubes)
+    alone = ops.tom_scores(*win, cands, cfg.n_cubes)
+    shared = lambda **tom: ops.shared_parts(
+        *win, x["epochs"], x["rb_stamp"], x["page_ema"], x["n_pages"],
+        x["pei_idx"], pei_k=k, aimm=aimm, **tom)
+    fused = lambda **tom: ops.fused_parts(
+        *win, x["epochs"], x["rb_stamp"], x["page_ema"], x["n_pages"],
+        x["pei_idx"], x["eff_table"], x["compute_remap"], tech,
+        x["is_aimm"], x["pending"], topo, pei_k=k, aimm=aimm, **rt, **tom)
+    before = dict(ops.launches)
+    sp = shared(tom_cands=cands, n_cubes=cfg.n_cubes)
+    fsp, frp = fused(tom_cands=cands)
+    assert ops.launches["tom_scores_folded"] == \
+        before["tom_scores_folded"] + 2
+    assert ops.launches["fused_epoch"] == before["fused_epoch"] + 2
+    assert ops.launches["tom_scores"] == before["tom_scores"]
+    base_sp, (base_fsp, base_frp) = shared(), fused()
+    torch.cuda.synchronize()
+    for got in (sp.tom_scores, fsp.tom_scores):
+        assert torch.equal(got, want)
+        assert torch.equal(got, alone)
+    _equal(sp._replace(tom_scores=None), base_sp)
+    _equal(fsp._replace(tom_scores=None), base_fsp)
+    _equal(frp, base_frp)
+
+
+def test_pei_tom_episode_scores_in_the_fused_launch(cuda):
+    """A PEI + TOM episode scores its TOM candidates inside the fused epoch
+    kernel: one launch per epoch, no standalone scorer launch."""
+    from repro_torch.kernels.epoch_fused import ops as eops
+    from repro_torch.nmp.config import NMPConfig
+    from repro_torch.nmp.engine import run_episode
+    from repro_torch.nmp.traces import make_trace
+    eops.reset_launches()
+    run_episode(make_trace("KM", n_ops=1024), NMPConfig(), "pei", "tom",
+                seed=1, device=cuda)
+    assert eops.launches == {"fused_epoch": 8, "tom_scores": 0,
+                             "tom_scores_folded": 8}
 
 
 @pytest.mark.parametrize("agents", [1, 3])

@@ -16,7 +16,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted(PORT.rglob("*.py")) + [
+    ROOT / n for n in ("chip_smoke.py", "same_call_baseline.py",
+                       "episode_in_turns.py")]
 OPS_FILES = sorted(PORT.rglob("ops.py"))
 
 
@@ -125,5 +127,6 @@ def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
                       device="cpu")
     assert res.env.cycles.device.type == "cpu"
     assert np.isfinite(float(res.env.cycles))
-    assert eops.launches == {"fused_epoch": 0, "tom_scores": 0}
+    assert eops.launches == {"fused_epoch": 0, "tom_scores": 0,
+                             "tom_scores_folded": 0}
     assert qops.launches == {"dueling_qnet": 0}
