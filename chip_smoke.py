@@ -19,18 +19,45 @@ Phases (each prints its lines; the run exits 0 only if every phase passes):
     time of the wrapper too; the pei flag set with and without the TOM
     fold in turns (without, with, with, without); and the launch floor (a
     graph-timed one-element in-place add) beside each bound.
- 3. deterministic cells on the card against the port's own CPU path:
-    SPMV/2048 pei/tom and KM/384 pei/aimm with forced action 5, seed 2.
- 4. the main path at full size: `run_program(BP/16384, "bnmp", "aimm",
-    episodes=2)` (learned AIMM, the paper's Table-1 system) and
-    `run_episode(BP/16384, "pei", "tom")`, with the kernels' launch counts
-    set to 0 just before and read just after.  The TOM scores ride in the
-    fused epoch launch: every PEI + TOM epoch counts one folded scoring
-    and no standalone tom_scores launch; the kernels line gives
-    tom_scores the sum of both counts, and each beside it.
- 5. profile: torch.profiler over one warm episode of each main-path
-    program (device busy share, launches per epoch, top kernels by time,
-    and the AIMM kernels' rows wherever they rank).
+ 3. the threefry kernel (`csrc/threefry.cu`, every `jax.random` draw of
+    the engine) against its plain version on 2^20 keys: split, bits,
+    uniform, randint and choice (neighbour-validity weights; also at
+    B = 45), torch.equal, graph-timed with the inputs outside L2 beside
+    the bytes bound in 32-bit words and in the int64 key layout;
+    the TD step's batch-invariant products and sums
+    (`csrc/batched_linear.cu`) at G = 45 agents within 1e-5 of their plain
+    versions, agent 0 alone equal bit for bit to agent 0 of 45, and a
+    whole TD step's wall, host issue and device time at G = 1 and 45,
+    kernels against plain torch in turns;
+    then kernels 1-3 at the batched engine's widths on the figure grid
+    (shared stage with the TOM fold at B = 15 lanes, route stage and
+    fused launch at B = 45 cells, qnet at G = 45), equal to their plain
+    versions (qnet within 1e-4) and graph-timed.
+ 4. cells on the card against the port's own CPU path: SPMV/2048 pei/tom
+    and KM/384 pei/aimm with forced action 5, and KM/384 bnmp/aimm with
+    forced actions 1 and 3 (the NEAR actions' neighbour draw from the env
+    key), seed 2.
+ 5. the single-episode main path at full size: `run_program(BP/16384,
+    "bnmp", "aimm", episodes=2)` (learned AIMM, the paper's Table-1 system)
+    and `run_episode(BP/16384, "pei", "tom")`, with the kernels' launch
+    counts set to 0 just before and read just after.  The TOM scores ride
+    in the fused epoch launch: every PEI + TOM epoch counts one folded
+    scoring and no standalone tom_scores launch; every random draw of the
+    learned episodes is a threefry launch.  Then torch.profiler over one
+    warm episode of each program (device busy share, launches per epoch,
+    top kernels by time, and the AIMM kernels' rows wherever they rank).
+ 5b. the batched engine's main path: `run_grid` over the 135-cell figure
+    grid (benchmarks/common.py figure_grid: BP, KM, PR, RBM, SPMV x bnmp,
+    ldb, pei x none, tom, aimm at 16384 ops, seeds 0-2 folded, learned
+    lanes 5 episodes plus a greedy eval episode), counts set to 0 just
+    before and read just after: wall time, delivered cell-epochs/s, launches
+    by kernel and shape, peak device memory; 6 of its cells again through
+    `run_grid_serial` on the card (deterministic lanes ==; learned lanes
+    epoch by epoch: action and invoke ==, OPC within rtol 1e-5, up to a
+    float-order near-tie, where the actions part at an invocation whose
+    top-two Q gap is below 1e-4 relative); a profile of the learned
+    group's epoch loop.  (`grid_in_turns.py` times this grid under two
+    settings of a knob in turns.)
  6. model-zoo kernels vs their plain-torch versions on the card, at the
     main-path shapes (B 1, S 4096): flash attention at minitron-8b's
     (H 32, K 8, hd 128) in bf16 (the wgmma kernel) and f32 within the bars
@@ -73,6 +100,12 @@ BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 TF32_OPS_PER_S = 495e12        # H100 SXM TF32 tensor cores, dense
 BP_OPS = 16384                 # paper-scale trace length
 W = 128
+# the figure grid (benchmarks/common.py figure_grid) with three seeds
+GRID_APPS = ("BP", "KM", "PR", "RBM", "SPMV")
+GRID_TECHS = ("bnmp", "ldb", "pei")
+GRID_SEEDS = (0, 1, 2)
+GRID_AIMM_EPISODES = 5
+GRID_AIMM_LANES = len(GRID_APPS) * len(GRID_TECHS)
 
 
 def log(msg: str) -> None:
@@ -133,13 +166,13 @@ def qnet_inputs(device, seed: int = 0):
     128/128, 8 actions; random biases) and states of 1 row (act) and 64
     rows (TD targets): (params, {rows: states})."""
     import torch
-    from repro_torch.core import dqn
+    from repro_torch.core import dqn, prng
     from repro_torch.nmp.config import NMPConfig
     from repro_torch.nmp.engine import default_agent_cfg
     acfg = default_agent_cfg(NMPConfig())
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    params = dqn.init_params(gen, acfg.dqn, 1, device)
+    params = dqn.init_params(prng.PRNGKey(seed, device), acfg.dqn, 1, device)
     for k in params:
         if k.startswith("b"):
             params[k] = 0.1 * torch.randn(params[k].shape, generator=gen,
@@ -421,6 +454,404 @@ def phase_kernels(dev) -> list[dict]:
         replaces="src/repro/kernels/dueling_qnet/kernel.py:43",
         **qrec, library_ms=None, launch_floor_ms=floor))
     return results
+
+
+def sweep_inputs(device, lanes: int, seeds: int):
+    """Fused-kernel inputs of L lanes (L·S cells) as the batched engine's
+    main path gives them: BP/16384 windows at L different epochs, each with
+    its own seeded state; the route inputs per cell (S seeded variants of a
+    lane's tables).  Returns (lane inputs, cell inputs, topo, pei_k)."""
+    import torch
+    per = [epoch_inputs(device, seed=i, epoch=(7 * i + 3) % 120)
+           for i in range(lanes * seeds)]
+    topo, pei_k = per[0][1], per[0][2]
+    cat = lambda xs, k: torch.cat([x[k] for x in xs])
+    keys = per[0][0].keys()
+    lane = {k: cat([per[l * seeds][0] for l in range(lanes)], k)
+            for k in keys}
+    cell = {k: cat([p[0] for p in per], k) for k in keys}
+    for k in ("dest", "src1", "src2", "valid"):   # cells share their window
+        cell[k] = lane[k].repeat_interleave(seeds, 0)
+    return lane, cell, topo, pei_k
+
+
+def phase_sweep_widths(dev, floor: float) -> dict[str, dict]:
+    """Kernels 1-3 at the batched engine's widths on the figure grid
+    (15 learned lanes of 3 seeds): the shared stage with the TOM fold at
+    B = 15 lanes, the route stage and the fused launch at B = 45 cells,
+    the qnet at G = 45 agents (N = 1 and 64), each against its plain
+    version (torch.equal; qnet 1e-4) and graph-timed."""
+    import torch
+    from repro_torch.core import dqn, prng
+    from repro_torch.kernels.dueling_qnet import ops as qops
+    from repro_torch.kernels.dueling_qnet.ref import dueling_qnet_ref
+    from repro_torch.kernels.epoch_fused import ops as eops
+    from repro_torch.kernels.epoch_fused import ref as eref
+    from repro_torch.nmp.baselines import tom_candidates
+    from repro_torch.nmp.config import NMPConfig
+    cfg = NMPConfig()
+    L, S = GRID_AIMM_LANES, len(GRID_SEEDS)
+    lane, cell, topo, pei_k = sweep_inputs(dev, L, S)
+    P = lane["eff_table"].shape[1]
+    cands = tom_candidates(P, cfg, dev)
+    rt = dict(n_mcs=cfg.n_mcs, packet_flits=cfg.packet_flits)
+    win = lambda x: [x[k] for k in ("dest", "src1", "src2", "valid")]
+    tech = torch.tensor([(0, 1, 2)[i % 3] for i in range(L * S)],
+                        dtype=torch.int32, device=dev)
+    out = {}
+    shared = lambda: eops.shared_parts(
+        *win(lane), lane["epochs"], lane["rb_stamp"], lane["page_ema"],
+        lane["n_pages"], lane["pei_idx"], pei_k=pei_k, aimm=True,
+        tom_cands=cands, n_cubes=cfg.n_cubes)
+    sp = shared()
+    want = eref.shared_stage(*win(lane), lane["epochs"], lane["rb_stamp"],
+                             lane["page_ema"], lane["n_pages"],
+                             lane["pei_idx"], pei_k=pei_k, aimm=True)
+    want_tom = eref.tom_stage(*win(lane), cands, cfg.n_cubes)
+    if not (all_equal(sp._replace(tom_scores=None), want)
+            and torch.equal(sp.tom_scores, want_tom)):
+        raise AssertionError(f"fused_epoch shared+tom at B={L} differs from"
+                             f" its plain version")
+    rep = lambda t: t.repeat_interleave(S, 0)
+    route = lambda: eops.route_parts(
+        *win(cell), rep(sp.rb_winner), rep(sp.pei_hot1), rep(sp.pei_hot2),
+        cell["eff_table"], cell["compute_remap"], tech, cell["is_aimm"],
+        cell["pending"], topo, pei_k=pei_k, aimm=True, **rt)
+    route_plain = lambda: eref.route_stage(
+        *win(cell), rep(sp.rb_winner), rep(sp.pei_hot1), rep(sp.pei_hot2),
+        cell["eff_table"], cell["compute_remap"], tech, cell["is_aimm"],
+        cell["pending"], topo.routes_flat, topo.hops_flat, topo.nearest_mc,
+        pei=True, aimm=True, **rt)
+    if not all_equal(route(), route_plain()):
+        raise AssertionError(f"fused_epoch route at B={L * S} differs from "
+                             f"its plain version")
+    fused = lambda: eops.fused_parts(
+        *win(cell), cell["epochs"], cell["rb_stamp"], cell["page_ema"],
+        cell["n_pages"], cell["pei_idx"], cell["eff_table"],
+        cell["compute_remap"], tech, cell["is_aimm"], cell["pending"], topo,
+        pei_k=pei_k, aimm=True, tom_cands=cands, **rt)
+    fsp, frp = fused()
+    wsp = eref.shared_stage(*win(cell), cell["epochs"], cell["rb_stamp"],
+                            cell["page_ema"], cell["n_pages"],
+                            cell["pei_idx"], pei_k=pei_k, aimm=True)
+    wrp = eref.route_stage(*win(cell), wsp.rb_winner, wsp.pei_hot1,
+                           wsp.pei_hot2, cell["eff_table"],
+                           cell["compute_remap"], tech, cell["is_aimm"],
+                           cell["pending"], topo.routes_flat, topo.hops_flat,
+                           topo.nearest_mc, pei=True, aimm=True, **rt)
+    if not (all_equal((fsp._replace(tom_scores=None), frp), (wsp, wrp))
+            and torch.equal(fsp.tom_scores, eref.tom_stage(
+                *win(cell), cands, cfg.n_cubes))):
+        raise AssertionError(f"fused_epoch fused+tom at B={L * S} differs "
+                             f"from its plain version")
+    times = {f"shared_tom_b{L}_ms": graph_ms(shared),
+             f"route_b{L * S}_ms": graph_ms(route),
+             f"fused_tom_b{L * S}_ms": graph_ms(fused),
+             f"route_b{L * S}_plain_ms": graph_ms(route_plain)}
+    log(f"[widths] fused_epoch (pei+aimm flags, TOM fold): shared+tom B={L}"
+        f", route B={L * S} and fused+tom B={L * S} equal to the plain "
+        f"versions; " + ", ".join(f"{k} {v:.5f}" for k, v in times.items())
+        + f" (graph), launch floor {floor:.5f} ms")
+    out["fused_epoch"] = times
+
+    keys = prng.split(prng.PRNGKey(3, dev), L * S)
+    acfg_dqn = dqn.DQNConfig(state_dim=106)
+    params = dqn.init_params(keys, acfg_dqn, L * S, dev)
+    qk = ("w0", "b0", "w1", "b1", "w_v", "b_v", "w_a", "b_a")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    qt = {}
+    for n in (1, 64):
+        xs = torch.rand((L * S, n, 106), generator=gen, device=dev) * 2
+        got = qops.qnet_forward(params, xs)
+        want = dueling_qnet_ref(xs, *[params[k] for k in qk])
+        if not torch.allclose(got, want, rtol=1e-4, atol=1e-4):
+            raise AssertionError(f"dueling_qnet G={L * S} N={n} differs "
+                                 f"from its plain version beyond 1e-4")
+        qt[f"g{L * S}_n{n}_ms"] = graph_ms(
+            lambda: qops.qnet_forward(params, xs))
+        qt[f"g{L * S}_n{n}_max_abs_err"] = max_abs_err(got, want)
+    log(f"[widths] dueling_qnet G={L * S}: within 1e-4 at N=1 and 64; "
+        + ", ".join(f"{k} {v:.5g}" for k, v in qt.items())
+        + " (graph)")
+    out["dueling_qnet"] = qt
+    return out
+
+
+def td_agents(dev, G: int):
+    """G fresh agents of the paper's Q network (state 106, hidden 128 x 2,
+    8 actions) with full replays of random transitions, so a TD step
+    samples, trains and updates every agent."""
+    import dataclasses
+    import torch
+    from repro_torch.core import agent as agent_mod
+    from repro_torch.nmp.config import NMPConfig
+    from repro_torch.nmp.engine import default_agent_cfg
+    cfg = default_agent_cfg(NMPConfig())
+    ag = agent_mod.cold_start(torch.arange(G, device=dev), cfg)
+    rb = ag.replay
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(G)
+    rnd = lambda t: torch.randn(t.shape, generator=gen, device=dev)
+    rb = dataclasses.replace(
+        rb, s=rnd(rb.s), s2=rnd(rb.s2), r=rnd(rb.r),
+        a=torch.randint(0, cfg.dqn.n_actions, rb.a.shape, generator=gen,
+                        device=dev, dtype=rb.a.dtype),
+        size=torch.full_like(rb.size, rb.s.shape[1]))
+    return ag.replace(replay=rb), cfg
+
+
+def td_step_times(dev, G: int, plain: bool) -> dict:
+    """One TD step (`agent.train`: minibatch draw, Q forward, autograd
+    backward, clipped Adam) for G agents, eager: the wall per step over 30
+    steps ending in a synchronize, the host's issue time per step (the same
+    loop timed without the synchronize: the host is the bound when it is
+    close to the wall), the device's kernel time per step from
+    torch.profiler, and the launches of the TD step's own kernels.  With
+    `plain` the Q layers and the gradient norm are the plain torch versions
+    (cuBLAS bmm, torch sums: the parent's TD step)."""
+    import torch
+    from repro_torch.core import agent as agent_mod
+    from repro_torch.core import dqn
+    from repro_torch.kernels.batched_linear import ops as lops
+    from repro_torch.kernels.batched_linear import ref as lref
+    from repro_torch.train import optimizer
+    ag, cfg = td_agents(dev, G)
+    saved = dqn.linear, optimizer.sq_norm
+    if plain:
+        dqn.linear, optimizer.sq_norm = lref.linear, lref.sq_norm
+    try:
+        step = lambda: agent_mod.train(ag, cfg)
+        for _ in range(5):
+            step()
+        torch.cuda.synchronize()
+        n = 30
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        issue = (time.perf_counter() - t0) / n
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n
+        before = lops.launches["batched_linear"]
+        step()
+        kern = lops.launches["batched_linear"] - before
+        _, rows = profiled(lambda: [step() for _ in range(10)])
+    finally:
+        dqn.linear, optimizer.sq_norm = saved
+    return dict(wall_ms=wall * 1e3, issue_ms=issue * 1e3,
+                device_ms=sum(r[0] for r in rows) / 10 / 1e3,
+                launches=sum(r[1] for r in rows) / 10, kernel_launches=kern)
+
+
+def phase_batched_linear(dev, floor: float) -> dict:
+    """The TD step's batch-invariant products and sums on the card, at the
+    grid's learned group (G = 45 agents, 64 replay rows, state 106, hidden
+    128): the first layer's forward (product and bias, one launch), its
+    input gradient, its weight and bias gradients (one launch) and the
+    gradient norm over the Q network's 8 leaves (one launch), each within
+    rtol 1e-5 of its plain version (cuBLAS / torch sums, another order) and
+    agent 0's result at G = 45 equal bit for bit to the same agent alone
+    (G = 1): the property the kernels exist for.  Graph-timed beside the
+    plain version and, for the forward, one library call (torch.baddbmm).
+    Then one whole TD step at G = 1 and G = 45, kernels and plain in turns
+    (kernels, plain, plain, kernels): wall, host issue and device time per
+    step, so the host's share of the step is measured, not guessed."""
+    import torch
+    from repro_torch.kernels.batched_linear import ops as lops
+    from repro_torch.kernels.batched_linear import ref as lref
+    G, N, S_, H = GRID_AIMM_LANES * len(GRID_SEEDS), 64, 106, 128
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+    x, w, dy, bias = rnd(G, N, S_), rnd(G, S_, H) * 0.1, rnd(G, N, H), rnd(G, H)
+    ag, _ = td_agents(dev, G)
+    leaves = [rnd(*t.shape) for _, t in sorted(ag.params.items())]
+    n_leaf = sum(t[0].numel() for t in leaves)
+    cases = {   # name: (kernel, plain, args, flops, bytes an agent)
+        "fwd": (lambda a, b, c: lops.bgemm(a, b, c),
+                lambda a, b, c: lref.bgemm(a, b, c), (x, w, bias),
+                2 * N * S_ * H + N * H, 4 * (N * S_ + S_ * H + H + N * H)),
+        "dx": (lambda a, b: lops.bgemm(a, b.transpose(1, 2)),
+               lambda a, b: lref.bgemm(a, b.transpose(1, 2)), (dy, w),
+               2 * N * S_ * H, 4 * (N * H + S_ * H + N * S_)),
+        "dw_db": (lambda a, b: lops.bgemm_colsum(a.transpose(1, 2), b),
+                  lambda a, b: lref.bgemm_colsum(a.transpose(1, 2), b),
+                  (x, dy), 2 * N * S_ * H + N * H,
+                  4 * (N * S_ + N * H + S_ * H + H)),
+        "sq_norm": (lambda *ls: lops.sq_norm(list(ls)),
+                    lambda *ls: lref.sq_norm(list(ls)), tuple(leaves),
+                    2 * n_leaf, 4 * (n_leaf + 1)),
+    }
+    rec = {}
+    for name, (kern, plain, args, flops, nbytes) in cases.items():
+        got, want = kern(*args), plain(*args)
+        if not all(torch.allclose(g_, w_, rtol=1e-5, atol=1e-5)
+                   for g_, w_ in zip(_tensors(got), _tensors(want))):
+            raise AssertionError(f"batched_linear {name} differs from its "
+                                 f"plain version beyond 1e-5: "
+                                 f"{max_abs_err(got, want)}")
+        alone = kern(*(t[:1] for t in args))
+        if not all(torch.equal(a_[0], g_[0])
+                   for a_, g_ in zip(_tensors(alone), _tensors(got))):
+            raise AssertionError(f"batched_linear {name}: agent 0 alone "
+                                 f"differs from agent 0 of {G}")
+        plain_alone = plain(*(t[:1] for t in args))
+        plain_inv = all(torch.equal(a_[0], g_[0]) for a_, g_ in zip(
+            _tensors(plain_alone), _tensors(want)))
+        k_ms = graph_ms(lambda: kern(*args))
+        p_ms = graph_ms(lambda: plain(*args))
+        b_ms, b_by = bound(G * nbytes, G * flops)
+        rec[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                         max_abs_err=max_abs_err(got, want))
+        log(f"[batched_linear] {name} G={G}: within 1e-5 of plain (max abs "
+            f"err {rec[name]['max_abs_err']:.3g}), agent 0 alone == agent 0"
+            f" of {G} (plain: {'==' if plain_inv else 'differs'}); kernel "
+            f"{k_ms:.5f} ms/launch (graph), plain {p_ms:.5f} ms, bound "
+            f"{b_ms:.6f} ms ({b_by}), launch floor {floor:.5f} ms")
+    lib_ms = graph_ms(lambda: torch.baddbmm(bias[:, None, :], x, w))
+    log(f"[batched_linear] fwd G={G}: library torch.baddbmm {lib_ms:.5f} ms")
+    # host cost of one wrapper call against one torch call, G = 1 (eager:
+    # both host-bound at this size)
+    x1, w1, b1 = x[:1], w[:1], bias[:1]
+    host_k = eager_ms(lambda: lops.bgemm(x1, w1, b1))
+    host_t = eager_ms(lambda: torch.baddbmm(b1[:, None, :], x1, w1))
+    log(f"[batched_linear] one eager call at G=1 (host-bound): kernel "
+        f"wrapper {host_k:.5f} ms, torch.baddbmm {host_t:.5f} ms")
+    td = {}
+    for g_ in (1, G):
+        for plain in (False, True, True, False):
+            r = td_step_times(dev, g_, plain)
+            td.setdefault((g_, plain), []).append(r)
+            log(f"[batched_linear] TD step G={g_} "
+                f"{'plain torch' if plain else 'kernels'}: wall "
+                f"{r['wall_ms']:.4f} ms/step, host issue {r['issue_ms']:.4f} "
+                f"ms, device {r['device_ms']:.4f} ms in {r['launches']:.0f} "
+                f"launches ({r['kernel_launches']} batched_linear)")
+    first = rec["fwd"]
+    return dict(
+        name="batched_linear", route="cuda",
+        source="src/repro_torch/csrc/batched_linear.cu",
+        replaces="none: XLA's dot_general and reductions of the TD step "
+                 "(src/repro/core/dqn.py td_loss under jax.value_and_grad), "
+                 "no pallas_call",
+        **first, library_ms=lib_ms, launch_floor_ms=floor,
+        host_call_ms=host_k, host_call_torch_ms=host_t,
+        **{f"{m}_{k}": v for m, r in rec.items() for k, v in r.items()
+           if m != "fwd"},
+        **{f"td_G{g_}_{'plain' if p else 'kernels'}_{k}":
+           [r[k] for r in rs] for (g_, p), rs in td.items()
+           for k in ("wall_ms", "issue_ms", "device_ms")})
+
+
+def cold_graph_ms(fn, inputs: list, reps: int = 24) -> float:
+    """graph_ms of fn(*inputs[i]) with the input sets taken in turn (their
+    total above the card's 50 MB L2) and every call's output kept alive
+    while timing, so each call reads its inputs from device memory and
+    writes its outputs to fresh memory: the bytes bound then applies."""
+    import itertools
+    keep, turn = [], itertools.count()
+    try:
+        return graph_ms(lambda: keep.append(
+            fn(*inputs[next(turn) % len(inputs)])), reps=reps)
+    finally:
+        keep.clear()
+
+
+def neighbour_weights(dev, n: int):
+    """choice's p as `actions.random_neighbor` builds it on the paper's
+    Table-1 system: key i's row is the validity row of cube i % C over the
+    topology's D neighbour slots, divided by its count (edge cubes have
+    zero slots)."""
+    import torch
+    from repro_torch.nmp.config import NMPConfig
+    from repro_torch.nmp.topology import get_topology
+    valid = torch.from_numpy(get_topology(NMPConfig()).nbr_valid).to(dev)
+    p = valid[torch.arange(n, device=dev) % valid.shape[0]].to(torch.float32)
+    return p / torch.clamp(p.sum(dim=1, keepdim=True), min=1.0)
+
+
+def phase_prng(dev, floor: float) -> dict:
+    """The threefry kernel against its plain version (ref.py, on the card,
+    same inputs) on 2^20 keys, one launch per draw: split, bits, uniform,
+    randint and choice (p = neighbour-validity rows, as random_neighbor
+    draws NEAR targets), torch.equal; choice also at B = 45 keys, the
+    grid's learned group.  Graph-timed with six input sets taken in turn
+    and fresh outputs (so the draws stream through device memory, not the
+    50 MB L2), beside two bytes bounds over 3.35 TB/s: the function's own
+    bytes in 32-bit words (a key 8 B, a bits draw 4 B; `bound_ms`) and the
+    port's int64 key layout (a key 16 B, a bits draw 8 B), which doubles
+    the key traffic; the integer operations (~90 a hash) are counted at
+    the f32 rate (the table has no int32 rate)."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.kernels.threefry import ops as tops
+    from repro_torch.kernels.threefry import ref as tref
+    n, n_sets = 1 << 20, 6
+    D = neighbour_weights(dev, 1).shape[1]
+    sets = []
+    for j in range(n_sets):
+        keys = prng.split(prng.PRNGKey(j, dev), n)
+        hi = ((torch.arange(n, device=dev) * (j + 1)) % 4096 + 1).to(
+            torch.int32)
+        p = neighbour_weights(dev, n).roll(j, dims=0).contiguous()
+        sets.append((keys, hi, p))
+    # mode: (kernel, plain, hashes a key, (in, out) bytes a key as int64
+    # layout, (in, out) as 32-bit words)
+    draws = {
+        "split": (lambda k, h, p: tops.split(k, 2),
+                  lambda k, h, p: tref.split(k, 2), 2, (16, 32), (8, 16)),
+        "bits": (lambda k, h, p: tops.bits(k, ()),
+                 lambda k, h, p: tref.bits(k, ()), 1, (16, 8), (8, 4)),
+        "uniform": (lambda k, h, p: tops.uniform(k, ()),
+                    lambda k, h, p: tref.uniform(k, ()), 1, (16, 4), (8, 4)),
+        "randint": (lambda k, h, p: tops.randint(k, (), 0, h),
+                    lambda k, h, p: tref.randint(k, (), 0, h), 4,
+                    (16 + 4, 4), (8 + 4, 4)),
+        "choice": (lambda k, h, p: tops.choice(k, p),
+                   lambda k, h, p: tref.choice(k, p), 1,
+                   (16 + 4 * D, 8), (8 + 4 * D, 4)),
+    }
+    rec = {}
+    for mode, (kern, plain, hashes, lay, words) in draws.items():
+        for j, args in enumerate(sets[:2]):
+            if not torch.equal(kern(*args), plain(*args)):
+                raise AssertionError(f"threefry {mode} differs from its "
+                                     f"plain version (input set {j})")
+        k_ms = cold_graph_ms(kern, sets)
+        p_ms = cold_graph_ms(plain, sets, reps=6)
+        ops_n = n * (hashes * 90 + (2 * D if mode == "choice" else 0))
+        b_ms, b_by = bound(n * sum(words), ops_n)
+        l_ms, _ = bound(n * sum(lay), ops_n)
+        log(f"[prng] threefry {mode} on 2^20 keys: equal; kernel {k_ms:.5f} "
+            f"ms/launch (graph, inputs and outputs outside L2), plain "
+            f"{p_ms:.5f} ms, bound {b_ms:.6f} ms ({b_by}, {n * sum(words)} B "
+            f"as 32-bit words), {l_ms:.6f} ms in the int64 key layout "
+            f"({n * sum(lay)} B), launch floor {floor:.5f} ms")
+        rec[mode] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                         bound_by=b_by, bound_int64_layout_ms=l_ms)
+    # choice at the grid's learned group: 45 keys, one launch each
+    k45 = prng.split(prng.PRNGKey(45, dev), 45)
+    p45 = neighbour_weights(dev, 45)
+    got, want = tops.choice(k45, p45), tref.choice(k45, p45)
+    if not torch.equal(got, want):
+        raise AssertionError("threefry choice at B = 45 differs from its "
+                             "plain version")
+    c45_ms = graph_ms(lambda: tops.choice(k45, p45))
+    c45_plain = graph_ms(lambda: tref.choice(k45, p45))
+    c45_b, c45_by = bound(45 * (8 + 4 * D + 4), 45 * (90 + 2 * D))
+    log(f"[prng] threefry choice at B = 45: equal (draws "
+        f"{got.tolist()[:8]}...); kernel {c45_ms:.5f} ms/launch (graph), "
+        f"plain {c45_plain:.5f} ms, bound {c45_b:.7f} ms ({c45_by}), launch "
+        f"floor {floor:.5f} ms")
+    rec["choice45"] = dict(ms=c45_ms, plain_ms=c45_plain, bound_ms=c45_b)
+    first = rec["split"]
+    return dict(
+        name="threefry", route="cuda", source="src/repro_torch/csrc/threefry.cu",
+        replaces="none: XLA's own threefry2x32 lowering "
+                 "(jax/_src/prng.py _threefry2x32_lowering), no pallas_call",
+        max_abs_err=0.0, **first, library_ms=None, launch_floor_ms=floor,
+        keys=n, **{f"{m}_{k}": v for m, r in rec.items() for k, v in r.items()
+                   if m != "split"})
 
 
 # The model zoo's prefill shape: the repo's prefill_32k (S 32768, batch 32)
@@ -760,7 +1191,9 @@ def phase_cells(dev) -> None:
     from repro_torch.nmp.stats import summarize
     from repro_torch.nmp.traces import make_trace
     for app, n, tech, mapper, forced in (("SPMV", 2048, "pei", "tom", -1),
-                                         ("KM", 384, "pei", "aimm", 5)):
+                                         ("KM", 384, "pei", "aimm", 5),
+                                         ("KM", 384, "bnmp", "aimm", 1),
+                                         ("KM", 384, "bnmp", "aimm", 3)):
         tr = make_trace(app, n_ops=n)
         runs = {d: run_episode(tr, NMPConfig(), tech, mapper, seed=2,
                                forced_action=forced, device=d)
@@ -790,6 +1223,8 @@ def phase_main_path(dev) -> dict[str, int]:
     import torch
     from repro_torch.kernels.dueling_qnet import ops as qops
     from repro_torch.kernels.epoch_fused import ops as eops
+    from repro_torch.kernels.batched_linear import ops as lops
+    from repro_torch.kernels.threefry import ops as tops
     from repro_torch.nmp.config import NMPConfig
     from repro_torch.nmp.engine import run_episode, run_program
     from repro_torch.nmp.stats import summarize
@@ -800,17 +1235,21 @@ def phase_main_path(dev) -> dict[str, int]:
     torch.cuda.reset_peak_memory_stats()
     eops.reset_launches()
     qops.reset_launches()
+    tops.reset_launches()
+    lops.reset_launches()
     t0 = time.perf_counter()
     results = run_program(tr, cfg, "bnmp", "aimm", episodes=2, seed=0,
                           device=dev)
     torch.cuda.synchronize()
     t_prog = time.perf_counter() - t0
     fused_prog = eops.launches["fused_epoch"]
+    threefry_prog = tops.launches["threefry"]
     t0 = time.perf_counter()
     tom = run_episode(tr, cfg, "pei", "tom", seed=0, device=dev)
     torch.cuda.synchronize()
     t_tom = time.perf_counter() - t0
-    launches = {**eops.launches, **qops.launches}
+    launches = {**eops.launches, **qops.launches, **tops.launches,
+                **lops.launches}
     peak = torch.cuda.max_memory_allocated()
 
     epochs = 0
@@ -843,7 +1282,9 @@ def phase_main_path(dev) -> dict[str, int]:
                               sorted(qops.launches_by_rows.items())},
              "tom_scores": dict(
                  launches_standalone=launches["tom_scores"],
-                 launches_folded=launches["tom_scores_folded"])}
+                 launches_folded=launches["tom_scores_folded"]),
+             "threefry": {f"launches_{m}": c for m, c in
+                          sorted(tops.launches_by_mode.items())}}
     log(f"[main] launches: {json.dumps(launches)}; by shape "
         f"{json.dumps(split)}")
     tom_epochs = int(tom.metrics["valid"].shape[0])
@@ -852,9 +1293,206 @@ def phase_main_path(dev) -> dict[str, int]:
     assert launches["tom_scores"] == 0, launches
     assert launches["tom_scores_folded"] == tom_epochs, (launches,
                                                          tom_epochs)
+    # every random draw of the learned episodes is a threefry launch; the
+    # PEI + TOM episode draws nothing
+    assert threefry_prog > 0, launches
+    assert launches["threefry"] == threefry_prog, launches
+    assert launches["batched_linear"] > 0, launches
+    rates = {"bnmp/aimm": 2 * 128 / t_prog, "pei/tom": 128 / t_tom}
     # the TOM scorer's count on the main path: its scorings in any form
     launches["tom_scores"] += launches.pop("tom_scores_folded")
-    return launches, split
+    return launches, split, rates
+
+
+def figure_grid(aimm_episodes: int = GRID_AIMM_EPISODES,
+                eval_episode: bool = True,
+                mappers: tuple[str, ...] = ("none", "tom", "aimm")):
+    """benchmarks/common.py figure_grid at BP_OPS ops with three seeds."""
+    from repro_torch.nmp import scenarios
+    return scenarios.build("single", apps=GRID_APPS, techniques=GRID_TECHS,
+                           mappers=mappers, n_ops=BP_OPS, seeds=GRID_SEEDS,
+                           aimm_episodes=aimm_episodes,
+                           eval_episode=eval_episode)
+
+
+def q_gap(dev, sc, cfg, agent, explore: bool, seed: int, at: int):
+    """Replay one serial episode of a learned lane on the card up to epoch
+    `at` and return the relative top-two Q gap (q1 - q2) / |q1| of the Q
+    values the agent's greedy choice at that epoch's invocation is made from
+    (after the invocation's TD step), or None if it does not act there."""
+    import torch
+    from repro_torch.core import dqn
+    from repro_torch.nmp import engine as eng
+    st = eng.episode_setup(sc.trace, cfg, sc.technique, "aimm", agent, None,
+                           seed, sc.page_table, explore, -1, dev)
+    env, ag, ctx = st.env, st.agent, st.ctx
+    with torch.no_grad():
+        for e in range(at):
+            env, ag, _ = eng._epoch(env, ag, st.trace, st.rw_pages,
+                                    st.tom_cands, ctx, ctx, cfg, st.spec,
+                                    st.agent_cfg, st.flags, st.topo)
+        win = eng._fetch_window(env.op_ptr, st.trace, ctx, cfg)
+        mid = eng._epoch_sim(env, win, st.tom_cands, ctx, cfg, st.spec,
+                             st.agent_cfg, st.flags, st.topo)
+        if not bool(mid.invoke[0]):
+            return None
+        acted, _ = eng._invoke_agent(
+            ag, mid.svec, mid.reward, mid.invoke, env.prev_state_vec,
+            env.prev_action, ctx.explore, mid.invoke,
+            env.prev_span_mean >= 0.0, st.agent_cfg)
+        q = dqn.q_values_infer(acted.params, mid.svec, st.agent_cfg.dqn)[0]
+        top = torch.topk(q, 2).values
+        return float((top[0] - top[1]).abs() / top[0].abs().clamp(min=1e-12))
+
+
+def hold_learned_lane(dev, res, i, sc, cfg) -> str:
+    """A learned lane of the grid against its serial run on the card, every
+    episode epoch by epoch: the action and invoke flag `==` and OPC within
+    rtol 1e-5.  At the first epoch t where they part, the rule of a
+    float-order near-tie applies: the two runs' actions must differ at t, t
+    must be an invocation, and the serial run's top-two Q gap at that
+    invocation must be below 1e-4 relative; anything else fails.  After such
+    a flip both runs act on other states, so the lane's later epochs and
+    episodes are not compared."""
+    import numpy as np
+    from repro_torch.nmp.engine import run_episode, run_program
+    runs = run_program(sc.trace, cfg, sc.technique, "aimm",
+                       episodes=sc.episodes, seed=sc.seed, device=dev)
+    runs.append(run_episode(sc.trace, cfg, sc.technique, "aimm",
+                            agent=runs[-1].agent, seed=sc.seed,
+                            explore=False, device=dev))
+    for e, r in enumerate(runs):
+        act = r.metrics["action"].cpu().numpy()
+        inv = r.metrics["invoke"].cpu().numpy()
+        opc = r.metrics["opc"].cpu().numpy().astype(np.float64)
+        n = len(act)
+        g_act = res.actions[i, e, :n]
+        g_inv = res.metrics["invoke_t"][i, e, :n].astype(np.float32)
+        g_opc = res.metrics["opc_t"][i, e, :n].astype(np.float64)
+        bad = np.flatnonzero((act != g_act) | (inv != g_inv) | ~np.isclose(
+            opc, g_opc, rtol=1e-5, atol=0.0))
+        if bad.size:
+            t = int(bad[0])
+            where = f"{sc.name}: grid and serial part at episode {e} epoch {t}"
+            if act[t] == g_act[t] or inv[t] == 0 or inv[t] != g_inv[t]:
+                raise AssertionError(
+                    f"{where} with equal actions there (invoke {inv[t]} / "
+                    f"{g_inv[t]}, OPC {opc[t]!r} / {g_opc[t]!r})")
+            explore = e < sc.episodes
+            gap = q_gap(dev, sc, cfg, runs[e - 1].agent if e else None,
+                        explore, sc.seed + e if explore else sc.seed, t)
+            if gap is None or not gap < 1e-4:
+                raise AssertionError(
+                    f"{where}: actions {act[t]} / {g_act[t]} with no near-tie "
+                    f"(top-two Q gap {gap!r} relative, bar 1e-4)")
+            return (f"== up to episode {e} epoch {t}; the actions part there "
+                    f"at a near-tie (top-two Q gap {gap:.3g} relative, below "
+                    f"1e-4)")
+    same = all(float(r.env.cycles) == float(res.metrics["cycles"][i, e])
+               for e, r in enumerate(runs))
+    return ("every episode's per-epoch action and invoke ==, OPC "
+            "within rtol 1e-5, cycles " + ("==" if same else
+                                           "within rtol 1e-5"))
+
+
+def phase_grid(dev, rates: dict) -> tuple[dict, dict]:
+    """The batched engine's main path: `run_grid` over the 135-cell figure
+    grid on the paper's Table-1 system, with the kernels' counts set to 0
+    just before and read just after; then 6 of its cells through
+    `run_grid_serial` on the card, and a profile of one agent group."""
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.kernels.dueling_qnet import ops as qops
+    from repro_torch.kernels.epoch_fused import ops as eops
+    from repro_torch.kernels.batched_linear import ops as lops
+    from repro_torch.kernels.threefry import ops as tops
+    from repro_torch.nmp.config import NMPConfig
+    from repro_torch.nmp.sweep import run_grid, run_grid_serial
+    cfg = NMPConfig()
+    grid = figure_grid()
+    assert len(grid) == 135, len(grid)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for ops in (eops, qops, tops, lops):
+        ops.reset_launches()
+    t0 = time.perf_counter()
+    res = run_grid(grid, cfg, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**eops.launches, **qops.launches, **tops.launches,
+                **lops.launches}
+    shapes = {"fused_epoch": dict(eops.launches_by_shape),
+              "dueling_qnet": dict(qops.launches_by_shape),
+              "threefry": dict(tops.launches_by_shape),
+              "batched_linear": dict(lops.launches_by_shape)}
+    peak = torch.cuda.max_memory_allocated()
+    for k in ("fused_epoch", "dueling_qnet", "threefry", "batched_linear",
+              "tom_scores_folded"):
+        if not launches[k] > 0:
+            raise AssertionError(f"run_grid launched no {k}: {launches}")
+    assert launches["tom_scores"] == 0, launches
+    m = res.metrics
+    delivered = 0
+    for i, sc in enumerate(grid):
+        for e in range(sc.total_episodes):
+            s = res.episode_summary(i, e)
+            assert s["ops"] == BP_OPS, (sc.name, e, s["ops"])
+            assert math.isfinite(s["cycles"]) and s["cycles"] > 0, sc.name
+        delivered += int((m["valid_t"][i, :sc.total_episodes] > 0).sum())
+    simulated = res.plan.n_epochs * sum(g.n_lanes * g.n_seeds * g.n_episodes
+                                        for g in res.plan.groups)
+    groups = [(g.n_lanes, g.n_seeds, g.n_episodes,
+               "share" if g.flags.share_seed_inv else "fused")
+              for g in res.plan.groups]
+    log(f"[grid] figure grid: {len(grid)} cells ({', '.join(GRID_APPS)} x "
+        f"{'/'.join(GRID_TECHS)} x none/tom/aimm x seeds {GRID_SEEDS}), "
+        f"groups (lanes, seeds, episodes, stages) {groups}")
+    log(f"[grid] run_grid wall {wall:.3f} s; delivered cell-epochs "
+        f"{delivered} ({delivered / wall:.1f}/s), simulated cell-epochs "
+        f"{simulated} ({simulated / wall:.1f}/s); single-episode epochs/s "
+        f"this call: learned AIMM {rates['bnmp/aimm']:.1f}, PEI + TOM "
+        f"{rates['pei/tom']:.1f}; peak device memory {peak / 2**20:.1f} MiB")
+    log(f"[grid] launches: {json.dumps(launches)}")
+    log(f"[grid] launches by shape: {json.dumps(shapes)}")
+    for i, sc in enumerate(grid[:3]):
+        log(f"[grid] {sc.name}: cycles {res.summary(i)['cycles']!r}, OPC "
+            f"{res.summary(i)['opc']!r}")
+
+    # six cells again through the serial runner, on the card
+    names = [f"{a}/{t}/{mp}/s0" for a, t in (("BP", "bnmp"), ("SPMV", "pei"))
+             for mp in ("none", "tom", "aimm")]
+    for name in names:
+        i = next(j for j, sc in enumerate(grid) if sc.name == name)
+        sc = grid[i]
+        if sc.mapper == "aimm":
+            verdict = hold_learned_lane(dev, res, i, sc, cfg)
+        else:
+            want = run_grid_serial([sc], cfg, device=dev)[0]
+            got = res.summary(i)
+            for k in ("cycles", "ops", "opc"):
+                if got[k] != want[k]:
+                    raise AssertionError(f"{name}: run_grid {k} {got[k]!r} "
+                                         f"!= serial {want[k]!r}")
+            verdict = f"cycles, ops and OPC == ({got['cycles']!r})"
+        log(f"[grid] {name} against run_grid_serial on the card: {verdict}")
+
+    # profile one agent group's epoch loop: the 45 learned cells, 1 episode
+    sub = figure_grid(aimm_episodes=1, eval_episode=False,
+                      mappers=("aimm",))
+    run_grid(sub, cfg, device=dev)                 # warm
+    pwall, rows = profiled(lambda: run_grid(sub, cfg, device=dev))
+    dev_us = sum(r[0] for r in rows)
+    n_kern = sum(r[1] for r in rows)
+    log(f"[grid-profile] {len(sub)} learned cells (one group, B = "
+        f"{len(sub)}), {BP_OPS // W} epochs: wall {pwall * 1e3:.1f} ms "
+        f"(profiler on), device kernels {dev_us / 1e3:.2f} ms in {n_kern} "
+        f"launches, busy share {dev_us / 1e6 / pwall:.4f}, "
+        f"{n_kern / (BP_OPS // W):.1f} launches/epoch")
+    for us, cnt, key in rows[:8]:
+        log(f"[grid-profile]   {us / 1e3:8.3f} ms {cnt:6d}x  {key[:90]}")
+    launches["tom_scores"] += launches.pop("tom_scores_folded")
+    return launches, shapes
 
 
 def profiled(fn):
@@ -970,16 +1608,28 @@ def main() -> int:
                 log(f"[build] {name}: {line.strip()}")
 
     kernels = phase_kernels(dev)
+    floor = kernels[0]["launch_floor_ms"]
+    kernels.append(phase_prng(dev, floor))
+    kernels.append(phase_batched_linear(dev, floor))
+    widths = phase_sweep_widths(dev, floor)
     phase_cells(dev)
-    launches, split = phase_main_path(dev)
+    launches, split, rates = phase_main_path(dev)
     phase_profile(dev)
+    grid_launches, grid_shapes = phase_grid(dev, rates)
     kernels += phase_zoo_kernels(dev)
     phase_zoo_card_vs_cpu(dev)
     launches.update(phase_zoo_model(dev))
     phase_zoo_profile(dev)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
-        k.update(split.get(k["name"], {}))
+        name = k["name"]
+        # each main path's own run: the episodes, the grid, the zoo
+        k["launches"] = launches[name] + grid_launches.get(name, 0)
+        k.update(split.get(name, {}))
+        k.update(widths.get(name, {}))
+        if name in grid_launches:
+            k["launches_episodes"] = launches[name]
+            k["launches_grid"] = grid_launches[name]
+            k["launches_grid_by_shape"] = grid_shapes.get(name, {})
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"[card] {card}")

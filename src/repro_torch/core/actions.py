@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import prng
+
 # Action ids (paper order).
 DEFAULT = 0            # (i)   no mapping change
 NEAR_DATA = 1          # (ii)  migrate page to a random neighbour of the compute cube
@@ -25,25 +27,17 @@ INTERVALS = (100, 125, 167, 250)
 N_INTERVALS = len(INTERVALS)
 
 
-def random_neighbor(gen: torch.Generator, cube: torch.Tensor,
+def random_neighbor(key: torch.Tensor, cube: torch.Tensor,
                     nbr: torch.Tensor, nbr_valid: torch.Tensor) -> torch.Tensor:
     """Uniformly pick one of each lane's cube's topology neighbours (B,).
 
-    A categorical draw over the D neighbour slots with probability
-    proportional to validity, by inverse CDF on one uniform per lane, so an
-    invalid slot is never picked and no host sync is needed.  The draw
-    comes from `gen`, not from a JAX key, so it differs from the reference's
-    bits (see core/agent.py)."""
+    As the reference: a categorical draw over the D neighbour slots with
+    probability proportional to validity (`jax.random.choice(key, D, p=)`,
+    one key (B, 2) per lane), so an invalid slot is never picked."""
     cand = nbr[cube.long()]                              # (B, D)
     p = nbr_valid[cube.long()].to(torch.float32)
     p = p / torch.clamp(p.sum(dim=1, keepdim=True), min=1.0)
-    u = torch.rand((cube.shape[0], 1), generator=gen, device=cube.device)
-    cdf = torch.cumsum(p, dim=1)
-    d = torch.clamp((cdf <= u).sum(dim=1), max=cand.shape[1] - 1)
-    # slots past the last valid one carry zero mass: step back onto it
-    last_valid = cand.shape[1] - 1 - torch.argmax(
-        torch.flip(p > 0, dims=[1]).to(torch.int32), dim=1)
-    d = torch.minimum(d, last_valid)
+    d = prng.choice(key, cand.shape[1], p)
     return cand.gather(1, d[:, None])[:, 0]
 
 

@@ -10,14 +10,17 @@ environment is cleared between runs (nmp.engine.run_program).
 Every tensor of `AgentState` carries a leading agent axis G (the engine's
 lanes); `run_episode` uses G = 1.
 
-Random numbers: the reference carries a JAX PRNG key in its state; the port
-carries an explicit `torch.Generator` on the run's device instead, seeded
-from an integer (`init_agent(seed)`, `cold_start(seed)` uses seed + 1 as the
-reference does).  The two streams give different bits, so weights drawn by
-`init_agent`, replay samples and exploration draws differ from the
-reference's; `agent_from_numpy` imports the reference's weights, Adam
-moments, replay and counters so both packages compute with the same state,
-and seeds a fresh generator (the JAX key is not carried).
+Random numbers: each agent carries the reference's threefry key in its
+state (`rng`, (G, 2) int64, core/prng.py), and every draw is the
+reference's, split for split: `init_agent(key)` splits it into the weight
+key and the agent's stream, `cold_start(seed)` is `init_agent(PRNGKey(seed
++ 1))`, `act` splits the stream in three (next stream, exploration
+uniform, random action) and the TD step samples its minibatch from a key
+the caller splits off (`train` splits the agent's own).  Weights drawn by
+`init_agent` are `prng.normal`'s, within 3 ulp of the reference's; every
+other draw is the reference's bit for bit.  `agent_from_numpy` imports the
+reference's weights, Adam moments, replay, counters and key, so both
+packages compute with the same state and stream.
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core import dqn
+from repro_torch.core import dqn, prng
 from repro_torch.core.dqn import DQNConfig
 from repro_torch.core.replay import ReplayBuffer, init_replay, push, sample
 from repro_torch.train.optimizer import adamw
@@ -44,7 +47,7 @@ class AgentState:
     train_steps: torch.Tensor   # (G,) i32 gradient updates taken (lifetime)
     loss_ema: torch.Tensor      # (G,) f32
     global_step: torch.Tensor   # (G,) i32 lifetime env interactions
-    gen: torch.Generator        # the agent's random stream (see module doc)
+    rng: torch.Tensor           # (G, 2) int64 threefry key (see module doc)
 
     def replace(self, **kw) -> "AgentState":
         return dataclasses.replace(self, **kw)
@@ -64,18 +67,17 @@ def _optimizer(cfg: AgentConfig):
     return adamw(cfg.dqn.lr, grad_clip=cfg.dqn.grad_clip)
 
 
-def _generator(seed: int, device: torch.device) -> torch.Generator:
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
-    return gen
-
-
-def init_agent(seed: int, cfg: AgentConfig, n_agents: int = 1,
+def init_agent(rng, cfg: AgentConfig, n_agents: int = 1,
                device: str | torch.device = "cuda") -> AgentState:
-    """Fresh agents with weights drawn from a generator seeded by `seed`."""
+    """Fresh agents from a key (2,) shared by all, a key per agent (G, 2),
+    or an integer seed (`PRNGKey(seed)`): the key splits into the weights'
+    key and the agent's stream, as the reference's `init_agent`."""
     dev = resolve_device(device)
-    gen = _generator(seed, dev)
-    params = dqn.init_params(gen, cfg.dqn, n_agents, dev)
+    if not isinstance(rng, torch.Tensor):
+        rng = prng.PRNGKey(int(rng), dev)
+    rng = rng.to(dev)
+    keys = prng.split(rng.expand(n_agents, 2) if rng.dim() == 1 else rng)
+    params = dqn.init_params(keys[:, 0], cfg.dqn, n_agents, dev)
     zi = lambda: torch.zeros((n_agents,), dtype=torch.int32, device=dev)
     return AgentState(
         params=params,
@@ -85,26 +87,32 @@ def init_agent(seed: int, cfg: AgentConfig, n_agents: int = 1,
                            dev),
         step=zi(), train_steps=zi(),
         loss_ema=torch.zeros((n_agents,), dtype=torch.float32, device=dev),
-        global_step=zi(), gen=gen)
+        global_step=zi(), rng=keys[:, 1].contiguous())
 
 
-def cold_start(seed: int, cfg: AgentConfig, n_agents: int = 1,
+def cold_start(seed, cfg: AgentConfig, n_agents: int = 1,
                device: str | torch.device = "cuda") -> AgentState:
-    """The engine's fresh-agent convention: seed + 1, as in the reference."""
-    return init_agent(seed + 1, cfg, n_agents, device)
+    """The engine's fresh-agent convention: `init_agent(PRNGKey(seed + 1))`,
+    as the reference.  `seed` is an int (every agent the same) or an int
+    tensor (G,) of per-agent seeds (the sweep's cells)."""
+    if isinstance(seed, torch.Tensor):
+        keys = prng.PRNGKey(seed.to(torch.int64) + 1)
+        return init_agent(keys, cfg, int(seed.shape[0]), keys.device)
+    dev = resolve_device(device)
+    return init_agent(prng.PRNGKey(int(seed) + 1, dev), cfg, n_agents, dev)
 
 
 def _field(obj: Any, name: str):
     return obj[name] if isinstance(obj, dict) else getattr(obj, name)
 
 
-def agent_from_numpy(snapshot: Any, device: str | torch.device = "cuda",
-                     seed: int = 0) -> AgentState:
+def agent_from_numpy(snapshot: Any,
+                     device: str | torch.device = "cuda") -> AgentState:
     """One agent (G = 1) from a numpy snapshot of the reference's AgentState
     (`repro.core.agent.export_agent`, or this module's `export_agent`),
     read by field name: params, target_params, opt_state m/v, replay,
-    step, train_steps, loss_ema, global_step.  The JAX key is not carried;
-    the returned agent's generator is seeded with `seed`."""
+    step, train_steps, loss_ema, global_step and the key `rng` (its two
+    uint32 words, taken as they are)."""
     dev = resolve_device(device)
     on = lambda a: torch.from_numpy(np.array(a, copy=True))[None].to(dev)
     tree = lambda d: {k: on(v).to(torch.float32) for k, v in d.items()}
@@ -124,12 +132,13 @@ def agent_from_numpy(snapshot: Any, device: str | torch.device = "cuda",
         train_steps=i32(_field(snapshot, "train_steps")),
         loss_ema=on(_field(snapshot, "loss_ema")).float(),
         global_step=i32(_field(snapshot, "global_step")),
-        gen=_generator(seed, dev))
+        rng=on(np.asarray(_field(snapshot, "rng"), np.uint32).astype(
+            np.int64)))
 
 
 def export_agent(agent: AgentState) -> dict:
     """Host-side numpy snapshot of a one-agent state (G = 1), with the
-    reference's field names (no agent axis, no generator)."""
+    reference's field names (no agent axis; the key as two uint32 words)."""
     if agent.step.shape[0] != 1:
         raise ValueError(f"export_agent: expected one agent, got "
                          f"{agent.step.shape[0]}")
@@ -147,6 +156,7 @@ def export_agent(agent: AgentState) -> dict:
         "step": np_(agent.step), "train_steps": np_(agent.train_steps),
         "loss_ema": np_(agent.loss_ema),
         "global_step": np_(agent.global_step),
+        "rng": np_(agent.rng).astype(np.uint32),
     }
 
 
@@ -160,19 +170,19 @@ def act(agent: AgentState, cfg: AgentConfig, state_vec: torch.Tensor,
         explore: torch.Tensor | bool = True
         ) -> tuple[torch.Tensor, AgentState]:
     """Epsilon-greedy action per agent; returns ((G,) i32 action, agent).
-    The uniform and the random action are drawn every call, whatever
-    `explore` says, so greedy evaluation consumes the stream the same way."""
-    G = state_vec.shape[0]
+    The stream splits in three every call (next stream, the exploration
+    uniform, the random action), whatever `explore` says, so greedy
+    evaluation consumes it the same way."""
     dev = state_vec.device
+    keys = prng.split(agent.rng, 3)                               # (G, 3, 2)
     q = dqn.q_values_infer(agent.params, state_vec, cfg.dqn)      # (G, A)
     greedy = torch.argmax(q, dim=-1).to(torch.int32)
     eps = epsilon(cfg, agent.global_step)
-    u = torch.rand((G,), generator=agent.gen, device=dev)
-    rand_a = torch.randint(0, cfg.dqn.n_actions, (G,), generator=agent.gen,
-                           device=dev, dtype=torch.int32)
+    rand_a = prng.randint(keys[:, 2], (), 0, cfg.dqn.n_actions)
+    u = prng.uniform(keys[:, 1], ())
     explore = torch.as_tensor(explore, dtype=torch.bool, device=dev)
     action = torch.where(explore & (u < eps), rand_a, greedy)
-    return action, agent.replace(step=agent.step + 1,
+    return action, agent.replace(rng=keys[:, 0], step=agent.step + 1,
                                  global_step=agent.global_step + 1)
 
 
@@ -189,10 +199,20 @@ def replay_ready(agent: AgentState, cfg: AgentConfig) -> torch.Tensor:
     return agent.replay.size >= cfg.min_replay
 
 
-def train_step(agent: AgentState, cfg: AgentConfig) -> AgentState:
-    """One TD minibatch step per agent (sample from the agent's generator)."""
+def train(agent: AgentState, cfg: AgentConfig) -> AgentState:
+    """One TD minibatch step, its sample key split off the agent's stream."""
+    keys = prng.split(agent.rng)
+    return train_step(agent.replace(rng=keys[:, 0]), cfg, keys[:, 1])
+
+
+def train_step(agent: AgentState, cfg: AgentConfig,
+               rng: torch.Tensor) -> AgentState:
+    """One TD minibatch step per agent, the minibatch sampled with `rng`
+    (G, 2) drawn by the caller (the agent's stream is not consumed here, as
+    in the reference, so the engine splits it off every committing agent
+    whether or not it trains)."""
     opt = _optimizer(cfg)
-    batch = sample(agent.replay, agent.gen, cfg.dqn.batch_size)
+    batch = sample(agent.replay, rng, cfg.dqn.batch_size)
     ready = replay_ready(agent, cfg)
     ready_f = ready.to(torch.float32)
     batch = dict(batch, w=batch["w"] * ready_f[:, None])

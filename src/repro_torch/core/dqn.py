@@ -3,8 +3,10 @@ paper §4.3, Fig. 4-3): Q(s, a) = V(s) + A(s, a) - mean_a A(s, a).
 
 Parameters are a dict of tensors with a leading agent axis G (the
 reference's per-lane vmap written out): w0 (G, S, H1), b0 (G, H1), ...
-`q_values` (the gradient path) stays torch.matmul, as the reference leaves
-it to XLA; `q_values_infer` (act and TD targets, no gradient) goes through
+`q_values` (the gradient path) is torch.matmul on the CPU, as the reference
+leaves it to XLA, and on the card the batch-invariant products of
+`kernels/batched_linear` (an agent's gradients the same bits at any agent
+count G); `q_values_infer` (act and TD targets, no gradient) goes through
 the fused dueling-qnet kernel on the card.  TF32 is kept off for those
 matmuls (`torch.backends.cuda.matmul.allow_tf32 = False`, set by
 `repro_torch.nmp.engine.run_episode` on entry), so they are full float32.
@@ -16,6 +18,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core import prng
+from repro_torch.kernels.batched_linear.ops import linear
 from repro_torch.kernels.dueling_qnet.ops import qnet_forward
 
 
@@ -33,29 +37,34 @@ class DQNConfig:
     batch_size: int = 64
 
 
-def init_params(gen: torch.Generator, cfg: DQNConfig, n_agents: int,
+def init_params(key: torch.Tensor, cfg: DQNConfig, n_agents: int,
                 device: torch.device) -> dict[str, torch.Tensor]:
-    """He-scaled normal weights and zero biases, drawn from `gen` (so not
-    the reference's bits: see core/agent.py)."""
+    """He-scaled normal weights and zero biases, as the reference draws
+    them: `key` (2,) or (G, 2) splits into one key per weight matrix, each
+    drawn by `prng.normal` (within 3 ulp of `jax.random.normal`)."""
     dims = (cfg.state_dim,) + cfg.hidden
     G = n_agents
-    normal = lambda *s: torch.randn((G,) + s, generator=gen, device=device)
+    key = key.to(device)
+    keys = prng.split(key.expand(G, 2) if key.dim() == 1 else key,
+                      len(dims) + 2)                       # (G, n, 2)
+    # scales are float32 square roots, as jnp.sqrt of a Python float
+    scale = lambda v: float(np.sqrt(np.float32(v)))
+    normal = lambda k, *s: prng.normal(keys[:, k], s)
     zeros = lambda *s: torch.zeros((G,) + s, dtype=torch.float32,
                                    device=device)
     params = {}
     for i in range(len(dims) - 1):
-        params[f"w{i}"] = normal(dims[i], dims[i + 1]) * float(
-            np.sqrt(2.0 / dims[i]))
+        params[f"w{i}"] = normal(i, dims[i], dims[i + 1]) * scale(
+            2.0 / dims[i])
         params[f"b{i}"] = zeros(dims[i + 1])
     h = dims[-1]
-    scale = float(np.sqrt(1.0 / h))
     if cfg.dueling:
-        params["w_v"] = normal(h, 1) * scale
+        params["w_v"] = normal(-2, h, 1) * scale(1.0 / h)
         params["b_v"] = zeros(1)
-        params["w_a"] = normal(h, cfg.n_actions) * scale
+        params["w_a"] = normal(-1, h, cfg.n_actions) * scale(1.0 / h)
         params["b_a"] = zeros(cfg.n_actions)
     else:
-        params["w_q"] = normal(h, cfg.n_actions) * scale
+        params["w_q"] = normal(-1, h, cfg.n_actions) * scale(1.0 / h)
         params["b_q"] = zeros(cfg.n_actions)
     return params
 
@@ -69,15 +78,14 @@ def q_values(params: dict, state: torch.Tensor,
         x = x[:, None, :]
     i = 0
     while f"w{i}" in params:
-        x = torch.clamp(x @ params[f"w{i}"] + params[f"b{i}"][:, None, :],
-                        min=0.0)
+        x = torch.clamp(linear(x, params[f"w{i}"], params[f"b{i}"]), min=0.0)
         i += 1
     if cfg.dueling:
-        v = x @ params["w_v"] + params["b_v"][:, None, :]        # (G, N, 1)
-        a = x @ params["w_a"] + params["b_a"][:, None, :]        # (G, N, A)
+        v = linear(x, params["w_v"], params["b_v"])               # (G, N, 1)
+        a = linear(x, params["w_a"], params["b_a"])               # (G, N, A)
         q = v + a - a.mean(dim=-1, keepdim=True)
     else:
-        q = x @ params["w_q"] + params["b_q"][:, None, :]
+        q = linear(x, params["w_q"], params["b_q"])
     return q[:, 0] if squeeze else q
 
 

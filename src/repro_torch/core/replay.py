@@ -10,6 +10,8 @@ import dataclasses
 
 import torch
 
+from repro_torch.core import prng
+
 
 @dataclasses.dataclass
 class ReplayBuffer:
@@ -58,16 +60,15 @@ def push(buf: ReplayBuffer, s, a, r, s2, done,
         size=torch.where(mask, torch.clamp(buf.size + 1, max=cap), buf.size))
 
 
-def sample(buf: ReplayBuffer, gen: torch.Generator, batch_size: int) -> dict:
+def sample(buf: ReplayBuffer, key: torch.Tensor, batch_size: int) -> dict:
     """Uniform sample of `batch_size` rows per agent with validity weights;
-    safe when the buffer is empty.  Indices come from `gen`: floor(u * size)
-    with u uniform in [0, 1), so no host sync is needed."""
+    safe when the buffer is empty.  Indices are the reference's
+    `jax.random.randint(key, (batch_size,), 0, max(size, 1))`, one key
+    (B, 2) per agent, drawn on the device (no host sync)."""
     B = buf.a.shape[0]
     dev = buf.a.device
-    hi = torch.clamp(buf.size, min=1).to(torch.float32)
-    u = torch.rand((B, batch_size), generator=gen, device=dev)
-    idx = torch.minimum((u * hi[:, None]).long(),
-                        (hi[:, None] - 1).long())
+    hi = torch.clamp(buf.size, min=1)
+    idx = prng.randint(key, (batch_size,), 0, hi).long()
     w = torch.where(buf.size[:, None] > 0,
                     torch.ones((B, batch_size), device=dev),
                     torch.zeros((B, batch_size), device=dev))

@@ -4,7 +4,7 @@
 the CUDA kernel (csrc/dueling_qnet.cu) for CUDA tensors; anything else
 raises.  There is no fallback from kernel to plain.  `launches` counts the
 kernel's launches and nothing else; `launches_by_rows` splits them by the
-batch's row count N.
+batch's row count N, `launches_by_shape` by agents G and rows N.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ from repro_torch.kernels.dueling_qnet.ref import dueling_qnet_ref
 
 launches = {"dueling_qnet": 0}
 launches_by_rows: dict[int, int] = {}
+launches_by_shape: dict[str, int] = {}     # "G=45 N=64": agents, rows
 
 _KEYS = ("w0", "b0", "w1", "b1", "w_v", "b_v", "w_a", "b_a")
 
@@ -24,6 +25,7 @@ _KEYS = ("w0", "b0", "w1", "b1", "w_v", "b_v", "w_a", "b_a")
 def reset_launches() -> None:
     launches["dueling_qnet"] = 0
     launches_by_rows.clear()
+    launches_by_shape.clear()
 
 
 def _lib():
@@ -66,4 +68,6 @@ def qnet_forward(params: dict, states: torch.Tensor) -> torch.Tensor:
     build.check(lib, code, "dueling_qnet")
     launches["dueling_qnet"] += 1
     launches_by_rows[N] = launches_by_rows.get(N, 0) + 1
+    key = f"G={G} N={N}"
+    launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
     return q

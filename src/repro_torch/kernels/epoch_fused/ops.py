@@ -12,7 +12,7 @@ for CUDA tensors; anything else raises, and there is no fallback from
 kernel to plain.  `launches` counts kernel launches and nothing else:
 `fused_epoch` every launch of the fused kernel, `tom_scores_folded` those
 of them that scored the TOM candidates, `tom_scores` the standalone
-scorer's.
+scorer's; `launches_by_shape` splits them by call shape and batch B.
 """
 from __future__ import annotations
 
@@ -27,11 +27,18 @@ from repro_torch.nmp.baselines import tom_score_constants
 from repro_torch.nmp.topology import TopoTensors
 
 launches = {"fused_epoch": 0, "tom_scores": 0, "tom_scores_folded": 0}
+# the same launches by call shape and batch, e.g. "shared+tom B=15"
+launches_by_shape: dict[str, int] = {}
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+    launches_by_shape.clear()
+
+
+def _count_shape(key: str) -> None:
+    launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
 
 
 _FUSED_ARGTYPES = ([ctypes.c_void_p] * 30 + [ctypes.c_int] * 11
@@ -216,6 +223,9 @@ def _launch_fused(dest, src1, src2, valid, epochs, rb_stamp, page_ema,
     launches["fused_epoch"] += 1
     if tom_out is not None:
         launches["tom_scores_folded"] += 1
+    stage = ("fused" if run_shared and run_route
+             else "shared" if run_shared else "route")
+    _count_shape(f"{stage}{'+tom' if tom_out is not None else ''} B={B}")
     sp = rp = None
     if run_shared:
         sp = SharedParts(rb_stamp=out_stamp, rb_winner=rb_winner,
@@ -291,4 +301,5 @@ def tom_scores(dest, src1, src2, valid, cands, n_cubes: int) -> torch.Tensor:
               n_cubes, inv_c, recip, stream)
     build.check(lib, code, "tom_scores")
     launches["tom_scores"] += 1
+    _count_shape(f"tom_scores B={B}")
     return out

@@ -17,17 +17,29 @@ One AIMM episode is a Python loop over epochs; each epoch runs
 
 How it maps the reference:
 
-  * `jax.vmap` over lanes is a written-out leading lane axis B in every
-    state tensor, epoch function and kernel; `run_episode` uses B = 1.
-  * `lax.scan` over epochs is the Python loop in `run_episode`.
+  * `jax.vmap` over lanes is a written-out leading axis in every state
+    tensor, epoch function and kernel; `run_episode` uses one lane.  The
+    sweep's (lane, seed) grid (the reference's `seed_axis` form) is kept
+    flat: env, agent and metrics over L·S cells (lane-major), the trace
+    arrays and `TraceCtx` per lane (L).  The window is fetched once per lane
+    and repeated over its S cells.  With `BodyFlags.share_seed_inv` (S > 1)
+    the seed-invariant shared stage (row-buffer stamps, PEI threshold,
+    access EMA, touch counts, TOM scores: the reference's `SharedEpoch`)
+    runs once per lane from the seed-0 cells, B = L, and the route stage
+    once per cell, B = L·S, from the lane's winners and hot flags; without
+    it (or with S = 1) both stages run in one fused launch per cell.
+  * `lax.scan` over epochs is the Python loop `scan_epochs`, shared by
+    `run_episode` and the sweep (nmp/sweep.py).
   * The reference gates the agent invocation and TOM's profiling-phase
     scoring behind `lax.cond`; it pins cond equal to the compute-then-mask
     form (`agent_gate="masked"`, `tom_gate="masked"`).  The port computes
     then masks, so the epoch loop never reads a value back to the host.
-  * `jax.random` keys become explicit `torch.Generator`s on the run's
-    device: the env stream (neighbour draws of the NEAR actions) is seeded
-    with `seed`, the agent carries its own (core/agent.py).  Both advance
-    every epoch, invoked or not, and give other bits than the reference.
+  * The reference's threefry keys are carried as they are (core/prng.py):
+    the env's `rng` is `PRNGKey(seed)`, split in three every epoch of an
+    AIMM program (the NEAR actions' neighbour draw), the agent's `rng`
+    split at every invocation (core/agent.py), so every random draw is the
+    reference's, bit for bit.  On the card each draw is one launch of the
+    threefry kernel.
   * JAX index semantics are reproduced on purpose: the `recent_pages`
     scatter wraps its empty slots (-1) to page P-1 and writes the ring's
     slots in order (last write wins); argmax/argmin take the first index on
@@ -54,6 +66,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import actions as act_mod
 from repro_torch.core import agent as agent_mod
+from repro_torch.core import prng
 from repro_torch.core.actions import (DEFAULT, FAR_COMPUTE, FAR_DATA,
                                       N_ACTIONS, NEAR_COMPUTE, NEAR_DATA,
                                       SOURCE_COMPUTE)
@@ -111,18 +124,15 @@ def _where(mask: torch.Tensor, new: torch.Tensor,
 
 
 def _map_state(fn, *states):
-    """Apply fn leafwise over dataclasses of tensors (nested dataclasses
-    included); returns a dataclass of the first argument's type."""
+    """Apply fn leafwise over dataclasses of tensors or arrays (nested
+    dataclasses included); returns a dataclass of the first argument's
+    type."""
     first = states[0]
     out = {}
     for f in dataclasses.fields(first):
         vals = [getattr(s, f.name) for s in states]
-        if dataclasses.is_dataclass(vals[0]):
-            out[f.name] = _map_state(fn, *vals)
-        elif isinstance(vals[0], torch.Tensor):
-            out[f.name] = fn(*vals)
-        else:
-            out[f.name] = vals[0]
+        out[f.name] = (_map_state(fn, *vals)
+                       if dataclasses.is_dataclass(vals[0]) else fn(*vals))
     return type(first)(**out)
 
 
@@ -149,6 +159,7 @@ class BodyFlags:
     any_aimm: bool = False      # hot-page selection / action application
     any_tom: bool = False       # TOM candidate scoring + commit
     pei_k: int = 0              # top_k width for the PEI threshold (0 = none)
+    share_seed_inv: bool = False  # hoist the shared stage out of the seeds
 
 
 def pei_hot_index(n_pages: int, cfg: NMPConfig) -> int:
@@ -227,6 +238,7 @@ class EnvState:
     prev_action: torch.Tensor       # (B,) i32
     recent_pages: torch.Tensor      # (B, R) i32 pages acted on (-1 empty)
     remap_age: torch.Tensor         # (B, P) i32 epochs since remap set
+    rng: torch.Tensor               # (B, 2) int64 threefry key
     tom_scores: torch.Tensor        # (B, K) f32
     tom_active: torch.Tensor        # (B,) i32 candidate in use (-1 = default)
     cycles: torch.Tensor            # (B,) f32 cumulative stats from here on
@@ -252,8 +264,9 @@ class EpisodeResult(NamedTuple):
 
 
 def _init_env(page_table: torch.Tensor, cfg: NMPConfig, spec: StateSpec,
-              topo: TopoTensors, t_ring: int) -> EnvState:
-    """Fresh env state for page_table's B lanes (B, P) i32."""
+              topo: TopoTensors, t_ring: int, seed) -> EnvState:
+    """Fresh env state for page_table's B lanes (B, P) i32; `seed` (an int,
+    or (B,) ints) keys each lane's stream, `PRNGKey(seed)`."""
     dev = page_table.device
     B, P = page_table.shape
     C, M, L = cfg.n_cubes, cfg.n_mcs, topo.n_links
@@ -273,6 +286,7 @@ def _init_env(page_table: torch.Tensor, cfg: NMPConfig, spec: StateSpec,
         pending_mig_loads=f(L), pending_mig_stall=f(),
         prev_state_vec=f(spec.dim), prev_action=i(),
         recent_pages=i(max(cfg.recent_ring, 1), v=-1), remap_age=i(P),
+        rng=prng.PRNGKey(torch.as_tensor(seed, device=dev).expand(B)),
         tom_scores=f(6), tom_active=i(v=-1), cycles=f(), ops_done=f(),
         hops_sum=f(), util_sum=f(), epochs=f(), mig_count=f(),
         mig_page_mask=f(P), access_total=f(), access_on_migrated=f(),
@@ -317,6 +331,8 @@ class EpochMid:
     touches_hot: torch.Tensor
     ccube_hot: torch.Tensor
     svec: torch.Tensor
+    k_nbr: torch.Tensor        # (B, 2) key of the NEAR actions' draw
+    env_rng: torch.Tensor      # (B, 2) the env's next key
     tom_scores: torch.Tensor
     tom_active: torch.Tensor
     mig_stall_tom: torch.Tensor
@@ -328,14 +344,14 @@ class EpochMid:
 # One epoch: cost model (action-independent half)
 # ---------------------------------------------------------------------------
 
-def _fetch_window(env: EnvState, trace: dict, ctx: TraceCtx,
+def _fetch_window(op_ptr: torch.Tensor, trace: dict, ctx: TraceCtx,
                   cfg: NMPConfig) -> Window:
-    """This epoch's op window sliced at each lane's `op_ptr` from the
+    """This epoch's op window sliced at each lane's `op_ptr` (L,) from the
     trace arrays padded by `w_max` (the caller asserts the slice stays in
     range), and its validity mask."""
     W = cfg.w_max
-    idx = torch.arange(W, device=env.op_ptr.device)
-    pos = env.op_ptr[:, None] + idx                              # (B, W)
+    idx = torch.arange(W, device=op_ptr.device)
+    pos = op_ptr[:, None] + idx                                  # (L, W)
     take = lambda a: a.gather(1, pos.long())
     valid = ((idx < cfg.epoch_ops)[None, :]
              & (pos < ctx.n_ops[:, None])).to(torch.float32)
@@ -346,10 +362,14 @@ def _fetch_window(env: EnvState, trace: dict, ctx: TraceCtx,
 def _epoch_sim(env: EnvState, win: Window, tom_cands: torch.Tensor,
                ctx: TraceCtx, cfg: NMPConfig, spec: StateSpec,
                agent_cfg: AgentConfig, flags: BodyFlags,
-               topo: TopoTensors) -> EpochMid:
+               topo: TopoTensors,
+               shared: epoch_ops.SharedParts | None = None) -> EpochMid:
     """Everything up to (but excluding) the agent's action: scheduling,
     routing, timing, reward bookkeeping, hot-page selection and the state
-    vector, for every lane."""
+    vector, for every cell (`ctx` per cell).  `shared` carries the shared
+    stage computed once per lane and repeated over its cells (the
+    reference's hoisted SharedEpoch); None fuses both stages into one
+    launch."""
     B, P = env.page_to_cube.shape
     C = cfg.n_cubes
     dev = env.page_to_cube.device
@@ -370,14 +390,23 @@ def _epoch_sim(env: EnvState, win: Window, tom_cands: torch.Tensor,
         eff_table = env.page_to_cube
 
     # ---- shared + route stages, and the TOM candidates' scores on this
-    # window (SharedEpoch.tom_scores): ONE launch of the fused epoch kernel
-    sparts, rparts = epoch_ops.fused_parts(
-        dest, src1, src2, valid, env.epochs, env.rb_stamp,
-        env.page_access_ema, ctx.n_pages, ctx.pei_idx, eff_table,
-        env.compute_remap, ctx.technique, is_aimm, env.pending_mig_loads,
-        topo, pei_k=flags.pei_k, aimm=flags.any_aimm, n_mcs=cfg.n_mcs,
-        packet_flits=cfg.packet_flits,
-        tom_cands=tom_cands if flags.any_tom else None)
+    # window (SharedEpoch.tom_scores): ONE launch of the fused epoch kernel,
+    # or the route stage alone after a hoisted shared stage
+    rt = dict(pei_k=flags.pei_k, aimm=flags.any_aimm, n_mcs=cfg.n_mcs,
+              packet_flits=cfg.packet_flits)
+    if shared is None:
+        sparts, rparts = epoch_ops.fused_parts(
+            dest, src1, src2, valid, env.epochs, env.rb_stamp,
+            env.page_access_ema, ctx.n_pages, ctx.pei_idx, eff_table,
+            env.compute_remap, ctx.technique, is_aimm,
+            env.pending_mig_loads, topo,
+            tom_cands=tom_cands if flags.any_tom else None, **rt)
+    else:
+        sparts = shared
+        rparts = epoch_ops.route_parts(
+            dest, src1, src2, valid, shared.rb_winner, shared.pei_hot1,
+            shared.pei_hot2, eff_table, env.compute_remap, ctx.technique,
+            is_aimm, env.pending_mig_loads, topo, **rt)
     page_ema = (sparts.page_ema if sparts.page_ema is not None
                 else env.page_access_ema)
     ccube, loads, hops_op = rparts.ccube, rparts.loads, rparts.hops_op
@@ -489,12 +518,15 @@ def _epoch_sim(env: EnvState, win: Window, tom_cands: torch.Tensor,
             lane_rows(cache.mig_hist, ent), lane_rows(cache.act_hist, ent),
             lane_rows(eff_table, hot_page), ccube_hot,
             occ_norm=float(cfg.nmp_table_size))
+        keys = prng.split(env.rng, 3)              # env, (agent), neighbour
+        env_rng, k_nbr = keys[:, 0], keys[:, 2]
     else:
         cache = env.cache
         ent = hot_page = ccube_hot = torch.zeros((B,), dtype=torch.int32,
                                                  device=dev)
         touches_hot = zero
         svec = torch.zeros((B, spec.dim), dtype=torch.float32, device=dev)
+        env_rng = k_nbr = env.rng
 
     # ---- TOM control (profiling + commit are action-independent) ----
     if flags.any_tom:
@@ -546,7 +578,7 @@ def _epoch_sim(env: EnvState, win: Window, tom_cands: torch.Tensor,
         nmp_occ=nmp_occ, rb_hit=rb_hit, mc_queue=mc_queue, page_ema=page_ema,
         rb_stamp=sparts.rb_stamp, cache=cache, ent=ent, hot_page=hot_page,
         touches_hot=touches_hot, ccube_hot=ccube_hot, svec=svec,
-        tom_scores=tom_scores, tom_active=tom_active,
+        k_nbr=k_nbr, env_rng=env_rng, tom_scores=tom_scores, tom_active=tom_active,
         mig_stall_tom=mig_stall_tom, migrated_tom=migrated_tom, energy=en)
 
 
@@ -556,8 +588,9 @@ def _epoch_sim(env: EnvState, win: Window, tom_cands: torch.Tensor,
 
 def _epoch_apply(env: EnvState, mid: EpochMid, action: torch.Tensor,
                  rw_pages: torch.Tensor, ctx: TraceCtx, cfg: NMPConfig,
-                 flags: BodyFlags, topo: TopoTensors, gen: torch.Generator):
-    """Apply the chosen action and assemble the next env state + metrics."""
+                 flags: BodyFlags, topo: TopoTensors):
+    """Apply the chosen action and assemble the next env state + metrics
+    (every tensor per cell)."""
     C = cfg.n_cubes
     is_tom = ctx.mapper == MAPPER_ID["tom"]
     is_aimm = ctx.mapper == MAPPER_ID["aimm"]
@@ -569,7 +602,7 @@ def _epoch_apply(env: EnvState, mid: EpochMid, action: torch.Tensor,
     if flags.any_aimm:
         hot_page = mid.hot_page
         act_inv = invoke & is_aimm
-        nbr = act_mod.random_neighbor(gen, mid.ccube_hot, topo.nbr,
+        nbr = act_mod.random_neighbor(mid.k_nbr, mid.ccube_hot, topo.nbr,
                                       topo.nbr_valid)
         diag = act_mod.far_target(mid.ccube_hot, topo.far)
         is_data = (action == NEAR_DATA) | (action == FAR_DATA)
@@ -697,6 +730,7 @@ def _epoch_apply(env: EnvState, mid: EpochMid, action: torch.Tensor,
         prev_action=prev_action,
         recent_pages=recent_pages,
         remap_age=remap_age,
+        rng=mid.env_rng,
         tom_scores=mid.tom_scores,
         tom_active=mid.tom_active,
         cycles=env.cycles + mid.cycles,
@@ -745,7 +779,8 @@ def _sel(mask: torch.Tensor, new: AgentState, old: AgentState) -> AgentState:
         step=one(new.step, old.step),
         train_steps=one(new.train_steps, old.train_steps),
         loss_ema=one(new.loss_ema, old.loss_ema),
-        global_step=one(new.global_step, old.global_step))
+        global_step=one(new.global_step, old.global_step),
+        rng=one(new.rng, old.rng))
 
 
 def _invoke_agent(agent: AgentState, svec: torch.Tensor,
@@ -758,11 +793,15 @@ def _invoke_agent(agent: AgentState, svec: torch.Tensor,
     masked: the completed transition enters the replay where `commit &
     prev_ok`, the DNN takes one minibatch TD step and epsilon-greedy
     inference picks the next action; lanes not committing keep their agent
-    bit for bit.  Before `min_replay` transitions the TD step is an exact
-    no-op (masked batch, zero grads onto zero Adam moments)."""
+    bit for bit.  The minibatch key is split off every committing agent's
+    stream whether or not it trains, as the reference draws it outside its
+    readiness cond.  Before `min_replay` transitions the TD step is an
+    exact no-op (masked batch, zero grads onto zero Adam moments)."""
     ag = agent_mod.observe(agent, prev_svec, prev_action, reward, svec,
                            mask=commit & prev_ok)
-    ag = _sel(commit, agent_mod.train_step(ag, agent_cfg), ag)
+    keys = prng.split(ag.rng)                                   # (G, 2, 2)
+    ag = ag.replace(rng=torch.where(commit[:, None], keys[:, 0], ag.rng))
+    ag = _sel(commit, agent_mod.train_step(ag, agent_cfg, keys[:, 1]), ag)
     action_g, acted = agent_mod.act(ag, agent_cfg, svec, explore)
     ag = _sel(commit, acted, ag)
     action = torch.where(invoke, action_g,
@@ -770,16 +809,39 @@ def _invoke_agent(agent: AgentState, svec: torch.Tensor,
     return ag, action
 
 
+def _repeat(t, S: int):
+    """Per-lane (L, ...) -> per-cell (L*S, ...), lane-major."""
+    return t if S == 1 or t is None else t.repeat_interleave(S, dim=0)
+
+
+def _seed0(t, S: int):
+    """The seed-0 cell of every lane: per-cell (L*S, ...) -> (L, ...)."""
+    return t if S == 1 else t[::S]
+
+
 def _epoch(env: EnvState, agent: AgentState | None, trace: dict,
            rw_pages: torch.Tensor, tom_cands: torch.Tensor, ctx: TraceCtx,
-           cfg: NMPConfig, spec: StateSpec, agent_cfg: AgentConfig,
-           flags: BodyFlags, topo: TopoTensors, gen: torch.Generator):
-    """One epoch over the B lanes."""
-    win = _fetch_window(env, trace, ctx, cfg)
-    mid = _epoch_sim(env, win, tom_cands, ctx, cfg, spec, agent_cfg, flags,
-                     topo)
-    is_aimm = ctx.mapper == MAPPER_ID["aimm"]
-    forced = ctx.forced_action
+           ctx_c: TraceCtx, cfg: NMPConfig, spec: StateSpec,
+           agent_cfg: AgentConfig, flags: BodyFlags, topo: TopoTensors,
+           S: int = 1):
+    """One epoch over L lanes of S cells each (`env`, `agent`, `rw_pages`
+    and `ctx_c` per cell, `trace` and `ctx` per lane)."""
+    win_l = _fetch_window(_seed0(env.op_ptr, S), trace, ctx, cfg)
+    win = Window(*(_repeat(t, S) for t in win_l))
+    shared = None
+    if S > 1 and flags.share_seed_inv:
+        # the seed-invariant half once per lane, from its seed-0 cell
+        sp = epoch_ops.shared_parts(
+            *win_l, _seed0(env.epochs, S), _seed0(env.rb_stamp, S),
+            _seed0(env.page_access_ema, S), ctx.n_pages, ctx.pei_idx,
+            pei_k=flags.pei_k, aimm=flags.any_aimm,
+            tom_cands=tom_cands if flags.any_tom else None,
+            n_cubes=cfg.n_cubes)
+        shared = sp._make(_repeat(t, S) for t in sp)
+    mid = _epoch_sim(env, win, tom_cands, ctx_c, cfg, spec, agent_cfg,
+                     flags, topo, shared)
+    is_aimm = ctx_c.mapper == MAPPER_ID["aimm"]
+    forced = ctx_c.forced_action
     scripted = torch.where(mid.invoke, forced, torch.full_like(forced,
                                                                DEFAULT))
     if flags.has_agent:
@@ -787,14 +849,45 @@ def _epoch(env: EnvState, agent: AgentState | None, trace: dict,
         commit = mid.invoke & is_aimm & (forced < 0)
         agent, learned = _invoke_agent(agent, mid.svec, mid.reward,
                                        mid.invoke, env.prev_state_vec,
-                                       env.prev_action, ctx.explore, commit,
+                                       env.prev_action, ctx_c.explore, commit,
                                        prev_ok, agent_cfg)
         action = torch.where(forced >= 0, scripted, learned)
     else:
         action = scripted
     action = torch.where(is_aimm, action, torch.zeros_like(action))
     env, metrics = _epoch_apply(env, mid, action.to(torch.int32), rw_pages,
-                                ctx, cfg, flags, topo, gen)
+                                ctx_c, cfg, flags, topo)
+    return env, agent, metrics
+
+
+def scan_epochs(trace: dict, rw_pages: torch.Tensor, env: EnvState,
+                agent: AgentState | None, tom_cands: torch.Tensor,
+                ctx: TraceCtx, cfg: NMPConfig, spec: StateSpec,
+                agent_cfg: AgentConfig, n_epochs: int, flags: BodyFlags,
+                topo: TopoTensors, seed_axis: bool = False):
+    """The epoch loop shared by the serial and sweep runners (the
+    reference's `scan_epochs`).  `trace` (L, N), `rw_pages` (L, P) and
+    `ctx` (L,) are per lane; `env` and `agent` are per cell, L·S of them
+    lane-major (S = 1 unless `seed_axis`).  Returns (env, agent, metrics
+    stacked (n_epochs, L[, S])).  Nothing is read back to the host."""
+    L = ctx.n_ops.shape[0]
+    S = env.op_ptr.shape[0] // L
+    assert env.op_ptr.shape[0] == L * S and (seed_axis or S == 1)
+    ctx_c = TraceCtx(*(_repeat(getattr(ctx, f.name), S)
+                       for f in dataclasses.fields(TraceCtx)))
+    rw_c = _repeat(rw_pages, S)
+    # op_ptr <= e * epoch_ops: the window slice stays inside the trace
+    assert (n_epochs - 1) * cfg.epoch_ops + cfg.w_max <= trace["dest"].shape[1]
+    per_epoch = []
+    with torch.no_grad():
+        for _ in range(n_epochs):
+            env, agent, m = _epoch(env, agent, trace, rw_c, tom_cands, ctx,
+                                   ctx_c, cfg, spec, agent_cfg, flags, topo,
+                                   S)
+            per_epoch.append(m)
+    shape = (n_epochs, L, S) if seed_axis else (n_epochs, L)
+    metrics = {k: torch.stack([m[k] for m in per_epoch]).reshape(shape)
+               for k in per_epoch[0]}
     return env, agent, metrics
 
 
@@ -812,13 +905,57 @@ def default_agent_cfg(cfg: NMPConfig) -> AgentConfig:
                                      gamma=0.0))
 
 
-def pad_trace_ops(trace: Trace, n_total: int, cfg: NMPConfig,
-                  device: torch.device) -> dict:
-    """Trace op arrays padded to `n_total + w_max` ((N,) i32 tensors)."""
+def pad_trace_ops(trace: Trace, n_total: int, cfg: NMPConfig) -> dict:
+    """Trace op arrays padded to `n_total + w_max` ((N,) int32 numpy)."""
     pad = n_total - trace.n_ops + cfg.w_max
-    return {k: torch.from_numpy(np.concatenate([v, np.zeros(pad, v.dtype)])
-                                ).to(device)
+    return {k: np.concatenate([v, np.zeros(pad, v.dtype)])
             for k, v in trace.as_dict().items() if k != "program_id"}
+
+
+class EpisodeSetup(NamedTuple):
+    """Everything one serial episode's epoch loop takes (one lane)."""
+    trace: dict
+    rw_pages: torch.Tensor
+    env: EnvState
+    agent: AgentState | None
+    tom_cands: torch.Tensor
+    ctx: TraceCtx
+    spec: StateSpec
+    agent_cfg: AgentConfig
+    flags: BodyFlags
+    topo: TopoTensors
+    n_epochs: int
+
+
+def episode_setup(trace: Trace, cfg: NMPConfig, technique: str, mapper: str,
+                  agent: AgentState | None, agent_cfg: AgentConfig | None,
+                  seed: int, page_table: np.ndarray | None, explore: bool,
+                  forced_action: int, device: torch.device) -> EpisodeSetup:
+    """The inputs of `run_episode`'s epoch loop on `device`: the trace
+    padded by w_max, a fresh env keyed by `seed`, the context and flags,
+    and the agent (cold-started from `seed` where a learned lane has none).
+    """
+    assert mapper in MAPPERS and technique in baselines.TECHNIQUES
+    spec = state_spec_for(cfg)
+    agent_cfg = agent_cfg or default_agent_cfg(cfg)
+    flags = episode_flags(trace, cfg, technique, mapper, forced_action)
+    if flags.has_agent and agent is None:
+        agent = agent_mod.cold_start(seed, agent_cfg, 1, device)
+    tr = {k: torch.from_numpy(v)[None].to(device)
+          for k, v in pad_trace_ops(trace, trace.n_ops, cfg).items()}
+    rw = torch.from_numpy(np.asarray(trace.read_write, bool))[None].to(device)
+    pt = page_table if page_table is not None else default_alloc(
+        trace.n_pages, cfg)
+    topo = topology_tensors(cfg, device)
+    env = _init_env(torch.from_numpy(np.asarray(pt, np.int32))[None].to(
+        device), cfg, spec, topo, phase_ring_len(trace, cfg), seed)
+    return EpisodeSetup(
+        trace=tr, rw_pages=rw, env=env, agent=agent,
+        tom_cands=baselines.tom_candidates(trace.n_pages, cfg, device),
+        ctx=make_ctx(trace, cfg, technique, mapper, forced_action, explore,
+                     device),
+        spec=spec, agent_cfg=agent_cfg, flags=flags, topo=topo,
+        n_epochs=serial_epochs(trace.n_ops, cfg))
 
 
 def run_episode(trace: Trace, cfg: NMPConfig = NMPConfig(),
@@ -834,43 +971,18 @@ def run_episode(trace: Trace, cfg: NMPConfig = NMPConfig(),
     returned agent back in to keep training; the env state is reset each
     episode.  A learned-AIMM episode without an agent cold-starts one from
     `seed`.  The epoch loop reads nothing back to the host."""
-    assert mapper in MAPPERS and technique in baselines.TECHNIQUES
     dev = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False   # full-f32 matmuls
-    spec = state_spec_for(cfg)
-    agent_cfg = agent_cfg or default_agent_cfg(cfg)
-    flags = episode_flags(trace, cfg, technique, mapper, forced_action)
-    if flags.has_agent and agent is None:
-        agent = agent_mod.cold_start(seed, agent_cfg, 1, dev)
-    n_epochs = serial_epochs(trace.n_ops, cfg)
-
-    tr = {k: v[None] for k, v in pad_trace_ops(trace, trace.n_ops, cfg,
-                                               dev).items()}
-    rw = torch.from_numpy(np.asarray(trace.read_write, bool))[None].to(dev)
-    pt = page_table if page_table is not None else default_alloc(
-        trace.n_pages, cfg)
-    topo = topology_tensors(cfg, dev)
-    env = _init_env(torch.from_numpy(np.asarray(pt, np.int32))[None].to(dev),
-                    cfg, spec, topo, phase_ring_len(trace, cfg))
-    tom_cands = baselines.tom_candidates(trace.n_pages, cfg, dev)
-    ctx = make_ctx(trace, cfg, technique, mapper, forced_action, explore, dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(int(seed))
-
-    run_agent = agent if flags.has_agent else None
-    per_epoch = []
-    with torch.no_grad():
-        for e in range(n_epochs):
-            # op_ptr <= e * epoch_ops: the window slice stays in the trace
-            assert e * cfg.epoch_ops + cfg.w_max <= tr["dest"].shape[1]
-            env, run_agent, m = _epoch(env, run_agent, tr, rw, tom_cands,
-                                       ctx, cfg, spec, agent_cfg, flags,
-                                       topo, gen)
-            per_epoch.append(m)
-    metrics = {k: torch.stack([m[k] for m in per_epoch])[:, 0]
-               for k in per_epoch[0]}
+    st = episode_setup(trace, cfg, technique, mapper, agent, agent_cfg, seed,
+                       page_table, explore, forced_action, dev)
+    env, run_agent, metrics = scan_epochs(
+        st.trace, st.rw_pages, st.env,
+        st.agent if st.flags.has_agent else None, st.tom_cands, st.ctx, cfg,
+        st.spec, st.agent_cfg, st.n_epochs, st.flags, st.topo)
+    metrics = {k: v[:, 0] for k, v in metrics.items()}
     return EpisodeResult(env.lane(0),
-                         run_agent if flags.has_agent else agent, metrics)
+                         run_agent if st.flags.has_agent else st.agent,
+                         metrics)
 
 
 def run_program(trace: Trace, cfg: NMPConfig = NMPConfig(),

@@ -1,5 +1,7 @@
 """Paging structures (port of `repro.nmp.paging`): the page->cube table
-allocator and the pooled MC page-info cache (paper §5.1).
+allocators (round-robin `default_alloc`, `random_alloc`, and the NMP-aware
+HOARD `hoard_alloc` of §6.3: each program's pages on a contiguous span of
+cubes) and the pooled MC page-info cache (paper §5.1).
 
 Every cache array carries a leading lane axis B: `run_episode` uses B = 1,
 the batched engine of a later slice uses B lanes with the same functions.
@@ -17,6 +19,52 @@ from repro_torch.nmp.config import NMPConfig
 def default_alloc(n_pages: int, cfg: NMPConfig, seed: int = 0) -> np.ndarray:
     """Round-robin page interleaving across cubes."""
     return (np.arange(n_pages) % cfg.n_cubes).astype(np.int32)
+
+
+def random_alloc(n_pages: int, cfg: NMPConfig, seed: int = 0) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, cfg.n_cubes, n_pages).astype(np.int32)
+
+
+def hoard_alloc(n_pages: int, cfg: NMPConfig, program_of_page: np.ndarray,
+                seed: int = 0) -> np.ndarray:
+    """HOARD-style: thread/program-private chunks -> contiguous cube regions.
+
+    Programs get contiguous spans of cubes proportional to their page counts;
+    within a span, pages interleave across that span's cubes only.  Programs
+    with zero pages (a program id gap, or a departed co-runner whose pages
+    were freed) claim no cubes at all — every cube goes to the programs that
+    actually hold pages, so a degenerate span can never starve them.  Spans
+    are disjoint whenever the populated programs fit the cube count; with
+    more populated programs than cubes, every program keeps a one-cube span
+    and the spans wrap round-robin (overlap is then unavoidable, but stays
+    balanced instead of piling onto cube 0).
+    """
+    program_of_page = np.asarray(program_of_page)
+    if program_of_page.size != n_pages:
+        raise ValueError(
+            f"hoard_alloc: program_of_page has {program_of_page.size} "
+            f"entries for n_pages={n_pages}; one owner per page expected")
+    if n_pages == 0:
+        # zero-page trace (e.g. every co-runner departed): nothing to place
+        return np.zeros(0, np.int32)
+    n_prog = int(program_of_page.max()) + 1
+    counts = np.bincount(program_of_page, minlength=n_prog).astype(np.float64)
+    pop = np.flatnonzero(counts > 0)          # populated programs only
+    share = np.zeros(n_prog, int)
+    share[pop] = np.maximum(
+        np.round(counts[pop] / counts.sum() * cfg.n_cubes), 1).astype(int)
+    while share.sum() > cfg.n_cubes and (share[pop] > 1).any():
+        share[pop[np.argmax(share[pop])]] -= 1
+    while share.sum() < cfg.n_cubes:
+        share[pop[np.argmin(share[pop])]] += 1
+    start = np.concatenate([[0], np.cumsum(share)[:-1]])
+    table = np.zeros(n_pages, np.int32)
+    for p in pop:
+        idx = np.where(program_of_page == p)[0]
+        span = max(share[p], 1)
+        table[idx] = (start[p] + (np.arange(idx.size) % span)) % cfg.n_cubes
+    return table
 
 
 @dataclasses.dataclass

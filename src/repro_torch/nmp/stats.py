@@ -51,3 +51,21 @@ def energy_breakdown(counters: torch.Tensor) -> dict[str, float]:
 
 def energy_nj(counters: torch.Tensor) -> float:
     return float(sum(energy_breakdown(counters).values()))
+
+
+def resample_opc(opc, valid, samples: int = 64) -> np.ndarray:
+    """Order-preserving fixed-size resample of the valid-epoch OPC series
+    (the paper's Fig. 9 convention); shared by the serial and sweep paths.
+    Takes numpy arrays or tensors."""
+    as_np = lambda a: (a.detach().cpu().numpy() if isinstance(a, torch.Tensor)
+                       else np.asarray(a))
+    opc = as_np(opc)[as_np(valid) > 0]
+    if opc.size == 0:
+        return np.zeros(samples)
+    idx = np.linspace(0, opc.size - 1, samples).astype(int)
+    return opc[idx]
+
+
+def opc_timeline(res: EpisodeResult, samples: int = 64) -> np.ndarray:
+    """Fixed-size resampled OPC timeline (paper Fig. 9 preserves order)."""
+    return resample_opc(res.metrics["opc"], res.metrics["valid"], samples)

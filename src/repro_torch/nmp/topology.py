@@ -55,6 +55,26 @@ class Topology:
 # Generic graph machinery (shared by the non-mesh builders)
 # ---------------------------------------------------------------------------
 
+def hop_count(topo: Topology, a: torch.Tensor, b: torch.Tensor
+              ) -> torch.Tensor:
+    """Route length (link traversals) between cube ids: a gather from the
+    hop matrix, on `a`'s device."""
+    hops = torch.from_numpy(np.ascontiguousarray(topo.hops)).to(a.device)
+    return hops[a.long(), b.long()]
+
+
+def link_loads(topo: Topology, src: torch.Tensor, dst: torch.Tensor,
+               weight: torch.Tensor) -> torch.Tensor:
+    """Flow `weight` (flits) accumulated over every link on each route.
+
+    src, dst: (F,) cube ids; weight: (F,) flits.  Returns (n_links,) float32
+    loads: one gather of the route-link incidence rows and one product
+    (exact for flit-count weights in any summation order)."""
+    routes = torch.from_numpy(np.ascontiguousarray(topo.route_links)).to(
+        src.device)[src.long(), dst.long()]                    # (F, L)
+    return torch.einsum("f,fl->l", weight.to(torch.float32), routes)
+
+
 def _routes_from_edges(n_cubes: int, edges: list[tuple[int, int]]
                        ) -> tuple[np.ndarray, np.ndarray]:
     """(hops, route_links) for minimal routing over an undirected edge list.

@@ -207,3 +207,84 @@ def make_trace(app: str, n_ops: int = 8192, seed: int | None = None,
     if seed is not None:
         kw["seed"] = seed
     return gen(**kw)
+
+
+def merge_traces(traces: list[Trace], interleave: int = 32) -> Trace:
+    """Multi-program workload: interleave traces round-robin in `interleave`-op
+    bursts with disjoint (offset) page spaces, as in the paper's shared-resource
+    baseline (§7.5.2)."""
+    offsets = np.cumsum([0] + [t.n_pages for t in traces[:-1]])
+    n_pages = sum(t.n_pages for t in traces)
+    streams = []
+    for pid, (t, off) in enumerate(zip(traces, offsets)):
+        streams.append({
+            "dest": t.dest + off, "src1": t.src1 + off, "src2": t.src2 + off,
+            "program_id": np.full(t.n_ops, pid, np.int32),
+        })
+    n_total = sum(t.n_ops for t in traces)
+    cols = {k: np.zeros(n_total, np.int32) for k in ("dest", "src1", "src2", "program_id")}
+    ptrs = [0] * len(traces)
+    pos = 0
+    while pos < n_total:
+        for pid, t in enumerate(traces):
+            take = min(interleave, t.n_ops - ptrs[pid], n_total - pos)
+            if take <= 0:
+                continue
+            for k in cols:
+                cols[k][pos:pos + take] = streams[pid][k][ptrs[pid]:ptrs[pid] + take]
+            ptrs[pid] += take
+            pos += take
+    rw = np.zeros(n_pages, bool)
+    for t, off in zip(traces, offsets):
+        rw[off:off + t.n_pages] = t.read_write
+    name = "+".join(t.name for t in traces)
+    iter_ops = sum(t.iter_ops or t.n_ops for t in traces)
+    return Trace(name, cols["dest"], cols["src1"], cols["src2"], n_pages, rw,
+                 cols["program_id"], iter_ops)
+
+
+def program_of_page(trace: Trace) -> np.ndarray:
+    """Recover page->program ownership (for the HOARD allocator)."""
+    owner = np.zeros(trace.n_pages, np.int32)
+    for arr in (trace.dest, trace.src1, trace.src2):
+        owner[arr] = trace.program_id
+    return owner
+
+
+# ---------------------------------------------------------------------------
+# Workload analysis (reproduces Fig. 5)
+# ---------------------------------------------------------------------------
+
+def analyze(trace: Trace, epoch: int = 250) -> dict:
+    """Page-access classes, active pages per epoch, affinity quadrants."""
+    pages = np.concatenate([trace.dest, trace.src1, trace.src2])
+    counts = np.bincount(pages, minlength=trace.n_pages)
+    used = counts[counts > 0]
+    q1, q2 = np.quantile(used, [0.5, 0.9]) if used.size else (0, 0)
+    classes = {
+        "low": float((used <= max(q1, 2)).mean()) if used.size else 0.0,
+        "moderate": float(((used > max(q1, 2)) & (used <= q2)).mean()) if used.size else 0.0,
+        "heavy": float((used > q2).mean()) if used.size else 0.0,
+    }
+    n_epochs = max(trace.n_ops // epoch, 1)
+    active = []
+    for e in range(n_epochs):
+        w = slice(e * epoch, (e + 1) * epoch)
+        active.append(len(np.unique(np.concatenate(
+            [trace.dest[w], trace.src1[w], trace.src2[w]]))))
+    # affinity: radix = distinct partner pages; weight = co-access count
+    pairs = np.stack([
+        np.concatenate([trace.dest, trace.dest, trace.src1]),
+        np.concatenate([trace.src1, trace.src2, trace.src2]),
+    ], 1)
+    key = pairs[:, 0].astype(np.int64) * trace.n_pages + pairs[:, 1]
+    uniq, wcnt = np.unique(key, return_counts=True)
+    a = uniq // trace.n_pages
+    radix = np.bincount(a.astype(np.int64), minlength=trace.n_pages)
+    return {
+        "classes": classes,
+        "active_pages_mean": float(np.mean(active)),
+        "radix_mean": float(radix[radix > 0].mean()) if (radix > 0).any() else 0.0,
+        "edge_weight_mean": float(wcnt.mean()) if wcnt.size else 0.0,
+        "n_pages_used": int((counts > 0).sum()),
+    }

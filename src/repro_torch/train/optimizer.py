@@ -13,6 +13,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch.kernels.batched_linear.ops import sq_norm
+
 
 class Optimizer(NamedTuple):
     init: Callable
@@ -25,12 +27,10 @@ def constant_schedule(lr: float) -> Callable[[torch.Tensor], torch.Tensor]:
 
 def global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
     """(B,) global L2 norm of each agent's leaves, summed in the reference's
-    leaf order (sorted keys, as jax.tree flattens a dict)."""
-    total = 0
-    for k in sorted(tree):
-        g = tree[k].to(torch.float32)
-        total = total + torch.square(g).reshape(g.shape[0], -1).sum(dim=1)
-    return torch.sqrt(total)
+    leaf order (sorted keys, as jax.tree flattens a dict), as one
+    `batched_linear.sq_norm`: on the card one launch whose order does not
+    depend on the number of agents B."""
+    return sq_norm([tree[k].to(torch.float32) for k in sorted(tree)])
 
 
 def adamw(lr: float | Callable = 1e-3, b1: float = 0.9, b2: float = 0.999,

@@ -16,7 +16,7 @@ def test_every_source_has_its_flags():
         assert (build.CSRC / f"{name}.cu").exists(), name
 
 
-@pytest.mark.parametrize("name", ["epoch_fused"])
+@pytest.mark.parametrize("name", ["epoch_fused", "threefry", "batched_linear"])
 def test_exact_kernels_keep_fmad_false(name):
     assert "-fmad=false" in build.nvcc_flags(name)
 

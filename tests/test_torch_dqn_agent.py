@@ -144,7 +144,7 @@ def test_masked_td_step_is_exact_noop_before_min_replay():
         ag = t_agent.observe(ag, torch.rand(1, S), torch.tensor([i % A]),
                              torch.tensor([1.0]), torch.rand(1, S))
     assert not bool(t_agent.replay_ready(ag, tcfg)[0])
-    out = t_agent.train_step(ag, tcfg)
+    out = t_agent.train(ag, tcfg)
     for k in ag.params:
         assert torch.equal(out.params[k], ag.params[k])
         assert torch.equal(out.target_params[k], ag.target_params[k])
@@ -159,7 +159,7 @@ def test_train_step_learns_once_ready():
     for i in range(40):
         ag = t_agent.observe(ag, torch.rand(1, S), torch.tensor([i % A]),
                              torch.tensor([1.0]), torch.rand(1, S))
-    out = t_agent.train_step(ag, tcfg)
+    out = t_agent.train(ag, tcfg)
     assert int(out.train_steps[0]) == 1
     assert any(not torch.equal(out.params[k], ag.params[k])
                for k in ag.params)
@@ -234,3 +234,31 @@ def test_agent_from_numpy_round_trip():
         assert np.array_equal(back[f], getattr(snap, f)), f
     again = t_agent.agent_from_numpy(back, device="cpu")
     assert torch.equal(again.replay.s, tag.replay.s)
+
+
+def test_batched_linear_on_cpu_is_the_plain_layer_and_counts_nothing():
+    """On the CPU the TD step's layer is `x @ w + b` under autograd (the
+    kernels' batch-invariant order is the card's concern): the same values
+    and gradients, and no kernel launch counted."""
+    from repro_torch.kernels.batched_linear import ops
+    ops.reset_launches()
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((3, 5, 7), generator=g)
+    w = torch.randn((3, 7, 4), generator=g).requires_grad_(True)
+    b = torch.randn((3, 4), generator=g).requires_grad_(True)
+    y = ops.linear(x, w, b)
+    assert torch.equal(y, x @ w + b[:, None, :])
+    gw, gb = torch.autograd.grad(y.square().sum(), [w, b])
+    assert torch.equal(gw, x.transpose(1, 2) @ (2 * y.detach()))
+    assert torch.equal(gb, (2 * y.detach()).sum(1))
+    assert torch.equal(ops.bgemm(x, w.detach(), b.detach()), y)
+    c, s = ops.bgemm_colsum(x.transpose(1, 2), y.detach())
+    assert torch.equal(c, x.transpose(1, 2) @ y.detach())
+    assert torch.equal(s, y.detach().sum(1))
+    leaves = [x, w.detach()]
+    assert torch.equal(ops.sq_norm(leaves), torch.sqrt(
+        0 + x.square().reshape(3, -1).sum(1)
+        + w.detach().square().reshape(3, -1).sum(1)))
+    assert ops.launches == {"batched_linear": 0} and not ops.launches_by_shape
+    with pytest.raises(ValueError, match="float32"):
+        ops.sq_norm([torch.ones((2, 2), dtype=torch.float64)])

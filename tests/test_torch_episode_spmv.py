@@ -1,7 +1,8 @@
 """The deterministic golden cells on the SPMV/2048 trace (16 epochs, long
-enough for TOM to profile and commit): the PyTorch port (CPU, plain torch)
-against the live JAX `run_episode` at seed 2.  Bars and their reasons as in
-test_torch_episode_km.py.
+enough for TOM to profile and commit), the NEAR-action cells, and the
+regression cells of the other apps and forced actions: the PyTorch port
+(CPU, plain torch) against the live JAX `run_episode` at seed 2.  Bars and
+their reasons as in test_torch_episode_km.py.
 """
 import numpy as np
 import pytest
@@ -13,7 +14,7 @@ from repro_torch.nmp.config import NMPConfig as TCfg
 from repro_torch.nmp.engine import run_episode
 from repro_torch.nmp.traces import make_trace
 
-from tests.test_torch_episode_km import CELLS, _compare_cell
+from tests.test_torch_episode_km import CELLS, NEAR_CELLS, _compare_cell
 
 APP, N_OPS = "SPMV", 2048
 
@@ -22,6 +23,26 @@ APP, N_OPS = "SPMV", 2048
                          ids=lambda v: str(v))
 def test_deterministic_cell_matches_reference(tech, mapper, forced):
     _compare_cell(APP, N_OPS, tech, mapper, forced)
+
+
+@pytest.mark.parametrize("tech,mapper,forced", NEAR_CELLS,
+                         ids=lambda v: str(v))
+def test_near_action_cell_matches_reference(tech, mapper, forced):
+    _compare_cell(APP, N_OPS, tech, mapper, forced)
+
+
+@pytest.mark.parametrize("app", ["BP", "LUD", "MAC", "PR", "RBM", "RD",
+                                 "SC"])
+def test_other_app_cell_matches_reference(app):
+    """The apps the KM and SPMV cells do not cover, at 1024 ops."""
+    _compare_cell(app, 1024, "pei", "tom", -1)
+
+
+@pytest.mark.parametrize("action", [0, 2, 4, 6, 7])
+def test_forced_action_cell_matches_reference(action):
+    """The scripted actions without a random draw, on the KM/384 trace."""
+    _compare_cell("KM", 384, ("bnmp", "ldb", "pei")[action % 3], "aimm",
+                  action)
 
 
 def test_tom_commits_the_reference_mapping():

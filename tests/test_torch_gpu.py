@@ -332,8 +332,10 @@ def test_dueling_qnet_within_tolerance(cuda, n, agents):
     from repro_torch.core import dqn
     from repro_torch.kernels.dueling_qnet import ops
     from repro_torch.kernels.dueling_qnet.ref import dueling_qnet_ref
+    from repro_torch.core import prng
     gen = torch.Generator(device=cuda).manual_seed(n)
-    params = dqn.init_params(gen, dqn.DQNConfig(state_dim=106), agents, cuda)
+    params = dqn.init_params(prng.PRNGKey(n, cuda),
+                             dqn.DQNConfig(state_dim=106), agents, cuda)
     xs = torch.rand((agents, n, 106), generator=gen, device=cuda) * 2
     got = ops.qnet_forward(params, xs)
     want = dueling_qnet_ref(xs, *[params[k] for k in QKEYS])
@@ -351,9 +353,11 @@ def test_dueling_qnet_other_widths(cuda, S, hidden, A):
     from repro_torch.core import dqn
     from repro_torch.kernels.dueling_qnet import ops
     from repro_torch.kernels.dueling_qnet.ref import dueling_qnet_ref
+    from repro_torch.core import prng
     gen = torch.Generator(device=cuda).manual_seed(S + A)
-    params = dqn.init_params(gen, dqn.DQNConfig(state_dim=S, n_actions=A,
-                                                hidden=hidden), 2, cuda)
+    params = dqn.init_params(prng.PRNGKey(S + A, cuda),
+                             dqn.DQNConfig(state_dim=S, n_actions=A,
+                                           hidden=hidden), 2, cuda)
     for k in params:
         if k.startswith("b"):
             params[k] = 0.1 * torch.randn(params[k].shape, generator=gen,
@@ -541,3 +545,174 @@ def test_ssd_scan_main_shape(cuda, carry):
     want = ssd_chunked(x, b, c, dt, a, chunk=256)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# threefry2x32 and the batched engine's widths (B = L lanes and L·S cells)
+# ---------------------------------------------------------------------------
+
+def test_threefry_kernel_equal_plain(cuda):
+    """Every draw mode of the threefry kernel against ref.py, torch.equal,
+    one launch each."""
+    from repro_torch.core import prng
+    from repro_torch.kernels.threefry import ops, ref
+    keys = prng.split(prng.PRNGKey(7, cuda), 1 << 16)
+    kc = keys.cpu()
+    lo = float(np.nextafter(np.float32(-1), np.float32(0)))
+    hi = (torch.arange(1 << 16, device=cuda) % 5000 + 1).to(torch.int32)
+    p = torch.rand((1 << 16, 4), device=cuda)
+    p[:, 2] = 0
+    before = ops.launches["threefry"]
+    pairs = [
+        (ops.split(keys, 3), ref.split(kc, 3)),
+        (ops.bits(keys, (5,)), ref.bits(kc, (5,))),
+        (ops.uniform(keys, (3,)), ref.uniform(kc, (3,))),
+        (ops.uniform(keys, (2,), lo, 1.0), ref.uniform(kc, (2,), lo, 1.0)),
+        (ops.randint(keys, (4,), 0, hi), ref.randint(kc, (4,), 0, hi.cpu())),
+        (ops.choice(keys, p), ref.choice(kc, p.cpu()))]
+    pairs += [(ops.randint(keys, (2,), lo_, lo_ + span),
+               ref.randint(kc, (2,), lo_, lo_ + span))
+              for lo_, span in ((0, 1), (0, 8), (3, 13), (0, 65537),
+                                (-5, 2**31 - 1))]
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        assert torch.equal(got.cpu(), want)
+    assert ops.launches["threefry"] == before + len(pairs)
+
+
+@FLAG_SETS
+@pytest.mark.parametrize("B", [45, 135])
+def test_fused_epoch_sweep_widths_with_tom(cuda, B, pei, aimm):
+    """The batched engine's widths: the shared stage with the TOM fold at
+    B lanes, the route stage and the fused launch at B cells."""
+    from repro_torch.kernels.epoch_fused import ops, ref
+    from repro_torch.nmp.baselines import tom_candidates
+    from repro_torch.nmp.config import NMPConfig
+    cfg = NMPConfig()
+    x, topo, pei_k = _synthetic_epoch(cuda, B, 4096, seed=B + pei)
+    _check_three_shapes(cuda, x, topo, pei_k, pei, aimm)
+    win = [x[k] for k in ("dest", "src1", "src2", "valid")]
+    cands = tom_candidates(4096, cfg, cuda)
+    k = pei_k if pei else 0
+    sp = ops.shared_parts(*win, x["epochs"], x["rb_stamp"], x["page_ema"],
+                          x["n_pages"], x["pei_idx"], pei_k=k, aimm=aimm,
+                          tom_cands=cands, n_cubes=cfg.n_cubes)
+    want = ref.tom_stage(*win, cands, cfg.n_cubes)
+    torch.cuda.synchronize()
+    assert torch.equal(sp.tom_scores, want)
+
+
+@pytest.mark.parametrize("n", [1, 64])
+def test_dueling_qnet_at_sweep_width(cuda, n):
+    """G = 45 agents (the figure grid's learned cells), act and TD rows."""
+    from repro_torch.core import dqn, prng
+    from repro_torch.kernels.dueling_qnet import ops
+    from repro_torch.kernels.dueling_qnet.ref import dueling_qnet_ref
+    keys = prng.split(prng.PRNGKey(n, cuda), 45)
+    params = dqn.init_params(keys, dqn.DQNConfig(state_dim=106), 45, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    xs = torch.rand((45, n, 106), generator=gen, device=cuda) * 2
+    got = ops.qnet_forward(params, xs)
+    want = dueling_qnet_ref(xs, *[params[k] for k in QKEYS])
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_small_run_grid_on_card_matches_cpu(cuda):
+    """A folded grid (deterministic, scripted NEAR and learned lanes) on the
+    card against the port's CPU path: per-epoch integer timelines equal,
+    cycles within rtol 1e-5."""
+    from repro_torch.kernels.threefry import ops
+    from repro_torch.nmp.config import NMPConfig
+    from repro_torch.nmp.scenarios import Scenario, seed_variants
+    from repro_torch.nmp.sweep import run_grid
+    from repro_torch.nmp.traces import make_trace
+    grid = []
+    for app, n in (("KM", 384), ("SPMV", 768)):
+        tr = make_trace(app, n_ops=n)
+        for mapper, forced in (("none", -1), ("tom", -1), ("aimm", 1),
+                               ("aimm", -1)):
+            grid += seed_variants(Scenario(
+                name=f"{app}/{mapper}/{forced}", trace=tr, technique="pei",
+                mapper=mapper, forced_action=forced,
+                episodes=2 if forced < 0 and mapper == "aimm" else 1),
+                seeds=(0, 1, 2))
+    ops.reset_launches()
+    card = run_grid(grid, NMPConfig(), device=cuda)
+    assert ops.launches["threefry"] > 0
+    cpu = run_grid(grid, NMPConfig(), device="cpu")
+    for k in ("ops", "valid_t", "invoke_t", "migrations"):
+        assert np.array_equal(card.metrics[k], cpu.metrics[k]), k
+    np.testing.assert_allclose(card.metrics["cycles"], cpu.metrics["cycles"],
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("G", [1, 3, 45])
+def test_batched_linear_kernels_equal_plain_and_batch_invariant(cuda, G):
+    """The TD step's products and sums within 1e-5 of torch's, and agent
+    0's result the same bits at every agent count (torch's are not)."""
+    from repro_torch.kernels.batched_linear import ops, ref
+    gen = torch.Generator(device=cuda).manual_seed(G)
+    x = torch.randn((G, 64, 106), generator=gen, device=cuda)
+    w = torch.randn((G, 106, 128), generator=gen, device=cuda) * 0.1
+    dy = torch.randn((G, 64, 128), generator=gen, device=cuda)
+    bias = torch.randn((G, 128), generator=gen, device=cuda)
+    calls = [lambda a, b, c: ops.bgemm(a, b),
+             lambda a, b, c: ops.bgemm(a, b, bias[:a.shape[0]]),
+             lambda a, b, c: ops.bgemm(c, b.transpose(1, 2)),
+             lambda a, b, c: ops.bgemm_colsum(a.transpose(1, 2), c),
+             lambda a, b, c: ops.sq_norm([b, a, c])]
+    plain = [lambda a, b, c: a @ b,
+             lambda a, b, c: a @ b + bias[:, None, :],
+             lambda a, b, c: c @ b.transpose(1, 2),
+             lambda a, b, c: (a.transpose(1, 2) @ c, c.sum(1)),
+             lambda a, b, c: ref.sq_norm([b, a, c])]
+    before = ops.launches["batched_linear"]
+    for k, p in zip(calls, plain):
+        got = k(x, w, dy)
+        torch.testing.assert_close(got, p(x, w, dy), rtol=1e-5, atol=1e-5)
+        alone = k(x[:1], w[:1], dy[:1])
+        for a_, g_ in zip(alone if isinstance(alone, tuple) else (alone,),
+                          got if isinstance(got, tuple) else (got,)):
+            assert torch.equal(a_[0], g_[0])
+    assert ops.launches["batched_linear"] == before + 2 * len(calls)
+    # the layer: forward one launch, backward two, within rtol 1e-5 of
+    # torch's autograd
+    xs = x.clone().requires_grad_(True)
+    ws, bs = w.clone().requires_grad_(True), bias.clone().requires_grad_(True)
+    before = ops.launches["batched_linear"]
+    y = ops.linear(xs, ws, bs)
+    grads = torch.autograd.grad((y * dy).sum(), [xs, ws, bs])
+    assert ops.launches["batched_linear"] == before + 3
+    xp = x.clone().requires_grad_(True)
+    wp, bp = w.clone().requires_grad_(True), bias.clone().requires_grad_(True)
+    yp = ref.linear(xp, wp, bp)
+    want = torch.autograd.grad((yp * dy).sum(), [xp, wp, bp])
+    torch.testing.assert_close(y, yp, rtol=1e-5, atol=1e-5)
+    for g_, w_ in zip(grads, want):
+        torch.testing.assert_close(g_, w_, rtol=1e-5, atol=1e-4)
+
+
+def test_learned_grid_equals_serial_on_card(cuda):
+    """Learned lanes that train (3 episodes of SPMV/4096 and a greedy eval,
+    3 seeds folded) in one run_grid equal their serial runs on the card:
+    the batch-invariant TD step keeps every agent's bits whatever G."""
+    from repro_torch.nmp.config import NMPConfig
+    from repro_torch.nmp.engine import run_episode, run_program
+    from repro_torch.nmp.scenarios import Scenario, seed_variants
+    from repro_torch.nmp.sweep import run_grid
+    from repro_torch.nmp.traces import make_trace
+    tr = make_trace("SPMV", n_ops=4096)
+    grid = seed_variants(Scenario(name="s", trace=tr, mapper="aimm",
+                                  episodes=3, eval_episode=True),
+                         seeds=(0, 1, 2))
+    res = run_grid(grid, NMPConfig(), device=cuda)
+    for i, sc in enumerate(grid):
+        runs = run_program(tr, NMPConfig(), "bnmp", "aimm", episodes=3,
+                           seed=sc.seed, device=cuda)
+        runs.append(run_episode(tr, NMPConfig(), "bnmp", "aimm",
+                                agent=runs[-1].agent, seed=sc.seed,
+                                explore=False, device=cuda))
+        assert int(runs[-1].agent.train_steps[0]) > 0
+        for e, r in enumerate(runs):
+            assert np.array_equal(res.metrics["opc_t"][i, e],
+                                  r.metrics["opc"].cpu().numpy()), (i, e)

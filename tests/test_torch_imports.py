@@ -18,7 +18,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / n for n in ("chip_smoke.py", "same_call_baseline.py",
-                       "episode_in_turns.py")]
+                       "episode_in_turns.py", "grid_in_turns.py")]
 OPS_FILES = sorted(PORT.rglob("ops.py"))
 
 
@@ -45,12 +45,17 @@ def test_port_has_files_to_scan():
                  "models/attention.py", "models/mamba.py",
                  "models/transformer.py", "models/model.py",
                  "models/convert.py", "train/serve_step.py",
-                 "launch/serve.py"):
+                 "launch/serve.py", "core/prng.py",
+                 "kernels/threefry/ops.py", "kernels/threefry/ref.py",
+                 "kernels/batched_linear/ops.py",
+                 "kernels/batched_linear/ref.py",
+                 "nmp/scenarios.py", "nmp/plan.py", "nmp/partition.py",
+                 "nmp/sweep.py", "configs/aimm_nmp.py"):
         assert want in names
     assert (ROOT / "chip_smoke.py").exists()
     assert {p.name for p in (PORT / "csrc").glob("*.cu")} == {
         "epoch_fused.cu", "dueling_qnet.cu", "flash_attention.cu",
-        "ssd_scan.cu"}
+        "ssd_scan.cu", "threefry.cu", "batched_linear.cu"}
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

@@ -24,6 +24,7 @@ from repro.nmp import topology as j_topo
 from repro.nmp import traces as j_traces
 from repro.nmp.config import NMPConfig as JCfg
 from repro_torch.core import actions as t_actions
+from repro_torch.core import prng
 from repro_torch.core import reward as t_reward
 from repro_torch.core import state as t_state
 from repro_torch.nmp import baselines as t_base
@@ -220,10 +221,10 @@ def test_reward_and_interval_equal():
 @pytest.mark.parametrize("name", TOPOS)
 def test_random_neighbor_draws_legal_neighbours(name):
     topo = t_topo.topology_tensors(TCfg(topology=name), CPU)
-    gen = torch.Generator().manual_seed(0)
     C = topo.n_cubes
     cube = torch.arange(C, dtype=torch.int32).repeat(64)
-    got = t_actions.random_neighbor(gen, cube, topo.nbr, topo.nbr_valid)
+    keys = prng.split(prng.PRNGKey(0, CPU), cube.shape[0])
+    got = t_actions.random_neighbor(keys, cube, topo.nbr, topo.nbr_valid)
     nbr, valid = topo.nbr.numpy(), topo.nbr_valid.numpy()
     for c, n in zip(cube.tolist(), got.tolist()):
         assert n in set(nbr[c][valid[c]].tolist())
