@@ -58,6 +58,24 @@ Phases (each prints its lines; the run exits 0 only if every phase passes):
     top-two Q gap is below 1e-4 relative); a profile of the learned
     group's epoch loop.  (`grid_in_turns.py` times this grid under two
     settings of a knob in turns.)
+ 5c. the continual layer's paths (counts set to 0 just before each and
+    read just after): `[continual]`, bench_continual.py's switch stream
+    (KM -> KM+SC -> SC, 4096 ops per app, 5 episodes, bnmp, a baseline
+    lane and a learned lane with lineage "stream") through `run_stream`
+    with a checkpoint after every phase (per-phase wall, cell-epochs/s,
+    launches, peak memory, the store's versions), then the kill-and-resume
+    drill (step 0 restored into a fresh PolicyStore, phases 1-2 again) and
+    the stream as chained `run_grid(store=)` calls, both `==` to it in
+    every metric and stored leaf; `[serving]`, bench_serving.py's full
+    fleet (96 tenants, 16 slots, 3 phases, 1024 ops per app, store
+    capacity 48) through the MappingServer (ticks, steady-state epochs/s,
+    phase latency p50/p99, compile_s, recompiles, evictions, occupancy),
+    and 4 tenants against `solo_stream` on the card (per-epoch action and
+    invoke `==`, OPC within rtol 1e-5, the near-tie rule of 5b);
+    `[faults]`, on a 3-tenant fleet: a poisoned warm agent, attributed
+    failures up to quarantine, the store poison with rollback and a stall
+    over the deadline, every healthy tenant `==` to the fault-free run on
+    the same shapes.
  6. model-zoo kernels vs their plain-torch versions on the card, at the
     main-path shapes (B 1, S 4096): flash attention at minitron-8b's
     (H 32, K 8, hd 128) in bf16 (the wgmma kernel) and f32 within the bars
@@ -1495,6 +1513,377 @@ def phase_grid(dev, rates: dict) -> tuple[dict, dict]:
     return launches, shapes
 
 
+# ---------------------------------------------------------------------------
+# Continual learning, serving and fault drills (the continual layer's paths)
+# ---------------------------------------------------------------------------
+
+# bench_continual.py's switch stream at its full size: KM -> KM+SC -> SC,
+# bnmp, a baseline lane and a learned lane with lineage "stream"
+STREAM_N_OPS = 4096
+STREAM_EPISODES = 5
+# bench_serving.py's full fleet
+FLEET_TENANTS = 96
+FLEET_SLOTS = 16
+FLEET_PHASES = 3
+FLEET_N_OPS = 1024
+FLEET_CAPACITY = 48
+FLEET_SPOT = ("t000", "t031", "t063", "t095")
+# the fault drills' small fleet
+DRILL_TENANTS = 3
+DRILL_N_OPS = 1024
+
+
+def aimm_kernel_ops():
+    from repro_torch.kernels.batched_linear import ops as lops
+    from repro_torch.kernels.dueling_qnet import ops as qops
+    from repro_torch.kernels.epoch_fused import ops as eops
+    from repro_torch.kernels.threefry import ops as tops
+    return eops, qops, tops, lops
+
+
+def reset_aimm_launches() -> None:
+    for ops in aimm_kernel_ops():
+        ops.reset_launches()
+
+
+def aimm_launches() -> dict[str, int]:
+    launches = {}
+    for ops in aimm_kernel_ops():
+        launches.update(ops.launches)
+    # the TOM scorer's count: its scorings in any form
+    launches["tom_scores"] += launches.pop("tom_scores_folded")
+    return launches
+
+
+def simulated_epochs(res) -> int:
+    """Cell-epochs one run_grid simulated (padding cells included)."""
+    return res.plan.n_epochs * sum(g.n_lanes * g.n_seeds * g.n_episodes
+                                   for g in res.plan.groups)
+
+
+def same_results(a, b) -> bool:
+    """Two SweepResults' metrics and per-epoch actions equal, dtype too."""
+    import numpy as np
+    return (set(a.metrics) == set(b.metrics)
+            and all(a.metrics[k].dtype == b.metrics[k].dtype
+                    and np.array_equal(a.metrics[k], b.metrics[k])
+                    for k in a.metrics)
+            and np.array_equal(a.actions, b.actions))
+
+
+def same_snapshot(a, b) -> bool:
+    import numpy as np
+    from repro_torch.train.checkpoint import leaf_paths
+    la, lb = leaf_paths(a), leaf_paths(b)
+    return [k for k, _ in la] == [k for k, _ in lb] and all(
+        x.dtype == y.dtype and np.array_equal(x, y)
+        for (_, x), (_, y) in zip(la, lb))
+
+
+def phase_continual(dev) -> dict[str, int]:
+    """The switch stream through `run_stream` on the card with a checkpoint
+    after every phase, counts set to 0 just before and read just after; then
+    the kill-and-resume drill (step 0 restored into a fresh store, phases
+    1-2 run again) and the stream as chained `run_grid(store=)` calls, both
+    `==` to the uninterrupted run in every metric and stored leaf."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.nmp.config import NMPConfig
+    from repro_torch.nmp.continual import PolicyStore, run_stream
+    from repro_torch.nmp.engine import default_agent_cfg
+    from repro_torch.nmp.scenarios import continual_stream
+    from repro_torch.nmp.sweep import run_grid
+    from repro_torch.train.checkpoint import CheckpointManager
+    cfg = NMPConfig()
+    stream = continual_stream(n_ops_per_app=STREAM_N_OPS,
+                              episodes=STREAM_EPISODES, technique="bnmp")
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ck_",
+                                     dir=ROOT / "build") as ck:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_aimm_launches()
+        t0 = time.perf_counter()
+        full = run_stream(stream, cfg, checkpoint_dir=ck, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = aimm_launches()
+        peak = torch.cuda.max_memory_allocated()
+        for k in ("fused_epoch", "dueling_qnet", "threefry",
+                  "batched_linear"):
+            if not launches[k] > 0:
+                raise AssertionError(f"run_stream launched no {k}: "
+                                     f"{launches}")
+        assert CheckpointManager(ck).all_steps() == [0, 1, 2]
+        store = full.store
+        log(f"[continual] switch stream (KM -> KM+SC -> SC, "
+            f"{STREAM_N_OPS} ops per app, {STREAM_EPISODES} episodes, "
+            f"bnmp, baseline + aimm lineage 'stream'): {wall:.3f} s with a "
+            f"checkpoint after every phase; peak device memory "
+            f"{peak / 2**20:.1f} MiB")
+        for pi, res in enumerate(full.phases):
+            n = simulated_epochs(res)
+            lane = next(i for i, sc in enumerate(res.scenarios)
+                        if sc.mapper == "aimm")
+            s = res.summary(lane)
+            assert s["ops"] == res.scenarios[lane].trace.n_ops, s["ops"]
+            assert np.isfinite(res.metrics["opc_t"]).all()
+            log(f"[continual] phase {pi} {res.scenarios[lane].name}: wall "
+                f"{res.wall_s:.3f} s, {n} cell-epochs ({n / res.wall_s:.1f}"
+                f"/s), last-episode OPC {s['opc']!r} (baseline "
+                f"{res.summary(1 - lane)['opc']!r}), invocations "
+                f"{res.invocations(lane)}")
+        meta = store.meta["stream"]
+        log(f"[continual] store: tags {store.tags}, version "
+            f"{store.version('stream')}, phases {meta['phases']}, "
+            f"global_step {meta['global_step']}, train_steps "
+            f"{meta['train_steps']}")
+        log(f"[continual] launches: {json.dumps(launches)}")
+        assert store.version("stream") == 3 and meta["train_steps"] > 0
+
+        acfg = default_agent_cfg(cfg)
+        resumed_store = PolicyStore.restore(ck, acfg, step=0)
+        t0 = time.perf_counter()
+        resumed = run_stream(stream[1:], cfg, store=resumed_store,
+                             checkpoint_dir=ck, device=dev)
+        t_res = time.perf_counter() - t0
+        for pi, res in enumerate(resumed.phases):
+            if not same_results(res, full.phases[pi + 1]):
+                raise AssertionError(f"resumed phase {pi + 1} differs from "
+                                     "the uninterrupted run")
+        if not same_snapshot(resumed.store.get("stream"),
+                             store.get("stream")):
+            raise AssertionError("resumed store differs from the "
+                                 "uninterrupted run's")
+        if not same_snapshot(PolicyStore.restore(ck, acfg).get("stream"),
+                             store.get("stream")):
+            raise AssertionError("rewritten step 2 differs")
+    log(f"[continual] kill-and-resume: step 0 restored into a fresh store, "
+        f"phases 1-2 in {t_res:.3f} s: every metric, per-epoch action and "
+        f"stored leaf == the uninterrupted run")
+    chained = PolicyStore()
+    for pi, phase in enumerate(stream):
+        res = run_grid(phase, cfg, store=chained, device=dev)
+        if not same_results(res, full.phases[pi]):
+            raise AssertionError(f"chained run_grid phase {pi} differs from "
+                                 "run_stream")
+    if not same_snapshot(chained.get("stream"), store.get("stream")):
+        raise AssertionError("chained run_grid store differs")
+    log("[continual] chained run_grid(store=) calls: every metric, "
+        "per-epoch action and stored leaf == run_stream")
+    return launches
+
+
+def solo_near_tie(dev, cfg, tid, stream, pi, e, t) -> float | None:
+    """The relative top-two Q gap at epoch t of episode e of phase pi of a
+    tenant's solo stream on the card (the agent replayed to the start of
+    that episode), or None if the agent does not act there."""
+    from repro_torch.nmp.continual import run_stream
+    from repro_torch.nmp.engine import run_episode
+    from repro_torch.nmp.serving import solo_stream
+    solo = solo_stream(tid, stream)
+    agent = None
+    if pi:
+        agent = run_stream(solo[:pi], cfg, device=dev).store.checkout(tid,
+                                                                      dev)
+    sc = solo[pi][0]
+    for ep in range(e):
+        agent = run_episode(sc.trace, cfg, sc.technique, "aimm", agent=agent,
+                            seed=sc.seed + ep, page_table=sc.page_table,
+                            device=dev).agent
+    return q_gap(dev, sc, cfg, agent, True, sc.seed + e, t)
+
+
+def hold_tenant(dev, cfg, srv, tid, stream) -> str:
+    """A served tenant against its solo stream on the card, phase by phase
+    and epoch by epoch: action and invoke `==`, OPC within rtol 1e-5, up to
+    a float-order near-tie (hold_learned_lane's rule), after which the
+    tenant's later epochs are not compared."""
+    import numpy as np
+    from repro_torch.nmp.continual import run_stream
+    from repro_torch.nmp.serving import solo_stream
+    solo = run_stream(solo_stream(tid, stream), cfg, device=dev)
+    same = True
+    for pi in range(len(stream)):
+        res, lane = srv.tenant(tid).results[pi]
+        want = solo.phases[pi]
+        for e in range(want.n_episodes):
+            act, g_act = want.actions[0, e], res.actions[lane, e]
+            inv = want.metrics["invoke_t"][0, e]
+            g_inv = res.metrics["invoke_t"][lane, e]
+            opc = want.metrics["opc_t"][0, e].astype(np.float64)
+            g_opc = res.metrics["opc_t"][lane, e].astype(np.float64)
+            bad = np.flatnonzero((act != g_act) | (inv != g_inv) | ~np.isclose(
+                opc, g_opc, rtol=1e-5, atol=0.0))
+            if bad.size:
+                t = int(bad[0])
+                where = (f"{tid}: served and solo part at phase {pi} "
+                         f"episode {e} epoch {t}")
+                if act[t] == g_act[t] or inv[t] == 0 or inv[t] != g_inv[t]:
+                    raise AssertionError(f"{where} with equal actions there")
+                gap = solo_near_tie(dev, cfg, tid, stream, pi, e, t)
+                if gap is None or not gap < 1e-4:
+                    raise AssertionError(f"{where}: no near-tie (top-two Q "
+                                         f"gap {gap!r} relative, bar 1e-4)")
+                return (f"== up to phase {pi} episode {e} epoch {t}; a "
+                        f"near-tie there (gap {gap:.3g})")
+        same &= all(np.array_equal(res.metrics[k][lane], want.metrics[k][0])
+                    for k in want.metrics)
+    return ("per-epoch action and invoke ==, OPC within rtol 1e-5, every "
+            "metric " + ("==" if same else "within that bar"))
+
+
+def phase_serving(dev) -> dict[str, int]:
+    """bench_serving.py's full fleet through the MappingServer on the card,
+    counts set to 0 just before and read just after; then 4 tenants against
+    their solo streams on the card."""
+    import torch
+    from repro_torch.nmp.config import NMPConfig
+    from repro_torch.nmp.scenarios import tenant_fleet
+    from repro_torch.nmp.serving import MappingServer
+    cfg = NMPConfig()
+    fleet = tenant_fleet(n_tenants=FLEET_TENANTS, n_phases=FLEET_PHASES,
+                         n_ops_per_app=FLEET_N_OPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_aimm_launches()
+    t0 = time.perf_counter()
+    srv = MappingServer(cfg, n_slots=FLEET_SLOTS,
+                        store_capacity=FLEET_CAPACITY, device=dev)
+    for tid, stream in fleet.items():
+        srv.submit(tid, stream)
+    attempts = srv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = aimm_launches()
+    peak = torch.cuda.max_memory_allocated()
+    st = srv.stats()
+    for k in ("fused_epoch", "dueling_qnet", "threefry", "batched_linear"):
+        if not launches[k] > 0:
+            raise AssertionError(f"serving launched no {k}: {launches}")
+    if st["tenants_done"] != FLEET_TENANTS or st["phases_served"] != (
+            FLEET_TENANTS * FLEET_PHASES):
+        raise AssertionError(f"fleet not drained: {st}")
+    if st["recompiles_after_first_tick"] != 0:
+        raise AssertionError(f"new dispatch signatures after the first "
+                             f"tick: {st['recompiles_after_first_tick']}")
+    log(f"[serving] {FLEET_TENANTS} tenants x {FLEET_PHASES} phases "
+        f"({FLEET_N_OPS} ops per app, 1 episode), {st['n_slots']} slots, "
+        f"store capacity {FLEET_CAPACITY}: {wall:.3f} s wall, {st['ticks']} "
+        f"ticks ({attempts} dispatch attempts), steady-state epochs/s "
+        f"{st['steady_epochs_per_sec']!r}, phase latency p50 "
+        f"{st['phase_latency_p50_s']!r} s p99 {st['phase_latency_p99_s']!r} "
+        f"s, compile_s {st['compile_s']!r} (ticks of a new signature), "
+        f"recompiles after the first tick {st['recompiles_after_first_tick']}"
+        f", evictions {st['store']['evictions']}, slot occupancy "
+        f"{st['slot_occupancy']!r}; peak device memory "
+        f"{peak / 2**20:.1f} MiB")
+    log(f"[serving] launches: {json.dumps(launches)}")
+    for tid in FLEET_SPOT:
+        verdict = hold_tenant(dev, cfg, srv, tid, fleet[tid])
+        log(f"[serving] {tid} against solo_stream on the card: {verdict}")
+    return launches
+
+
+def phase_faults(dev) -> dict[str, int]:
+    """The fault drills on a small fleet on the card, each against the same
+    fleet served fault-free on the same shapes: a poisoned warm agent, the
+    store poison with rollback, attributed failures up to quarantine, and a
+    stall over the deadline.  Every healthy tenant `==` to the fault-free
+    run (metrics and per-epoch actions)."""
+    import numpy as np
+    from repro_torch.nmp import faults
+    from repro_torch.nmp.config import NMPConfig
+    from repro_torch.nmp.faults import FaultEvent, FaultPlan
+    from repro_torch.nmp.scenarios import tenant_fleet, tenant_stream
+    from repro_torch.nmp.serving import MappingServer
+    cfg = NMPConfig()
+    reset_aimm_launches()
+
+    def serve(fleet, **kw):
+        srv = MappingServer(cfg, n_slots=2, backoff_base_s=0.001,
+                            device=dev, **kw)
+        for tid, stream in fleet.items():
+            srv.submit(tid, stream)
+        srv.run()
+        return srv
+
+    def same_tenant(srv, ref, tid, phases=None, ref_phases=None):
+        phases = phases or range(len(ref.tenant(tid).results))
+        ref_phases = ref_phases or phases
+        for pi, rpi in zip(phases, ref_phases):
+            (res, lane), (want, wl) = (srv.tenant(tid).results[pi],
+                                       ref.tenant(tid).results[rpi])
+            for k in want.metrics:
+                if not np.array_equal(res.metrics[k][lane],
+                                      want.metrics[k][wl]):
+                    raise AssertionError(f"{tid} phase {pi}: {k} differs "
+                                         "from the fault-free run")
+            if not np.array_equal(res.actions[lane], want.actions[wl]):
+                raise AssertionError(f"{tid} phase {pi}: actions differ")
+
+    fleet = tenant_fleet(n_tenants=DRILL_TENANTS, apps=("KM", "SC"),
+                         n_phases=2, n_ops_per_app=DRILL_N_OPS)
+    clean = serve(fleet)
+    p50 = clean.stats()["phase_latency_p50_s"]
+
+    srv = serve(fleet, faults=FaultPlan([FaultEvent("poison_agent", at=1,
+                                                    tenant="t001")]))
+    st = srv.stats()["faults"]
+    assert st["divergences"] >= 1 and st["quarantines"] == 0, st
+    for tid in fleet:
+        same_tenant(srv, clean, tid)
+    log(f"[faults] poisoned warm agent (t001 at attempt 1): divergences "
+        f"{st['divergences']}, retries {st['retries']}; every tenant == the "
+        "fault-free run")
+
+    srv = serve(fleet, max_phase_retries=1, faults=FaultPlan(
+        [FaultEvent("fail_tick", at=i, tenant="t000") for i in range(10)]))
+    st = srv.stats()
+    assert srv.tenant("t000").quarantined, st
+    assert st["faults"]["quarantines"] == 1, st
+    for tid in ("t001", "t002"):
+        same_tenant(srv, clean, tid)
+    log(f"[faults] fail_tick on t000 (max_phase_retries 1): quarantined "
+        f"after {st['faults']['tick_failures']} failed attempts; t001, t002 "
+        "== the fault-free run")
+
+    stream = tenant_stream(apps=("KM", "SC"), n_phases=3,
+                           n_ops_per_app=DRILL_N_OPS)
+    clean3 = serve({"t": stream})
+    rolled = serve({"t": [stream[0], stream[2]]})
+    srv = MappingServer(cfg, n_slots=2, backoff_base_s=0.001, device=dev)
+    srv.submit("t", stream)
+    srv.tick()
+    srv.tick()
+    faults.poison_store_agent(srv.store, "t")
+    srv.run()
+    st = srv.stats()["faults"]
+    assert st["rollbacks"] >= 1 and srv.tenant("t").done, st
+    same_tenant(srv, clean3, "t", phases=(0, 1))
+    same_tenant(srv, rolled, "t", phases=(2,), ref_phases=(1,))
+    log(f"[faults] store poison after phase 1: divergences "
+        f"{st['divergences']}, rollbacks {st['rollbacks']}; phases 0-1 == "
+        "the fault-free run, phase 2 == a run of phase 2 right after phase "
+        "0")
+
+    deadline = max(4 * p50, 0.5)
+    srv = serve(fleet, phase_deadline_s=deadline, faults=FaultPlan(
+        [FaultEvent("stall_tick", at=0, tenant="t000",
+                    stall_s=2.5 * deadline)]))
+    st = srv.stats()["faults"]
+    assert st["deadline_misses"] >= 1 and st["retries"] >= 1, st
+    for tid in fleet:
+        same_tenant(srv, clean, tid)
+    launches = aimm_launches()
+    log(f"[faults] stall of {2.5 * deadline:.3f} s on t000 (deadline "
+        f"{deadline:.3f} s): deadline misses {st['deadline_misses']}, retries "
+        f"{st['retries']}; every tenant == the fault-free run")
+    log(f"[faults] launches: {json.dumps(launches)}")
+    return launches
+
+
 def profiled(fn):
     """Run fn() under torch.profiler; returns (wall s with the profiler on,
     [(device us, launches, kernel name)] by kernel).  Fails if the profiler
@@ -1616,6 +2005,9 @@ def main() -> int:
     launches, split, rates = phase_main_path(dev)
     phase_profile(dev)
     grid_launches, grid_shapes = phase_grid(dev, rates)
+    lifecycle = {"continual": phase_continual(dev),
+                 "serving": phase_serving(dev),
+                 "faults": phase_faults(dev)}
     kernels += phase_zoo_kernels(dev)
     phase_zoo_card_vs_cpu(dev)
     launches.update(phase_zoo_model(dev))
@@ -1623,13 +2015,17 @@ def main() -> int:
     for k in kernels:
         name = k["name"]
         # each main path's own run: the episodes, the grid, the zoo
-        k["launches"] = launches[name] + grid_launches.get(name, 0)
+        k["launches"] = (launches[name] + grid_launches.get(name, 0)
+                         + sum(ph.get(name, 0) for ph in lifecycle.values()))
         k.update(split.get(name, {}))
         k.update(widths.get(name, {}))
         if name in grid_launches:
             k["launches_episodes"] = launches[name]
             k["launches_grid"] = grid_launches[name]
             k["launches_grid_by_shape"] = grid_shapes.get(name, {})
+        for phase, counts in lifecycle.items():
+            if name in counts:
+                k[f"launches_{phase}"] = counts[name]
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"[card] {card}")

@@ -18,9 +18,21 @@ key and the agent's stream, `cold_start(seed)` is `init_agent(PRNGKey(seed
 uniform, random action) and the TD step samples its minibatch from a key
 the caller splits off (`train` splits the agent's own).  Weights drawn by
 `init_agent` are `prng.normal`'s, within 3 ulp of the reference's; every
-other draw is the reference's bit for bit.  `agent_from_numpy` imports the
+other draw is the reference's bit for bit.  `import_agent` imports the
 reference's weights, Adam moments, replay, counters and key, so both
 packages compute with the same state and stream.
+
+Lifecycle API (the continual layer, nmp.continual, builds on these):
+
+  cold_start     : the fresh-agent convention (PRNGKey(seed + 1))
+  hand_off       : scenario-boundary handoff: the per-scenario counter
+                   resets; DNN, replay, key and global_step carry over
+  export_agent / import_agent : a host numpy snapshot (the reference's
+                   AgentState layout and field names, the key as two uint32
+                   words; `core.tree.Fields` dicts) <-> a one-agent
+                   state; `export_agents` / `import_agents` the same for a
+                   stacked G-agent batch (one copy per leaf)
+  agent_template : the key-free snapshot skeleton (checkpoint restore)
 """
 from __future__ import annotations
 
@@ -34,6 +46,7 @@ from repro_torch import resolve_device
 from repro_torch.core import dqn, prng
 from repro_torch.core.dqn import DQNConfig
 from repro_torch.core.replay import ReplayBuffer, init_replay, push, sample
+from repro_torch.core.tree import Fields
 from repro_torch.train.optimizer import adamw
 
 
@@ -106,58 +119,150 @@ def _field(obj: Any, name: str):
     return obj[name] if isinstance(obj, dict) else getattr(obj, name)
 
 
-def agent_from_numpy(snapshot: Any,
-                     device: str | torch.device = "cuda") -> AgentState:
-    """One agent (G = 1) from a numpy snapshot of the reference's AgentState
-    (`repro.core.agent.export_agent`, or this module's `export_agent`),
-    read by field name: params, target_params, opt_state m/v, replay,
-    step, train_steps, loss_ema, global_step and the key `rng` (its two
-    uint32 words, taken as they are)."""
+# The reference's AgentState and ReplayBuffer fields, in their order: the
+# layout of every host snapshot (and of a checkpoint's leaf keys).
+AGENT_FIELDS = ("params", "target_params", "opt_state", "replay", "step",
+                "train_steps", "rng", "loss_ema", "global_step")
+REPLAY_FIELDS = ("s", "a", "r", "s2", "done", "ptr", "size")
+
+
+def import_agents(stacked: Any, device: str | torch.device = "cuda"
+                  ) -> AgentState:
+    """G agents from a host snapshot whose leaves carry a leading agent
+    axis G (the reference's field names, read by name from a dict or a
+    NamedTuple; the key as two uint32 words per agent): one host->device
+    copy per leaf."""
     dev = resolve_device(device)
-    on = lambda a: torch.from_numpy(np.array(a, copy=True))[None].to(dev)
-    tree = lambda d: {k: on(v).to(torch.float32) for k, v in d.items()}
-    opt = _field(snapshot, "opt_state")
-    rp = _field(snapshot, "replay")
+    on = lambda a: torch.from_numpy(np.array(a, copy=True)).to(dev)
+    f32 = lambda a: on(a).to(torch.float32)
     i32 = lambda a: on(a).to(torch.int32)
+    tree = lambda d: {k: f32(v) for k, v in d.items()}
+    opt = _field(stacked, "opt_state")
+    rp = _field(stacked, "replay")
     return AgentState(
-        params=tree(_field(snapshot, "params")),
-        target_params=tree(_field(snapshot, "target_params")),
+        params=tree(_field(stacked, "params")),
+        target_params=tree(_field(stacked, "target_params")),
         opt_state={"m": tree(_field(opt, "m")), "v": tree(_field(opt, "v"))},
         replay=ReplayBuffer(
-            s=on(_field(rp, "s")).float(), a=i32(_field(rp, "a")),
-            r=on(_field(rp, "r")).float(), s2=on(_field(rp, "s2")).float(),
-            done=on(_field(rp, "done")).float(), ptr=i32(_field(rp, "ptr")),
+            s=f32(_field(rp, "s")), a=i32(_field(rp, "a")),
+            r=f32(_field(rp, "r")), s2=f32(_field(rp, "s2")),
+            done=f32(_field(rp, "done")), ptr=i32(_field(rp, "ptr")),
             size=i32(_field(rp, "size"))),
-        step=i32(_field(snapshot, "step")),
-        train_steps=i32(_field(snapshot, "train_steps")),
-        loss_ema=on(_field(snapshot, "loss_ema")).float(),
-        global_step=i32(_field(snapshot, "global_step")),
-        rng=on(np.asarray(_field(snapshot, "rng"), np.uint32).astype(
+        step=i32(_field(stacked, "step")),
+        train_steps=i32(_field(stacked, "train_steps")),
+        loss_ema=f32(_field(stacked, "loss_ema")),
+        global_step=i32(_field(stacked, "global_step")),
+        rng=on(np.asarray(_field(stacked, "rng"), np.uint32).astype(
             np.int64)))
 
 
-def export_agent(agent: AgentState) -> dict:
-    """Host-side numpy snapshot of a one-agent state (G = 1), with the
-    reference's field names (no agent axis; the key as two uint32 words)."""
-    if agent.step.shape[0] != 1:
-        raise ValueError(f"export_agent: expected one agent, got "
-                         f"{agent.step.shape[0]}")
-    np_ = lambda t: t[0].detach().cpu().numpy()
-    tree = lambda d: {k: np_(v) for k, v in d.items()}
+def map_snapshot(fn, snap: Any) -> Fields:
+    """`fn` over every leaf of a snapshot, rebuilt in the reference layout
+    (a `Fields` agent and replay, plain dicts for the parameter trees)."""
+    tree = lambda d: {k: fn(v) for k, v in d.items()}
+    opt = _field(snap, "opt_state")
+    rp = _field(snap, "replay")
+    out = {"params": tree(_field(snap, "params")),
+           "target_params": tree(_field(snap, "target_params")),
+           "opt_state": {"m": tree(_field(opt, "m")),
+                         "v": tree(_field(opt, "v"))},
+           "replay": Fields({f: fn(_field(rp, f)) for f in REPLAY_FIELDS})}
+    return Fields({f: out[f] if f in out else fn(_field(snap, f))
+                   for f in AGENT_FIELDS})
+
+
+def import_agent(snapshot: Any,
+                 device: str | torch.device = "cuda") -> AgentState:
+    """One agent (G = 1) on `device` from a numpy snapshot of the
+    reference's AgentState (`repro.core.agent.export_agent`, or this
+    module's `export_agent`), read by field name: params, target_params,
+    opt_state m/v, replay, step, train_steps, loss_ema, global_step and the
+    key `rng` (its two uint32 words, taken as they are)."""
+    return import_agents(map_snapshot(lambda a: np.asarray(a)[None],
+                                      snapshot), device)
+
+
+def export_agents(agent: AgentState) -> Fields:
+    """Host snapshot of a G-agent state, every leaf with its leading agent
+    axis (one device->host copy per leaf; the keys as uint32 words)."""
     rp = agent.replay
-    return {
-        "params": tree(agent.params),
-        "target_params": tree(agent.target_params),
-        "opt_state": {"m": tree(agent.opt_state["m"]),
-                      "v": tree(agent.opt_state["v"])},
-        "replay": {"s": np_(rp.s), "a": np_(rp.a), "r": np_(rp.r),
-                   "s2": np_(rp.s2), "done": np_(rp.done),
-                   "ptr": np_(rp.ptr), "size": np_(rp.size)},
-        "step": np_(agent.step), "train_steps": np_(agent.train_steps),
-        "loss_ema": np_(agent.loss_ema),
-        "global_step": np_(agent.global_step),
-        "rng": np_(agent.rng).astype(np.uint32),
-    }
+    np_ = lambda t: t.detach().cpu().numpy()
+    tree = lambda d: {k: np_(v) for k, v in d.items()}
+    return Fields(
+        params=tree(agent.params), target_params=tree(agent.target_params),
+        opt_state={"m": tree(agent.opt_state["m"]),
+                   "v": tree(agent.opt_state["v"])},
+        replay=Fields({f: np_(getattr(rp, f)) for f in REPLAY_FIELDS}),
+        step=np_(agent.step), train_steps=np_(agent.train_steps),
+        rng=np_(agent.rng).astype(np.uint32), loss_ema=np_(agent.loss_ema),
+        global_step=np_(agent.global_step))
+
+
+def snapshot_cell(stacked: Fields, cell: int) -> Fields:
+    """Agent `cell` of a stacked host snapshot (`export_agents`), as a
+    one-agent snapshot of its own arrays (a store that keeps it does not
+    keep the whole batch alive)."""
+    return map_snapshot(lambda a: np.array(a[cell]), stacked)
+
+
+def export_agent(agent: AgentState, cell: int = 0) -> Fields:
+    """Host-side numpy snapshot of agent `cell` of a G-agent state, in the
+    reference's layout and with its field names (no agent axis; the key as
+    two uint32 words)."""
+    G = agent.step.shape[0]
+    if not 0 <= cell < G:
+        raise ValueError(f"export_agent: cell {cell} outside 0..{G - 1}")
+    return snapshot_cell(export_agents(agent), cell)
+
+
+def cat_agents(agents: list[AgentState]) -> AgentState:
+    """The agents of several states stacked along the agent axis, in order,
+    on their device (the tests' per-cell reference for the warm agent
+    batch that `sweep.AgentStaging` stacks on the host)."""
+    cat = lambda *ts: torch.cat(ts)
+    tree = lambda name: {k: cat(*(getattr(a, name)[k] for a in agents))
+                         for k in agents[0].params}
+    return AgentState(
+        params=tree("params"), target_params=tree("target_params"),
+        opt_state={mv: {k: cat(*(a.opt_state[mv][k] for a in agents))
+                        for k in agents[0].params} for mv in ("m", "v")},
+        replay=ReplayBuffer(**{f: cat(*(getattr(a.replay, f)
+                                        for a in agents))
+                               for f in REPLAY_FIELDS}),
+        **{f: cat(*(getattr(a, f) for a in agents))
+           for f in ("step", "train_steps", "loss_ema", "global_step",
+                     "rng")})
+
+
+def hand_off(agent: AgentState) -> AgentState:
+    """Scenario-boundary handoff (program switch, co-runner churn): the
+    agent continues its lifetime (DNN weights, target net, Adam moments,
+    replay, key and `global_step` carry over) while the per-scenario
+    interaction counter resets.  Epsilon keys on `global_step`, so
+    exploration keeps decaying across the boundary."""
+    return agent.replace(step=torch.zeros_like(agent.step))
+
+
+def agent_template(cfg: AgentConfig) -> Fields:
+    """Key-free host snapshot of one agent: every leaf with the reference
+    snapshot's shape and dtype, all zeros (the key too).  Checkpoint
+    restores map saved leaves onto it, so a fresh process restores an agent
+    without replaying the init key."""
+    params = dqn.zeros_params(cfg.dqn)
+    zeros = lambda: {k: np.zeros_like(v) for k, v in params.items()}
+    cap, sd = cfg.replay_capacity, cfg.dqn.state_dim
+    i32 = lambda: np.zeros((), np.int32)
+    return Fields(
+        params=params, target_params=zeros(),
+        opt_state={"m": zeros(), "v": zeros()},
+        replay=Fields(s=np.zeros((cap, sd), np.float32),
+                      a=np.zeros((cap,), np.int32),
+                      r=np.zeros((cap,), np.float32),
+                      s2=np.zeros((cap, sd), np.float32),
+                      done=np.zeros((cap,), np.float32), ptr=i32(),
+                      size=i32()),
+        step=i32(), train_steps=i32(), rng=np.zeros((2,), np.uint32),
+        loss_ema=np.zeros((), np.float32), global_step=i32())
 
 
 def epsilon(cfg: AgentConfig, step: torch.Tensor) -> torch.Tensor:
@@ -237,3 +342,12 @@ def train_step(agent: AgentState, cfg: AgentConfig,
     return agent.replace(params=new_params, target_params=new_target,
                          opt_state=new_opt, train_steps=train_steps,
                          loss_ema=0.99 * agent.loss_ema + 0.01 * loss)
+
+
+def step_agent(agent: AgentState, cfg: AgentConfig, prev_s, prev_a, reward,
+               new_s) -> tuple[torch.Tensor, AgentState]:
+    """One continual-learning invocation: observe -> train -> act (the
+    hardware flow of the paper's Fig. 4-2)."""
+    agent = observe(agent, prev_s, prev_a, reward, new_s)
+    agent = train(agent, cfg)
+    return act(agent, cfg, new_s)

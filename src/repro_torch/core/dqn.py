@@ -69,6 +69,25 @@ def init_params(key: torch.Tensor, cfg: DQNConfig, n_agents: int,
     return params
 
 
+def zeros_params(cfg: DQNConfig) -> dict[str, np.ndarray]:
+    """Host-side zero parameters of one agent with `init_params`' keys,
+    shapes and dtypes (no agent axis), built without a key: the restore
+    template of a checkpointed agent, as the reference's `zeros_params`."""
+    dims = (cfg.state_dim,) + cfg.hidden
+    z = lambda *s: np.zeros(s, np.float32)
+    params = {}
+    for i in range(len(dims) - 1):
+        params[f"w{i}"] = z(dims[i], dims[i + 1])
+        params[f"b{i}"] = z(dims[i + 1])
+    h = dims[-1]
+    if cfg.dueling:
+        params.update(w_v=z(h, 1), b_v=z(1), w_a=z(h, cfg.n_actions),
+                      b_a=z(cfg.n_actions))
+    else:
+        params.update(w_q=z(h, cfg.n_actions), b_q=z(cfg.n_actions))
+    return params
+
+
 def q_values(params: dict, state: torch.Tensor,
              cfg: DQNConfig) -> torch.Tensor:
     """Q for states (G, S) -> (G, A) or (G, N, S) -> (G, N, A)."""

@@ -31,10 +31,10 @@ per lane, episode seed schedules per (lane, seed)); the partition layer
 (`nmp.partition`) then pads + shards it over a device mesh and the execute
 layer (`nmp.sweep`) runs it.
 
-Lineage lanes (`Scenario.lineage`, warm agents threaded through a policy
-store) wait for the port of the continual layer (ROADMAP.md, queue 1,
-continual): a grid that would form a lineage group raises
-NotImplementedError.
+Lineage lanes (`Scenario.lineage`) form their own group: the execute
+layer passes their initial agent batch in from a `continual.PolicyStore`
+and writes their final agents back.  A tag must be a valid store tag, name
+one topology per grid, and its lanes must share one episode count.
 """
 from __future__ import annotations
 
@@ -53,10 +53,6 @@ from repro_torch.nmp.engine import (MAPPER_ID, TECH_ID, BodyFlags,
                                     phase_ring_len, serial_epochs)
 from repro_torch.nmp.paging import default_alloc
 from repro_torch.nmp.scenarios import Scenario
-
-CONTINUAL_ITEM = ("ROADMAP.md, queue 1, continual (nmp/continual.py: "
-                  "PolicyStore and run_stream)")
-
 
 def needs_agent(sc: Scenario) -> bool:
     """A lane carries a live DQN iff it is a learned-policy AIMM cell."""
@@ -386,10 +382,28 @@ def plan_grid(scenarios: Sequence[Scenario], cfg: NMPConfig,
             group_eps = (envelope.n_episodes if envelope is not None
                          else max(sc.total_episodes for sc in members))
             if lineage:
-                raise NotImplementedError(
-                    f"lineage lanes ({sorted({sc.lineage for sc in members})}"
-                    f") need the port's continual layer, not ported yet: "
-                    f"{CONTINUAL_ITEM}")
+                # Fail bad tags at plan time, not in the post-simulation
+                # write-back (continual.check_tag enforces the same rule at
+                # PolicyStore.put).
+                from repro_torch.nmp.continual import check_tag
+                for sc in members:
+                    check_tag(sc.lineage)
+                # A padding episode would keep training a lineage's agent
+                # past its scenario's schedule and hand the extra training to
+                # the next phase — refuse ragged episode counts instead of
+                # corrupting the lineage (run ragged phases as separate
+                # run_grid calls).
+                ragged = {sc.total_episodes for sc in members}
+                if len(ragged) > 1:
+                    raise ValueError(
+                        "lineage lanes must share one episode count per grid "
+                        f"(got {sorted(ragged)}); split ragged phases into "
+                        "separate run_grid calls")
+                if envelope is not None and ragged != {group_eps}:
+                    raise ValueError(
+                        f"lineage lanes run {sorted(ragged)} episodes but the "
+                        f"forced envelope fixes {group_eps}; padding episodes "
+                        "would keep training the lineage past its schedule")
             # Seed-invariant work sharing pays (and compiles in) only when
             # the simulated seed axis is wider than 1; the execute layer may
             # re-widen this after mesh padding (sweep.run_grid).

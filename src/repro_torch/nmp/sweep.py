@@ -35,16 +35,24 @@ Exactness: every (lane, seed) cell's cycles, ops and OPC equal a serial
 update is gated on has_ops, so padded lanes and episodes are exact no-ops),
 and on the CPU the reference's `run_grid`.
 
-Not ported here: lineage lanes (`Scenario.lineage`, a `PolicyStore` given
-as `store`) and `AgentStaging` wait for the continual layer and raise
-NotImplementedError naming it; the reference's `compiled_sweep_programs`
-and `_finite_mask_prog` count and cache compiled XLA programs, which the
-eager port does not have, so they are left out.
+Agent lifecycle: cold-start lanes are born and die inside the group's
+run; lanes that declare a `Scenario.lineage` tag form a separate group
+whose initial agent batch comes in from a `continual.PolicyStore` (warm
+cells from the store, fresh tags cold-started from the cell's seed, built
+through `AgentStaging`'s host buffers: one host->device copy per leaf)
+and whose final agents go back to the store.
+
+Where the reference counts compiled XLA programs
+(`compiled_sweep_programs`), the eager port counts the distinct dispatch
+signatures (group flags plus padded batch shapes): the first dispatch of a
+signature is the port's counterpart of a compile (it also pays the
+kernels' build, once per process).
 """
 from __future__ import annotations
 
 import dataclasses
 import os
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Sequence
@@ -54,6 +62,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import agent as agent_mod
+from repro_torch.core.tree import leaf_paths, unflatten
 from repro_torch.nmp import partition
 from repro_torch.nmp import plan as plan_mod
 from repro_torch.nmp.config import NMPConfig
@@ -89,22 +98,106 @@ land_mode()
 
 
 class AgentStaging:
-    """The reference's host staging buffers for warm (lineage) agent
-    batches: not ported until the continual layer is."""
+    """Reusable host-side staging for the warm agent batch.
+
+    Stacking cell by cell costs one host->device import per warm cell, one
+    `cold_start` per fresh cell and a device concatenation per leaf, all
+    garbage one tick later.  This class keeps
+
+      * one preallocated numpy buffer per agent leaf, (n_cells, *leaf):
+        rows are filled in place from the store's host snapshots, so a
+        steady-state tick pays one host->device copy per *leaf*
+        (`agent.import_agents`) instead of one per cell;
+      * a bounded cache of cold-start snapshots keyed by (seed, agent_cfg,
+        device), so a fresh lineage's cold cell is computed once.
+
+    Buffers are reallocated when the cell count or a leaf's shape changes
+    and reused otherwise; the device copy is taken at dispatch, so refilling
+    next tick is safe."""
+
+    _COLD_CACHE_MAX = 128        # cold cells are only needed for fresh
+                                 # tags, so this never grows in steady state
 
     def __init__(self):
-        raise NotImplementedError(
-            f"AgentStaging serves lineage lanes: {plan_mod.CONTINUAL_ITEM}")
+        self._bufs: list[np.ndarray] | None = None
+        self._keys: list[str] | None = None
+        self._cold: dict = {}
+
+    def cold_cell(self, seed: int, agent_cfg, device: torch.device):
+        """Host snapshot of `agent_mod.cold_start(seed, agent_cfg)` drawn on
+        `device` (where the group's in-run cold start would draw it)."""
+        key = (int(seed), agent_cfg, str(device))
+        if key not in self._cold:
+            if len(self._cold) >= self._COLD_CACHE_MAX:
+                self._cold.pop(next(iter(self._cold)))
+            self._cold[key] = agent_mod.export_agent(
+                agent_mod.cold_start(int(seed), agent_cfg, device=device))
+        return self._cold[key]
+
+    def stack(self, cells):
+        """Stack host snapshots into the reused (n_cells, ...) buffers;
+        returns the stacked snapshot (numpy leaves viewing the buffers)."""
+        flat0 = leaf_paths(cells[0])
+        fit = (self._bufs is not None
+               and self._keys == [k for k, _ in flat0]
+               and self._bufs[0].shape[0] == len(cells)
+               and all(b.shape[1:] == np.shape(l) and b.dtype == l.dtype
+                       for b, (_, l) in zip(self._bufs, flat0)))
+        if not fit:
+            self._bufs = [np.empty((len(cells),) + np.shape(l),
+                                   np.asarray(l).dtype) for _, l in flat0]
+            self._keys = [k for k, _ in flat0]
+        for i, cell in enumerate(cells):
+            for buf, (_, leaf) in zip(self._bufs, leaf_paths(cell)):
+                buf[i] = leaf
+        return unflatten(cells[0], dict(zip(self._keys, self._bufs)))
+
+
+def _warm_agent_batch(group, n_lanes_padded: int, store, agent_cfg,
+                      device: torch.device, n_seeds: int | None = None,
+                      staging: AgentStaging | None = None):
+    """Initial agent batch of a lineage group on `device`: flat (L*S,)
+    cells, lane-major.
+
+    A cell whose lineage tag is in the store warm-starts from the stored
+    agent (scenario-boundary handoff applied); a fresh tag cold-starts the
+    lineage with the cell's own seed.  `n_seeds` is the executed seed width
+    (seed slot 0 repeats up to it, as `partition.pad_seed_axis`), and
+    padding lanes repeat lane 0's cells, as `partition.pad_group_batch`.
+
+    The cells are stacked in `staging`'s host buffers, which persist across
+    calls where the caller holds one (`run_grid` per grid, the serving
+    layer per server; a throwaway one otherwise), and go to the device as
+    one copy per leaf."""
+    S = group.n_seeds if n_seeds is None else n_seeds
+    staging = staging or AgentStaging()
+    cells = []
+    for lane in group.lanes:
+        tag = lane.scenario.lineage
+        # one checkout per tag; seed replicas reuse the read-only snapshot
+        # and the stacking below gives each its own row
+        warm = (store.checkout_host(tag)
+                if store is not None and tag in store else None)
+        seeds = lane.seeds + (lane.seeds[0],) * (S - group.n_seeds)
+        for seed in seeds:
+            cells.append(warm if warm is not None
+                         else staging.cold_cell(int(seed), agent_cfg, device))
+    lane0 = cells[:S]
+    for _ in range(n_lanes_padded - group.n_lanes):
+        cells.extend(lane0)
+    return agent_mod.import_agents(staging.stack(cells), device)
 
 
 def _run_sweep(batch: dict, tom_cands: torch.Tensor, cfg: NMPConfig, spec,
                agent_cfg, n_epochs: int, n_episodes: int, ring_len: int,
-               flags, topo):
+               flags, topo, warm_agent=None):
     """Every (lane, seed) cell of one group through `n_episodes` chained
     episodes: the env re-initialized per episode from that episode's seeds,
-    the agent (cold-started per cell from its first seed) chained through.
-    `batch["ep_seed"]` is (L, S, E); trace arrays stay per lane.  Returns
-    (outs with leaves (L, S, E, ...), final env over L·S cells, agent)."""
+    the agent chained through.  The agent is `warm_agent` (flat (L*S,)
+    cells: a lineage group's batch) or, by default, cold-started per cell
+    from its first seed.  `batch["ep_seed"]` is (L, S, E); trace arrays stay
+    per lane.  Returns (outs with leaves (L, S, E, ...), final env over L·S
+    cells, final agent)."""
     trace = {k: batch[k] for k in ("dest", "src1", "src2")}
     L, S, _E = batch["ep_seed"].shape
     ctx = TraceCtx(
@@ -114,9 +207,12 @@ def _run_sweep(batch: dict, tom_cands: torch.Tensor, cfg: NMPConfig, spec,
         forced_action=batch["forced_action"],
         explore=torch.zeros_like(batch["ep_explore"][:, 0]))
     page_table = _repeat(batch["page_table"], S)
-    agent = (agent_mod.cold_start(batch["ep_seed"][:, :, 0].reshape(L * S),
-                                  agent_cfg)
-             if flags.has_agent else None)
+    if warm_agent is not None:
+        agent = warm_agent
+    else:
+        agent = (agent_mod.cold_start(
+            batch["ep_seed"][:, :, 0].reshape(L * S), agent_cfg)
+            if flags.has_agent else None)
     outs, env = [], None
     for e in range(n_episodes):
         env = _init_env(page_table, cfg, spec, topo, ring_len,
@@ -158,7 +254,9 @@ class SweepResult:
     plan: GridPlan | None = None     # the executed plan (seed folding, groups)
     n_devices: int = 1               # devices the sweep ran on
     mesh_shape: tuple[int, int] = (1, 1)   # (lane, seed) device mesh dims
-    store: Any = None                # lineage store (continual: not ported)
+    store: Any = None                # the PolicyStore holding the grid's
+                                     # final agent lineages (None when no
+                                     # lane declared a lineage)
     actions: np.ndarray | None = None  # (B, E, n_epochs) int8 per-epoch
                                      # action: the port's addition (the
                                      # reference's result has none), to hold
@@ -247,8 +345,10 @@ def prepare_group_batch(plan: GridPlan, group, group_cfg: NMPConfig,
                         device: torch.device, n_lanes: int | None = None,
                         host_cache=None):
     """Host-side build of one group's input batch and its copy to `device`.
-    Returns (device batch, padded lane count); the executed seed width is
-    `batch["ep_seed"].shape[1]`."""
+    `n_lanes` forces the padded lane count (the serving layer's fixed
+    slots); `host_cache` reuses per-lane host arrays across calls
+    (`plan.build_group_batch`).  Returns (device batch, padded lane count);
+    the executed seed width is `batch["ep_seed"].shape[1]`."""
     n_lanes_padded = (partition.padded_lane_count(group.n_lanes, None)
                       if n_lanes is None else n_lanes)
     if n_lanes_padded < group.n_lanes:
@@ -272,13 +372,49 @@ def executed_flags(group, n_seeds: int):
     return dataclasses.replace(group.flags, share_seed_inv=share)
 
 
+# Distinct dispatch signatures seen in this process (groups dispatch from
+# the calling thread only): the eager port's counterpart of the reference's
+# jit cache of sweep programs.
+_SIGNATURES: set = set()
+
+
 def dispatch_sweep(batch, tom_cands, group_cfg: NMPConfig, spec, agent_cfg,
-                   n_epochs: int, n_episodes: int, ring_len: int, flags):
-    """Run one prepared group batch: (outs, final env, final agent), left on
-    the device (the caller fetches them when it needs the values)."""
-    topo = topology_tensors(group_cfg, batch["dest"].device)
-    return _run_sweep(batch, tom_cands, group_cfg, spec, agent_cfg,
-                      n_epochs, n_episodes, ring_len, flags, topo)
+                   n_epochs: int, n_episodes: int, ring_len: int, flags,
+                   warm_agent=None, want_agent: bool = False):
+    """Run one prepared group batch: (outs, final env, final agent or None
+    unless `want_agent`), left on the device (the caller fetches or
+    synchronizes when it needs the values; on the card the launches are
+    queued, so the caller can build the next batch meanwhile)."""
+    dev = batch["dest"].device
+    sig = (str(dev), group_cfg, spec, agent_cfg, n_epochs, n_episodes,
+           ring_len, flags, warm_agent is not None, want_agent,
+           tuple((k, tuple(v.shape), str(v.dtype))
+                 for k, v in sorted(batch.items())))
+    _SIGNATURES.add(sig)
+    topo = topology_tensors(group_cfg, dev)
+    out, env_fin, agent_fin = _run_sweep(
+        batch, tom_cands, group_cfg, spec, agent_cfg, n_epochs, n_episodes,
+        ring_len, flags, topo, warm_agent=warm_agent)
+    return out, env_fin, (agent_fin if want_agent else None)
+
+
+def compiled_sweep_programs() -> int:
+    """Distinct sweep dispatch signatures seen in this process (group
+    flags plus padded batch shapes): the serving layer's steady-state
+    guarantee is that this stays constant across ticks once the slot
+    programs are warm."""
+    return len(_SIGNATURES)
+
+
+def host_outs(out: dict) -> dict[str, np.ndarray]:
+    """A group's per-cell outputs fetched to the host, the per-epoch
+    timelines at the reference's slim dtypes (`valid_t`/`invoke_t` uint16)
+    and the actions as int8."""
+    out = partition.host_fetch(out)
+    for k in ("valid_t", "invoke_t"):
+        out[k] = out[k].astype(np.uint16)
+    out["action_t"] = out["action_t"].astype(np.int8)
+    return out
 
 
 def lane_finite_mask(out: dict, agent_fin, n_lanes: int,
@@ -315,21 +451,28 @@ def run_grid(scenarios: Sequence[Scenario], cfg: NMPConfig = NMPConfig(),
              device: str | torch.device = "cuda") -> SweepResult:
     """Run every scenario cell of a grid through the plan -> partition ->
     execute pipeline: one batched run per lane group on `device`, the
-    folded seed axis as S cells per lane.  Returns a SweepResult whose
-    per-cell cycles/ops/OPC match the serial `run_episode`/`run_program`
-    protocol bit for bit (see module docstring).  `store` (lineage agents
-    across calls) waits for the continual layer."""
+    folded seed axis as S cells per lane.
+
+    `store` is a `continual.PolicyStore` carrying agent lineages across
+    calls: lanes whose `Scenario.lineage` tag it holds warm-start from the
+    stored agent, fresh tags cold-start, and every tag's final agent is
+    written back (the store is updated in place and returned as
+    `SweepResult.store`; one is made when the grid declares tags and none is
+    given).  Without lineage lanes the store is untouched.
+
+    Returns a SweepResult whose per-cell cycles/ops/OPC match the serial
+    `run_episode`/`run_program` protocol bit for bit (module docstring)."""
     scenarios = list(scenarios)
     t0 = time.time()
     dev = partition.placement(resolve_device(device))
     torch.backends.cuda.matmul.allow_tf32 = False   # full-f32 matmuls
-    if store is not None:
-        raise NotImplementedError(
-            f"run_grid(store=...): {plan_mod.CONTINUAL_ITEM}")
     plan = plan_grid(scenarios, cfg)
     spec = state_spec_for(cfg)
     agent_cfg = agent_cfg or default_agent_cfg(cfg)
     tom_cands = plan_mod.plan_tom_candidates(plan, cfg, dev)
+    if store is None and plan.lineage_tags():
+        from repro_torch.nmp.continual import PolicyStore
+        store = PolicyStore()
     # Mixed-topology grids: the stacked final env needs one link-space
     # width, so per-group pending link loads are padded to the widest
     # topology's link count (padding links carry zero load).
@@ -339,24 +482,36 @@ def run_grid(scenarios: Sequence[Scenario], cfg: NMPConfig = NMPConfig(),
 
     outs: list = [None] * len(scenarios)
     envs: list = [None] * len(scenarios)
+    staging = AgentStaging()
+    # The store is touched from two threads under async landing: warm
+    # checkouts in launch() (main thread) and lineage write-backs in land()
+    # (worker).  A tag never spans groups, so there is no semantic race;
+    # the lock keeps the registry's dict and LRU bookkeeping atomic.
+    store_lock = threading.Lock()
 
     def launch(group):
         """Host batch build + the group's batched run."""
         group_cfg = dataclasses.replace(cfg, topology=group.topology)
-        batch, _ = prepare_group_batch(plan, group, group_cfg, dev)
+        batch, n_lanes_padded = prepare_group_batch(plan, group, group_cfg,
+                                                    dev)
         s_pad = int(batch["ep_seed"].shape[1])
-        out, env_fin, _agent = dispatch_sweep(
+        if group.lineage:
+            with store_lock:
+                warm = _warm_agent_batch(group, n_lanes_padded, store,
+                                         agent_cfg, dev, n_seeds=s_pad,
+                                         staging=staging)
+        else:
+            warm = None
+        out, env_fin, agent_fin = dispatch_sweep(
             batch, tom_cands, group_cfg, spec, agent_cfg, plan.n_epochs,
-            group.n_episodes, plan.ring_len, executed_flags(group, s_pad))
-        return group, group_cfg, s_pad, out, env_fin
+            group.n_episodes, plan.ring_len, executed_flags(group, s_pad),
+            warm_agent=warm, want_agent=group.lineage)
+        return group, group_cfg, s_pad, out, env_fin, agent_fin
 
     def land(state):
         """Fetch one group's results to the host and unfold its lanes."""
-        group, group_cfg, s_pad, out, env_fin = state
-        out = partition.host_fetch(out)
-        for k in ("valid_t", "invoke_t"):
-            out[k] = out[k].astype(np.uint16)
-        out["action_t"] = out["action_t"].astype(np.int8)
+        group, group_cfg, s_pad, out, env_fin, agent_fin = state
+        out = host_outs(out)
         env_fin = _map_state(lambda t: t.detach().cpu().numpy().reshape(
             (-1, s_pad) + tuple(t.shape[1:])), env_fin)
         pad_l = n_links_max - get_topology(group_cfg).n_links
@@ -375,11 +530,23 @@ def run_grid(scenarios: Sequence[Scenario], cfg: NMPConfig = NMPConfig(),
                         _map_state(lambda a, li=li, si=si:
                                   np.asarray(a[li, si]), env_fin))
                 outs[i], envs[i] = cells[si]
+        if group.lineage:
+            # Hand every tag's final agent back to the store.  When several
+            # cells share a tag (seed replicas, repeated tags), the lineage
+            # continues from the first cell of the last lane declaring it.
+            host = agent_mod.export_agents(agent_fin)
+            with store_lock:
+                for li, lane in enumerate(group.lanes):
+                    cell = agent_mod.snapshot_cell(
+                        host, li * s_pad + lane.slots[0])
+                    store.put(lane.scenario.lineage, cell,
+                              scenario=lane.scenario.name)
 
     # Heaviest group first; under async landing one worker fetches and
     # unfolds group k while group k+1 is dispatched.  One worker and
-    # submission order keep landings in dispatch order; lanes unfold into
-    # `outs`/`envs` by scenario index, so the result is the same either way.
+    # submission order keep landings (and store write-backs) in dispatch
+    # order; lanes unfold into `outs`/`envs` by scenario index, so the
+    # result is the same either way.
     pool = (ThreadPoolExecutor(max_workers=1, thread_name_prefix="sweep-land")
             if land_mode() == "async" else None)
     try:
@@ -404,7 +571,7 @@ def run_grid(scenarios: Sequence[Scenario], cfg: NMPConfig = NMPConfig(),
                        final_env=final_env, n_episodes=plan.n_episodes,
                        wall_s=time.time() - t0, plan=plan,
                        n_devices=desc["n_devices"],
-                       mesh_shape=tuple(desc["shape"]), store=None,
+                       mesh_shape=tuple(desc["shape"]), store=store,
                        actions=actions)
 
 

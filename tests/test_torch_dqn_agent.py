@@ -205,7 +205,7 @@ def _trained_reference_agent():
 def test_greedy_act_picks_reference_action():
     jcfg, tcfg = _agent_cfgs()
     jag = _trained_reference_agent()
-    tag = t_agent.agent_from_numpy(j_agent.export_agent(jag), device="cpu")
+    tag = t_agent.import_agent(j_agent.export_agent(jag), device="cpu")
     xs = _states(24, 9)
     j_act = jax.jit(j_agent.act, static_argnums=(1, 3))
     for x in xs:
@@ -217,9 +217,12 @@ def test_greedy_act_picks_reference_action():
 
 
 def test_agent_from_numpy_round_trip():
+    """`import_agent` (earlier `agent_from_numpy`) then `export_agent` on a
+    trained reference agent gives back the reference's snapshot leaf for
+    leaf, and importing it again gives the same state."""
     jag = _trained_reference_agent()
     snap = j_agent.export_agent(jag)
-    tag = t_agent.agent_from_numpy(snap, device="cpu")
+    tag = t_agent.import_agent(snap, device="cpu")
     back = t_agent.export_agent(tag)
     for k in snap.params:
         assert np.array_equal(back["params"][k], snap.params[k])
@@ -232,7 +235,7 @@ def test_agent_from_numpy_round_trip():
         assert np.array_equal(back["replay"][f], getattr(snap.replay, f)), f
     for f in ("step", "train_steps", "loss_ema", "global_step"):
         assert np.array_equal(back[f], getattr(snap, f)), f
-    again = t_agent.agent_from_numpy(back, device="cpu")
+    again = t_agent.import_agent(back, device="cpu")
     assert torch.equal(again.replay.s, tag.replay.s)
 
 

@@ -116,7 +116,7 @@ def _learned_episode(app, n_ops, seed, explore):
     jag = j_agent.cold_start(seed, j_default_agent_cfg(JCfg()))
     ref = j_run_episode(j_make_trace(app, n_ops=n_ops), JCfg(), "bnmp",
                         "aimm", agent=jag, seed=seed, explore=explore)
-    tag = t_agent.agent_from_numpy(j_agent.export_agent(jag), device="cpu")
+    tag = t_agent.import_agent(j_agent.export_agent(jag), device="cpu")
     got = run_episode(make_trace(app, n_ops=n_ops), TCfg(), "bnmp", "aimm",
                       agent=tag, seed=seed, explore=explore, device="cpu")
     assert int(got.agent.train_steps[0]) == int(ref.agent.train_steps)

@@ -716,3 +716,81 @@ def test_learned_grid_equals_serial_on_card(cuda):
         for e, r in enumerate(runs):
             assert np.array_equal(res.metrics["opc_t"][i, e],
                                   r.metrics["opc"].cpu().numpy()), (i, e)
+
+
+def _lineage_phases(tags):
+    """Two phases of learned lineage lanes, one lane per tag: KM then SC at
+    2048 ops (past min_replay, so the agents take TD steps)."""
+    from repro_torch.nmp.scenarios import Scenario
+    from repro_torch.nmp.traces import make_trace
+    traces = {a: make_trace(a, n_ops=2048) for a in ("KM", "SC")}
+    seeds = {"a": 0, "b": 5}
+    return [[Scenario(name=f"p{pi}:{t}", trace=traces[app], mapper="aimm",
+                      episodes=2, seed=seeds[t], lineage=t) for t in tags]
+            for pi, app in enumerate(("KM", "SC"))]
+
+
+def test_lineage_grid_equals_chained_single_lineage_runs_on_card(cuda):
+    """Two lineages in one run_grid per phase, on the card, equal each
+    lineage run alone through the same phases: every metric and per-epoch
+    array, and every stored leaf (the batch-invariant TD step)."""
+    from repro_torch.nmp.config import NMPConfig
+    from repro_torch.nmp.continual import PolicyStore
+    from repro_torch.nmp.sweep import run_grid
+    from repro_torch.train.checkpoint import leaf_paths
+    both = PolicyStore()
+    grid = [run_grid(ph, NMPConfig(), store=both, device=cuda)
+            for ph in _lineage_phases(("a", "b"))]
+    for lane, tag in enumerate(("a", "b")):
+        alone = PolicyStore()
+        for pi, ph in enumerate(_lineage_phases((tag,))):
+            res = run_grid(ph, NMPConfig(), store=alone, device=cuda)
+            for k, v in res.metrics.items():
+                assert np.array_equal(grid[pi].metrics[k][lane], v[0]), (
+                    tag, pi, k)
+            assert np.array_equal(grid[pi].actions[lane], res.actions[0])
+        assert int(alone.get(tag)["train_steps"]) > 0
+        for (k, a), (_, b) in zip(leaf_paths(both.get(tag)),
+                                  leaf_paths(alone.get(tag))):
+            assert a.dtype == b.dtype and np.array_equal(a, b), (tag, k)
+
+
+def test_agent_staging_batch_on_card_equals_per_cell_stack(cuda):
+    """The warm agent batch built through AgentStaging's host buffers (one
+    copy per leaf) equals the per-cell stack on the card (a `checkout` or
+    `cold_start` per cell, concatenated), leaf for leaf: warm cells from
+    the store, fresh tags cold-started on the card, seed padding and lane
+    padding."""
+    from repro_torch.core import agent as agent_mod
+    from repro_torch.nmp import plan as plan_mod
+    from repro_torch.nmp.config import NMPConfig
+    from repro_torch.nmp.continual import PolicyStore
+    from repro_torch.nmp.engine import default_agent_cfg
+    from repro_torch.nmp.scenarios import seed_variants
+    from repro_torch.nmp.sweep import AgentStaging, _warm_agent_batch
+    from repro_torch.train.checkpoint import leaf_paths
+    cfg = NMPConfig()
+    acfg = default_agent_cfg(cfg)
+    store = PolicyStore()
+    store.put("a", agent_mod.cold_start(11, acfg, device=cuda))
+    (p0,) = _lineage_phases(("a", "b"))[:1]
+    grid = seed_variants(p0[0], seeds=(0, 1)) + [p0[1]]
+    group = next(g for g in plan_mod.plan_grid(grid, cfg).groups
+                 if g.lineage)
+    cells = []                                    # the per-cell stack
+    for lane in group.lanes:
+        tag = lane.scenario.lineage
+        warm = store.checkout(tag, cuda) if tag in store else None
+        for seed in lane.seeds + (lane.seeds[0],) * (3 - group.n_seeds):
+            cells.append(warm if warm is not None
+                         else agent_mod.cold_start(int(seed), acfg,
+                                                   device=cuda))
+    cells += cells[:3] * (3 - group.n_lanes)
+    want = agent_mod.cat_agents(cells)
+    got = _warm_agent_batch(group, 3, store, acfg, cuda, n_seeds=3,
+                            staging=AgentStaging())
+    assert got.params["w0"].device.type == "cuda"
+    assert got.step.shape == (9,)
+    for (k, x), (_, y) in zip(leaf_paths(agent_mod.export_agents(got)),
+                              leaf_paths(agent_mod.export_agents(want))):
+        assert x.dtype == y.dtype and np.array_equal(x, y), k

@@ -50,7 +50,9 @@ def test_port_has_files_to_scan():
                  "kernels/batched_linear/ops.py",
                  "kernels/batched_linear/ref.py",
                  "nmp/scenarios.py", "nmp/plan.py", "nmp/partition.py",
-                 "nmp/sweep.py", "configs/aimm_nmp.py"):
+                 "nmp/sweep.py", "configs/aimm_nmp.py",
+                 "nmp/continual.py", "nmp/serving.py", "nmp/faults.py",
+                 "train/checkpoint.py", "core/tree.py"):
         assert want in names
     assert (ROOT / "chip_smoke.py").exists()
     assert {p.name for p in (PORT / "csrc").glob("*.cu")} == {

@@ -118,10 +118,19 @@ def test_distinct_trace_objects_do_not_fold():
 
 
 def test_lineage_lanes_wait_for_the_continual_layer():
+    """Lineage lanes no longer wait: with the continual layer ported, a
+    lineage lane forms its own group, as in the reference's plan."""
+    plans = {}
+    for pk, (Sc, _, mt, cfg) in PKG.items():
+        tr = mt("KM", n_ops=384)
+        plans[pk] = (j_plan if pk == "j" else t_plan).plan_grid(
+            [Sc(name="a", trace=tr, mapper="aimm", lineage="tagA"),
+             Sc(name="b", trace=tr, mapper="aimm")], cfg)
+    for plan in plans.values():
+        assert plan.lineage_tags() == ("tagA",)
+        assert [(g.lineage, g.n_lanes) for g in plan.groups] == [
+            (False, 1), (True, 1)]
     tr = t_make_trace("KM", n_ops=384)
-    with pytest.raises(NotImplementedError, match="continual"):
-        t_plan.plan_grid([TSc(name="a", trace=tr, mapper="aimm",
-                              lineage="tagA")], TCfg())
     # a lineage tag on a lane without an agent is inert, as the reference's
     plan = t_plan.plan_grid([TSc(name="b", trace=tr, lineage="tagB"),
                              TSc(name="c", trace=tr, mapper="aimm",
