@@ -80,16 +80,36 @@ Phases (each prints its lines; the run exits 0 only if every phase passes):
     main-path shapes (B 1, S 4096): flash attention at minitron-8b's
     (H 32, K 8, hd 128) in bf16 (the wgmma kernel) and f32 within the bars
     of `flash_attention/ref.py` BARS (elementwise, relative L2 overall and
-    per row), and in bf16 at hd 32 (the mma.sync kernel); the SSD scan at
+    per row), and in bf16 at hd 32 (the mma.sync kernel); then in bf16 at
+    the later archs' shapes: gemma3-12b's global layer (H 16, K 8, hd 256)
+    and its local layer (window 1024) at S 4096, deepseek-moe-16b's
+    (H 16 = K 16, hd 128: GQA ratio 1), qwen3-32b's (H 64, K 8) and
+    phi3-medium-14b's (H 40, K 10) causal layers at S 4096, and
+    mixtral-8x22b's sliding-window layer (H 48, K 8, hd 128, window 4096)
+    at S 8192, each within BARS,
+    beside its bound (4 H hd x the visible query-key pairs) and one SDPA
+    call (flash backend; a boolean band mask for a window); the SSD scan at
     mamba2-370m's (H 32, P 64, N 128, chunk 256) within 1e-4, once with
     fast decay and once with the state carried across chunks; graph-timed,
     with SDPA timed beside flash as the library yardstick, and the SSD's
     bound both on f32 CUDA cores and as a 3xTF32 split on the tensor cores.
- 7. card vs CPU: both archs at full width and depth 2, B 1, S 256, final
-    hidden state, the card (kernels) against the port's CPU path.
- 8. the model zoo's main path at full width and depth, random weights from
-    a seed: prefill forward (`apply` + `logits`, B 1, S 4096) of
-    minitron-8b and mamba2-370m, 32 flash and 48 SSD launches per forward,
+ 7. card vs CPU at full width, B 1, S 256, final hidden state, the card
+    (kernels) against the port's CPU path, depth cut to one super-block
+    (minitron-8b, mamba2-370m, qwen3-32b, phi3-medium-14b, mixtral-8x22b:
+    2 layers; gemma3-12b: 6; deepseek-moe-16b: its dense first layer and
+    one MoE layer), MoE layers on the CPU run's routes
+    (`repro_torch.testing.RouteReplay`; the card's own top-k must agree on
+    MIN_ROUTE_AGREEMENT of the tokens);
+    the smoke gemma3-12b and mixtral-8x22b through 48 teacher-forced
+    decode steps on both (past their window of 32, so the card's ring
+    buffers wrap); deepseek-moe-16b's MoE layer at full width twice on the
+    card, torch.equal.
+ 8. the model zoo's main path (ZOO_RUNS) at full width, random weights
+    from a seed: prefill forward (`apply` + `logits`, B 1, S 4096) of
+    minitron-8b, mamba2-370m, gemma3-12b, deepseek-moe-16b, qwen3-32b and
+    phi3-medium-14b at full depth, and of mixtral-8x22b with its depth cut
+    to 2 layers at S 8192 (the phase's `reduced` line), one flash launch
+    per attention layer and one SSD launch per Mamba layer per forward,
     then the serving loop of `launch/serve.py` for each (4 requests,
     batch 4), with the zoo kernels' counts set to 0 just before and read
     just after.
@@ -921,6 +941,122 @@ def ssd_inputs(dev, carry: bool, seed: int = 0):
     return x, b, c, dt, a
 
 
+# mixtral-8x22b's prefill length: S 8192, so that its window of 4096 bites
+MIXTRAL_SEQ = 8192
+# The flash shapes of the later archs' main path (bf16, B 1): gemma3-12b's
+# global and local layers (hd 256, window 1024), deepseek-moe-16b's (GQA
+# ratio 1), qwen3-32b's and phi3-medium-14b's at S 4096, and mixtral-8x22b's
+# sliding-window layer at S 8192 (window 4096).
+ZOO_FLASH_SHAPES = (("gemma3-12b global", "gemma3-12b", ZOO_SEQ, False),
+                    ("gemma3-12b local", "gemma3-12b", ZOO_SEQ, True),
+                    ("deepseek-moe-16b", "deepseek-moe-16b", ZOO_SEQ, False),
+                    ("qwen3-32b", "qwen3-32b", ZOO_SEQ, False),
+                    ("phi3-medium-14b", "phi3-medium-14b", ZOO_SEQ, False),
+                    ("mixtral-8x22b W", "mixtral-8x22b", MIXTRAL_SEQ, True))
+
+
+def visible_pairs(S: int, window: int) -> int:
+    """Causal (query, key) pairs, within `window` of the query if set."""
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def event_ms(fn, reps: int = 3) -> float:
+    """Device time per eager call: one warm call, then `reps` timed with
+    CUDA events (for calls of milliseconds, whose launch cost is noise, and
+    whose gigabytes of temporaries a graph would hold)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def flash_plain(q, k, v, window: int = 0):
+    """attention_ref on (B, S, H | K, hd) q/k/v, one KV head's query heads
+    at a time, so the f32 scores of S 8192 stay a few GB."""
+    import torch
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    H, K = q.shape[2], k.shape[2]
+    rep = H // K
+    outs = [attention_ref(
+        q[:, :, j * rep:(j + 1) * rep].transpose(1, 2),
+        k[:, :, j:j + 1].expand(-1, -1, rep, -1).transpose(1, 2),
+        v[:, :, j:j + 1].expand(-1, -1, rep, -1).transpose(1, 2),
+        window=window).transpose(1, 2) for j in range(K)]
+    return torch.cat(outs, dim=2)
+
+
+def zoo_flash_shape(dev, label: str, arch: str, S: int, windowed: bool
+                    ) -> dict:
+    """One later arch's flash shape in bf16: the kernel against the plain
+    version within BARS, graph-timed, beside its bound (4 H hd x the
+    visible query-key pairs at the bf16 tensor-core rate, or q/k/v/o bytes
+    over HBM) and one SDPA call for the same function (the flash backend
+    for the causal shape; a boolean band attn_mask for a window)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import BARS, compare, visible
+    a = get_config(arch).attn
+    H, K, hd = a.n_heads, a.n_kv, a.head_dim
+    window = a.window if windowed else 0
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(S + hd + window)
+    q, k, v = (torch.randn((1, S, n, hd), generator=gen,
+                           device=dev).bfloat16() for n in (H, K, K))
+    kernel = fops.kernel_for(q.dtype, hd)
+    before = fops.kernel_launches[kernel]
+    got = fops.gqa_flash_attention(q, k, v, causal=True, window=window)
+    want = flash_plain(q, k, v, window)
+    torch.cuda.synchronize()
+    cmp = compare(got, want)
+    if fops.kernel_launches[kernel] != before + 1 or not cmp["ok"]:
+        raise AssertionError(f"flash_attention {label} ({kernel}): {cmp}, "
+                             f"bars {BARS[torch.bfloat16]}, launches "
+                             f"{fops.kernel_launches}")
+    del want
+    k_ms = graph_ms(lambda: fops.gqa_flash_attention(
+        q, k, v, causal=True, window=window), 20)
+    p_ms = event_ms(lambda: flash_plain(q, k, v, window), 2)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if window:
+        band = visible(S, S, window, dev)
+        lib_ms = event_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=band, enable_gqa=True), 5)
+        lib = "SDPA, boolean band attn_mask"
+    else:
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+        lib = "SDPA, flash backend"
+    pairs = H * visible_pairs(S, window)
+    flops = 4 * hd * pairs
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
+    b_ms, b_by = bound(nbytes, flops, BF16_OPS_PER_S)
+    log(f"[zoo-kernels] flash_attention bf16 ({kernel}) {label}: B=1 S={S} "
+        f"H={H} K={K} hd={hd} window={window}: max abs err "
+        f"{cmp['max_abs_err']:.3g}, relative L2 {cmp['rel_l2']:.3g}, worst "
+        f"row {cmp['row_rel_l2']:.3g}; kernel {k_ms:.4f} ms/launch (graph), "
+        f"plain {p_ms:.4f} ms, {lib} {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}, {flops:.4g} FLOP over {pairs} visible pairs; "
+        f"{flops / k_ms / 1e9:.1f} TFLOP/s)")
+    del q, k, v, got
+    torch.cuda.empty_cache()
+    return dict(label=label, S=S, H=H, K=K, hd=hd, window=window,
+                kernel=kernel, max_abs_err=cmp["max_abs_err"], ms=k_ms,
+                plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, library=lib)
+
+
 def phase_zoo_kernels(dev) -> list[dict]:
     """Flash attention (minitron-8b shape, bf16 and f32; the mma.sync kernel
     at hd 32) and the SSD scan (mamba2-370m shape, f32) against their plain
@@ -1003,6 +1139,8 @@ def phase_zoo_kernels(dev) -> list[dict]:
         f"{cmp['rel_l2']:.3g}, worst row {cmp['row_rel_l2']:.3g}; kernel "
         f"{m_ms:.4f} ms/launch (graph)")
     del a32, got
+    frec["shapes"] = [zoo_flash_shape(dev, *shape) for shape in
+                      ZOO_FLASH_SHAPES]
     results.append(dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu",
@@ -1058,12 +1196,25 @@ def phase_zoo_kernels(dev) -> list[dict]:
 
 
 ZOO_ARCHS = ("minitron-8b", "mamba2-370m")
+# The zoo's main path: (arch, layers or None for the published depth,
+# prefill S).  mixtral-8x22b (141 B parameters, ~282 GB of bf16 weights)
+# runs at full width with its depth cut to 2 layers, at S 8192 so that
+# its window of 4096 bites; every other arch at full width and depth.
+ZOO_RUNS = (("minitron-8b", None, ZOO_SEQ), ("mamba2-370m", None, ZOO_SEQ),
+            ("gemma3-12b", None, ZOO_SEQ), ("deepseek-moe-16b", None, ZOO_SEQ),
+            ("qwen3-32b", None, ZOO_SEQ), ("phi3-medium-14b", None, ZOO_SEQ),
+            ("mixtral-8x22b", 2, MIXTRAL_SEQ))
 
 
 def zoo_launches() -> dict[str, int]:
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.ssd_scan import ops as sops
     return {**fops.launches, **sops.launches}
+
+
+def flash_by_kernel() -> dict[str, int]:
+    from repro_torch.kernels.flash_attention import ops as fops
+    return dict(fops.kernel_launches)
 
 
 def reset_zoo_launches() -> None:
@@ -1081,29 +1232,46 @@ def zoo_tokens(dev, cfg, seq: int, seed: int = 0):
                          device=dev)
 
 
-def phase_zoo_model(dev) -> dict[str, int]:
-    """The model zoo's main path at full width and depth, random weights from
-    a seed: the prefill forward (`apply` then `logits`, B 1, S 4096) twice
-    per arch, then the serving loop of `launch/serve.py` (4 requests,
-    batch 4, max-seq 128, max-new 16) on the same weights.  The kernels'
-    counts are zeroed just before and read just after; each forward must
-    launch flash once per attention layer and the SSD scan once per Mamba
-    layer."""
+def zoo_config(arch: str, layers: int | None):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def per_forward(cfg) -> dict[str, int]:
+    """Kernel launches one prefill forward of `cfg` makes: flash once per
+    attention layer (a leading dense block is one), the SSD scan once per
+    Mamba layer."""
+    n_attn = sum(mx in "AGWL" for mx, _ in cfg.pattern)
+    n_ssd = sum(mx == "M" for mx, _ in cfg.pattern)
+    return {"flash_attention": cfg.first_k_dense + cfg.n_super * n_attn,
+            "ssd_scan": cfg.n_super * n_ssd}
+
+
+def phase_zoo_model(dev) -> tuple[dict[str, int], dict]:
+    """The model zoo's main path (ZOO_RUNS), random weights from a seed:
+    the prefill forward (`apply` then `logits`, B 1) twice per arch, then
+    the serving loop of `launch/serve.py` (4 requests, batch 4, max-seq
+    128, max-new 16) on the same weights.  The kernels' counts are zeroed
+    just before and read just after; each forward must launch flash once
+    per attention layer and the SSD scan once per Mamba layer.  Returns
+    the counts and, per arch, its numbers."""
     import torch
-    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.configs import SHAPES
     from repro_torch.launch.serve import serve
     from repro_torch.models import build_model
     from repro_torch.models.model import count_params
     full = SHAPES["prefill_32k"]
     log(f"[zoo] prefill shape: {full.name} (S {full.seq}, batch "
-        f"{full.global_batch}) cut to S {ZOO_SEQ}, batch {ZOO_BATCH}")
+        f"{full.global_batch}) cut to batch {ZOO_BATCH} and S {ZOO_SEQ} "
+        f"({MIXTRAL_SEQ} for mixtral-8x22b)")
     reset_zoo_launches()
-    for arch in ZOO_ARCHS:
-        cfg = get_config(arch)
-        per_fwd = {"flash_attention": cfg.n_layers * sum(
-                       mx == "A" for mx, _ in cfg.pattern) // len(cfg.pattern),
-                   "ssd_scan": cfg.n_layers * sum(
-                       mx == "M" for mx, _ in cfg.pattern) // len(cfg.pattern)}
+    by_arch = {}
+    for arch, layers, seq in ZOO_RUNS:
+        cfg = zoo_config(arch, layers)
+        per_fwd = per_forward(cfg)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         model = build_model(cfg, dev)
@@ -1111,11 +1279,11 @@ def phase_zoo_model(dev) -> dict[str, int]:
         params = model.init(0)
         torch.cuda.synchronize()
         t_init = time.perf_counter() - t0
-        toks = zoo_tokens(dev, cfg, ZOO_SEQ)
-        walls = []
+        toks = zoo_tokens(dev, cfg, seq)
+        walls, arch_before = [], zoo_launches()
         with torch.inference_mode():
             for _ in range(2):
-                before = zoo_launches()
+                before, kb = zoo_launches(), flash_by_kernel()
                 t0 = time.perf_counter()
                 hidden, _ = model.apply(params, {"tokens": toks})
                 logits = model.logits(params, hidden)
@@ -1125,7 +1293,9 @@ def phase_zoo_model(dev) -> dict[str, int]:
                 if got != per_fwd:
                     raise AssertionError(f"{arch} prefill launched {got}, "
                                          f"expected {per_fwd}")
-            shape = (ZOO_BATCH, ZOO_SEQ, cfg.padded_vocab)
+                kernels = {k: v - kb[k] for k, v in flash_by_kernel().items()
+                           if v - kb[k]}
+            shape = (ZOO_BATCH, seq, cfg.padded_vocab)
             if tuple(logits.shape) != shape or not bool(
                     torch.isfinite(logits).all()):
                 raise AssertionError(f"{arch} logits {tuple(logits.shape)} "
@@ -1134,72 +1304,138 @@ def phase_zoo_model(dev) -> dict[str, int]:
             lg_std = float(logits.float().std())
             del logits, hidden
             torch.cuda.reset_peak_memory_stats()
-            reqs, steps, t_serve = serve(arch, params=params, device=dev)
+            reqs, steps, t_serve = serve(cfg, params=params, device=dev)
             serve_peak = torch.cuda.max_memory_allocated()
+        measured = {k: v - arch_before[k] for k, v in zoo_launches().items()}
         if not all(r.done and len(r.generated) == 16 for r in reqs):
             raise AssertionError(f"{arch} serve: not every request completed")
-        n = count_params(cfg)
-        log(f"[zoo] {arch}: {n / 1e9:.3f} B params ({cfg.n_layers} layers, "
-            f"d_model {cfg.d_model}), init {t_init:.2f} s; prefill B="
-            f"{ZOO_BATCH} S={ZOO_SEQ}: first {walls[0]:.3f} s, warm "
-            f"{walls[1]:.3f} s ({ZOO_BATCH * ZOO_SEQ / walls[1]:.0f} "
-            f"tokens/s), launches per forward {json.dumps(per_fwd)}, logits "
-            f"{shape} finite (std {lg_std:.3f}), peak device memory "
-            f"{peak / 2**30:.2f} GiB")
+        n, n_act = count_params(cfg), count_params(cfg, active_only=True)
+        depth = ("" if layers is None else
+                 f", depth cut from {get_config_layers(arch)} to {layers}")
+        log(f"[zoo] {arch}: {n / 1e9:.3f} B params ({n_act / 1e9:.3f} B "
+            f"active; {cfg.n_layers} layers{depth}, d_model {cfg.d_model}), "
+            f"init {t_init:.2f} s; prefill B={ZOO_BATCH} S={seq}: first "
+            f"{walls[0]:.3f} s, warm {walls[1]:.3f} s ({ZOO_BATCH * seq / walls[1]:.0f} "
+            f"tokens/s), launches per forward {json.dumps(per_fwd)}, flash "
+            f"by kernel {json.dumps(kernels)}, logits {shape} finite (std "
+            f"{lg_std:.3f}), peak device memory {peak / 2**30:.2f} GiB")
         log(f"[zoo] {arch} serve: {len(reqs)}/{len(reqs)} requests done in "
             f"{steps} decode steps, {t_serve:.3f} s ({steps / t_serve:.1f} "
             f"steps/s, batch 4), peak device memory "
-            f"{serve_peak / 2**30:.2f} GiB")
+            f"{serve_peak / 2**30:.2f} GiB; launches over the arch's two "
+            f"forwards and serve loop {json.dumps(measured)}")
+        by_arch[arch] = dict(params=n, active_params=n_act,
+                             layers=cfg.n_layers, seq=seq,
+                             prefill_s=walls[1],
+                             tokens_per_s=ZOO_BATCH * seq / walls[1],
+                             per_forward=per_fwd, launches=measured,
+                             flash_by_kernel=kernels,
+                             peak_gib=peak / 2**30,
+                             serve_steps_per_s=steps / t_serve,
+                             serve_peak_gib=serve_peak / 2**30)
         del params, model
         torch.cuda.empty_cache()
     launches = zoo_launches()
-    log(f"[zoo] launches over the phase: {json.dumps(launches)}")
-    return launches
+    log(f"[zoo] launches over the phase: {json.dumps(launches)}, flash by "
+        f"kernel {json.dumps(flash_by_kernel())}")
+    reduced = {arch: f"n_layers {get_config_layers(arch)} -> {layers}"
+               for arch, layers, _ in ZOO_RUNS if layers is not None}
+    log(f"[zoo] reduced: {json.dumps(reduced)}")
+    return launches, by_arch
+
+
+def get_config_layers(arch: str) -> int:
+    from repro_torch.configs import get_config
+    return get_config(arch).n_layers
+
+
+# card vs CPU: (arch, layers) at full width, B 1, S 256; the depth cut to
+# one super-block (gemma3-12b's is 6 layers; deepseek-moe-16b's 2 are its
+# dense first layer and one MoE layer).
+ZOO_CPU_RUNS = (("minitron-8b", 2), ("mamba2-370m", 2), ("gemma3-12b", 6),
+                ("deepseek-moe-16b", 2), ("qwen3-32b", 2),
+                ("phi3-medium-14b", 2), ("mixtral-8x22b", 2))
 
 
 def phase_zoo_card_vs_cpu(dev) -> None:
-    """Both archs at full width and depth 2 (one super-block pair), B 1,
-    S 256: the final hidden state on the card (kernels) against the port's
-    CPU path (plain versions) on the same weights, without the LM head.
-    Bar: rtol 2e-2, atol 2e-2 x max |CPU value| -- bf16 matmuls and
-    reductions round at other places on the two devices, and the flash
-    kernel rounds P to bf16 for its second product."""
+    """ZOO_CPU_RUNS at full width, B 1, S 256: the final hidden state on the
+    card (kernels) against the port's CPU path (plain versions) on the same
+    weights, without the LM head, MoE layers on the CPU run's routes.  Bar:
+    rtol 2e-2, atol 2e-2 x max |CPU value| -- bf16 matmuls and reductions
+    round at other places on the two devices, and the flash kernel rounds
+    P to bf16 for its second product.  Then the smoke gemma3-12b and
+    mixtral-8x22b through a teacher-forced decode of 48 tokens on both
+    (past their window of 32: the ring buffers wrap on the card), and
+    deepseek-moe-16b's MoE layer at full width twice on the card,
+    torch.equal."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.models import build_model
-    for arch in ZOO_ARCHS:
-        full = get_config(arch)
-        cfg = dataclasses.replace(full, n_layers=2 * len(full.pattern))
+    from repro_torch.models import build_model, moe
+    from repro_torch.testing import RouteReplay, hold_bf16, tree_to
+    for arch, layers in ZOO_CPU_RUNS:
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
         card, cpu = build_model(cfg, dev), build_model(cfg, "cpu")
         params = card.init(1)
-        on_cpu = _tree_to(params, "cpu")
+        on_cpu = tree_to(params, "cpu")
         toks = zoo_tokens(dev, cfg, 256, seed=1)
+        routes = RouteReplay()
         with torch.inference_mode():
-            h_card = card.apply(params, {"tokens": toks})[0].float().cpu()
             t0 = time.perf_counter()
-            h_cpu = cpu.apply(on_cpu, {"tokens": toks.cpu()})[0].float()
+            with routes.record():
+                h_cpu = cpu.apply(on_cpu, {"tokens": toks.cpu()})[0]
             t_cpu = time.perf_counter() - t0
-        atol = 2e-2 * float(h_cpu.abs().max())
-        err = float((h_card - h_cpu).abs().max())
-        rel = float((h_card - h_cpu).norm() / h_cpu.norm())
-        if not torch.allclose(h_card, h_cpu, rtol=2e-2, atol=atol):
-            raise AssertionError(f"{arch} depth 2: card and CPU differ beyond"
-                                 f" rtol 2e-2, atol {atol:.3g}: max abs "
-                                 f"{err:.3g}")
-        log(f"[zoo-cpu] {arch} depth 2, B 1, S 256, full width: card vs CPU "
-            f"max abs err {err:.4g} (atol {atol:.3g}, rtol 2e-2), relative "
-            f"L2 {rel:.3g}; CPU forward {t_cpu:.2f} s")
-        del params, on_cpu
+            with routes.replay():
+                h_card = card.apply(params, {"tokens": toks})[0]
+        verdict = hold_bf16(h_card, h_cpu, f"{arch} depth {layers}")
+        agree = routes.check(f"{arch} depth {layers}")
+        log(f"[zoo-cpu] {arch} depth {layers}, B 1, S 256, full width: card "
+            f"vs CPU {verdict}; {agree}; CPU forward "
+            f"{t_cpu:.2f} s")
+        del params, on_cpu, card, cpu
         torch.cuda.empty_cache()
-
-
-def _tree_to(tree, device):
-    if isinstance(tree, dict):
-        return {k: _tree_to(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_tree_to(v, device) for v in tree]
-    return tree.to(device)
+    for arch in ("gemma3-12b", "mixtral-8x22b"):
+        cfg = get_config(arch, smoke=True)
+        card, cpu = build_model(cfg, dev), build_model(cfg, "cpu")
+        params = card.init(2)
+        on_cpu = tree_to(params, "cpu")
+        B, seq, n_prompt, steps = 2, 64, 8, 48
+        prompt = torch.randint(1, cfg.vocab, (B, n_prompt),
+                               generator=torch.Generator().manual_seed(2))
+        c_card, c_cpu = card.init_caches(B, seq), cpu.init_caches(B, seq)
+        routes, worst, token = RouteReplay(), 0.0, prompt[:, :1]
+        with torch.inference_mode():
+            for t in range(steps):
+                with routes.record():
+                    l_cpu, c_cpu = cpu.decode_step(on_cpu, token, c_cpu, t)
+                with routes.replay():
+                    l_card, c_card = card.decode_step(params, token.to(dev),
+                                                      c_card, t)
+                hold_bf16(l_card, l_cpu, f"{arch} smoke decode step {t}")
+                worst = max(worst, float((l_card.float().cpu()
+                                          - l_cpu.float()).abs().max()))
+                token = (prompt[:, t + 1:t + 2] if t + 1 < n_prompt
+                         else l_cpu[:, -1].float().argmax(-1)[:, None])
+        agree = routes.check(f"{arch} smoke decode")
+        log(f"[zoo-cpu] {arch} smoke (window {cfg.attn.window}): teacher-"
+            f"forced decode of {steps} tokens, B {B}, {seq}-entry caches, "
+            f"card vs CPU within the bar at every step (max abs err "
+            f"{worst:.4g}); {agree}")
+    cfg = get_config("deepseek-moe-16b")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    mp = moe.init_moe(gen, cfg.d_model, cfg.moe)
+    x = torch.randn((ZOO_BATCH, ZOO_SEQ, cfg.d_model), generator=gen,
+                    device=dev).bfloat16()
+    with torch.inference_mode():
+        (y0, a0), (y1, a1) = (moe.moe_ffn(mp, x, cfg.moe) for _ in range(2))
+    if not (torch.equal(y0, y1) and all(torch.equal(a0[k], a1[k])
+                                        for k in a0)):
+        raise AssertionError("deepseek-moe-16b MoE layer: two card runs "
+                             "differ")
+    log(f"[zoo-cpu] deepseek-moe-16b MoE layer at full width (E 64, top 6, "
+        f"2 shared, T {ZOO_SEQ}): two card runs torch.equal (output and "
+        f"aux; drop_frac {float(a0['drop_frac']):.4f})")
 
 
 def phase_cells(dev) -> None:
@@ -1955,7 +2191,7 @@ def phase_zoo_profile(dev) -> None:
         with torch.inference_mode():
             prefill()
             runs = (("prefill", profiled(prefill)),
-                    ("serve", profiled(lambda: serve(arch, params=params,
+                    ("serve", profiled(lambda: serve(cfg, params=params,
                                                      device=dev))))
         for what, (wall, rows) in runs:
             dev_us = sum(r[0] for r in rows)
@@ -2010,7 +2246,8 @@ def main() -> int:
                  "faults": phase_faults(dev)}
     kernels += phase_zoo_kernels(dev)
     phase_zoo_card_vs_cpu(dev)
-    launches.update(phase_zoo_model(dev))
+    zoo_counts, zoo_archs = phase_zoo_model(dev)
+    launches.update(zoo_counts)
     phase_zoo_profile(dev)
     for k in kernels:
         name = k["name"]
@@ -2026,6 +2263,10 @@ def main() -> int:
         for phase, counts in lifecycle.items():
             if name in counts:
                 k[f"launches_{phase}"] = counts[name]
+        if name == "flash_attention":
+            k["launches_by_arch"] = {a: r["launches"][name]
+                                     for a, r in zoo_archs.items()
+                                     if r["launches"][name]}
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"[card] {card}")

@@ -2,7 +2,9 @@
 imports nothing of the JAX package).
 
 Every architecture is a `ModelConfig` built from composable parts: GQA
-attention, SwiGLU FFNs, Mamba2-SSD mixers.  Layers are grouped into a
+attention (full / sliding-window / local:global), SwiGLU or MoE FFNs,
+Mamba2-SSD mixers (pure or hybrid interleave), optional encoder stack
+(enc-dec) and cross-attention layers (VLM).  Layers are grouped into a
 repeating *super-block* `pattern` (a tuple of (mixer, ffn) kind pairs); the
 stack applies `n_layers / len(pattern)` super-blocks.
 
@@ -11,9 +13,6 @@ Mixer kinds: 'A' causal full attention | 'W' sliding-window attention |
              'M' Mamba2 SSD | 'C' cross-attention (+causal self) |
              'B' bidirectional attention (encoder)
 FFN kinds:   'D' dense SwiGLU | 'E' mixture-of-experts | 'N' none
-The port's model code covers mixers 'A' and 'M' and FFNs 'D' and 'N' (see
-ROADMAP.md for the rest); `MoECfg` and `EncoderCfg` are kept as plain
-dataclasses so that the configs read the same.
 """
 from __future__ import annotations
 
@@ -39,9 +38,14 @@ class MoECfg:
     d_expert: int
     n_shared: int = 0
     capacity_factor: float = 1.25
-    router_pre_softmax: bool = False
-    dispatch_groups: int = 1
-    prefer_tp: bool = False
+    router_pre_softmax: bool = False   # deepseek-style: softmax over all, then top-k
+    dispatch_groups: int = 1           # shard-local dispatch: set to the data-
+                                       # parallel degree so routing/capacity are
+                                       # computed per data shard (no global
+                                       # gather of the dispatch buffers)
+    prefer_tp: bool = False            # force TP-in-expert even when the expert
+                                       # count divides the model axis (fine-
+                                       # grained experts: no token exchange)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,9 +60,11 @@ class SSMCfg:
 
 @dataclasses.dataclass(frozen=True)
 class EncoderCfg:
+    """Auxiliary encoder stack (whisper). The modality frontend is a stub:
+    input_specs() supplies precomputed frame embeddings (B, S_enc, d_model)."""
     n_layers: int = 32
-    seq_frac: float = 1.0
-    dec_seq: int = 448
+    seq_frac: float = 1.0       # encoder seq = seq_frac * shape.seq
+    dec_seq: int = 448          # decoder text length for train/prefill shapes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +77,7 @@ class ModelConfig:
     vocab: int
     attn: AttnCfg
     pattern: tuple = (("A", "D"),)
-    first_k_dense: int = 0      # leading layers forced to dense FFN
+    first_k_dense: int = 0      # leading layers forced to dense FFN (deepseek)
     moe: Optional[MoECfg] = None
     ssm: Optional[SSMCfg] = None
     encoder: Optional[EncoderCfg] = None
@@ -103,6 +109,10 @@ class ModelConfig:
         """Total parameter count N (for MODEL_FLOPS = 6*N*D)."""
         from repro_torch.models.model import count_params
         return count_params(self)
+
+    def active_param_count(self) -> int:
+        from repro_torch.models.model import count_params
+        return count_params(self, active_only=True)
 
 
 @dataclasses.dataclass(frozen=True)

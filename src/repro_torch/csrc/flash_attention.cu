@@ -1,22 +1,29 @@
-// Blocked causal / non-causal GQA flash attention for sm_90a.
+// Blocked causal / non-causal GQA flash attention for sm_90a, with an
+// optional causal window.
 //
 // Replaces src/repro/kernels/flash_attention/kernel.py:80 `flash_attention`
 // (`_flash_kernel`, :31): softmax(q k^T * scale, masked) v with an online
 // softmax (running max m, running sum l, f32 accumulator acc), skipping the
 // KV tiles above the diagonal.  q, o: (B, S, H, hd); k, v: (B, S, K, hd) with
 // H % K == 0.  The KV head of query head h is h / (H / K), so the expanded
-// K/V of the reference's wrapper is never materialised.
+// K/V of the reference's wrapper is never materialised.  `window` > 0 also
+// hides key j from query i when j <= i - window (the reference model's
+// sliding-window and local mixers, src/repro/models/attention.py:72-80,
+// which it computes outside Pallas); a block then starts its KV loop at the
+// first tile holding a key inside the window of its first query row, so the
+// work grows linearly in S.
 //
 // Bound on this card: at the main-path shape (B 1, S 4096, H 32, hd 128,
 // bf16) the causal half of the two products is ~1.4e11 FLOP against ~84 MB
 // of q/k/v/o, so it is bound by operations (the bf16 tensor-core rate), not
 // bytes.  Three kernels, chosen by the wrapper (ops.py) from dtype and head
 // dim alone:
-//   * bf16, hd 64 and 128 (the main path): `flash_wgmma_kernel`, Hopper's
-//     route to the full tensor-core rate.  One block per (batch*head,
-//     128-row query tile): two consumer warpgroups of 64 rows and one
-//     producer warp.  The producer loads the Q tile once and streams
-//     128-key K/V tiles into a two-stage ring with TMA (full / empty
+//   * bf16, hd 64, 128 and 256 (the models' widths): `flash_wgmma_kernel`,
+//     Hopper's route to the full tensor-core rate.  One block per
+//     (batch*head, 128-row query tile): two consumer warpgroups of 64 rows
+//     and one producer warp.  The producer loads the Q tile once and
+//     streams K/V tiles (128 keys; 64 at hd 256, see below) into a
+//     two-stage ring with TMA (full / empty
 //     mbarrier per stage), so no consumer thread spends instructions or
 //     registers on addresses; each staged tile serves 128 query rows.
 //     S = Q K^T runs as wgmma m64n128k16 with both operands in shared
@@ -35,18 +42,35 @@
 //     - m) is one FMA and one ex2 (this source compiles without
 //     -fmad=false); for scale <= 0 a second instantiation scales each
 //     score first, as the other two kernels do, so every scale is taken.
+//     hd 256 (gemma3): a 128 x 256 Q tile is 64 KB and two stages of
+//     128-key K and V tiles another 256 KB, over the 227 KB a block may
+//     have, so the K/V tiles shrink to 64 keys (Q 64 KB + 2 x (K 32 KB +
+//     V 32 KB) = 192 KB).  The output accumulator is 128 floats a thread,
+//     the score tile 32 and its bf16 re-pack 16, inside the 224 registers
+//     a thread of this 288-thread block can have; P V runs as two
+//     m64n128k16 wgmmas per k-step, one per 128-column half of V.  Simple
+//     and right first: the time against its bound is in PERF.md.
 //   * bf16, hd 16 and 32: `flash_bf16_kernel`, 64-row query tiles of four
 //     warps, mma.sync m16n8k16 with ldmatrix fragments, K/V double-buffered
 //     with cp.async (the first tensor-core design; a 64-column TMA panel
 //     would be mostly padding at these widths).
 //   * f32: CUDA-core FMAs (no TF32: the f32 bar is 2e-5), 4 x 4 register
 //     tiles, P through shared memory.
-// Kept from the reference in all three: the finite -1e30 mask value (never
-// -inf, so a fully masked tile gives finite p that the next tile's
-// correction wipes), the finaliser's max(l, 1e-30), and the causal skip rule
-// (a KV tile runs iff its first key <= the tile's last query row), heaviest
-// query tiles first.  Keys at or past S are masked (TMA fills rows past S
-// with zeros), so a ragged S needs no padding here.
+// Kept from the reference in all three: the finite -1e30 mask value and
+// start of the running max, the finaliser's max(l, 1e-30), and the causal
+// skip rule (a KV tile runs iff its first key <= the tile's last query
+// row), heaviest query tiles first when there is no window (with one,
+// every tile does the same work and the order buys nothing).  With a
+// window a masked score is -inf instead, so its p is exactly 0 even in the
+// leading tiles that the window hides entirely from a row (a finite mask
+// would give p = 1 there); the tile max still starts at -1e30, so the
+// running max stays finite.  In all three kernels the window is a
+// compile-time flag, a separate instantiation, so the window-free path
+// carries none of its tests: run-time window tests cost the mma.sync and
+// f32 kernels 4-6% at minitron-8b's shape, and -inf on the window-free path
+// cost the wgmma kernel ~3.5%, in turns against the kernels without a
+// window (flash_in_turns.py).  Keys at or past S are masked (TMA fills rows
+// past S with zeros), so a ragged S needs no padding here.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -55,7 +79,28 @@
 
 namespace {
 
-constexpr float kMaskValue = -1e30f;
+constexpr float kMaskValue = -1e30f;   // start of every running / tile max
+
+// A masked score: exp2 of it is exactly 0 whatever the running max.
+__device__ __forceinline__ float masked_score() {
+  return __int_as_float(0xff800000u);   // -inf
+}
+
+// The value a masked score takes: -inf with a window, which can hide every
+// key of a row's first tiles; else the reference's finite -1e30, whose p is
+// 0 once the row has met a visible key, which it does in its first tile.
+template <bool kWindow>
+__device__ __forceinline__ float mask_value() {
+  return kWindow ? masked_score() : kMaskValue;
+}
+
+// First key tile a block of query rows q0.. reads: with a window, the tile
+// of key q0 - window + 1 (the oldest key its first row sees), else tile 0.
+template <bool kWindow>
+__device__ __forceinline__ int first_kv_tile(int q0, int window, int bkv) {
+  return kWindow ? max(0, q0 - window + 1) / bkv : 0;
+}
+
 constexpr int kBQ = 64;        // query rows per block (mma.sync and f32)
 constexpr int kThreads = 128;  // four warps
 
@@ -129,13 +174,13 @@ __device__ __forceinline__ float exp2_approx(float x) {
 //                     a3 (g+8, 2t+8..)
 //   B (16 x 8, col):  b0 (k 2t..2t+1, n g), b1 (k 2t+8..2t+9, n g)
 //   C (16 x 8):       c0,c1 (g, 2t..2t+1), c2,c3 (g+8, 2t..2t+1)
-template <int HD>
+template <int HD, bool kWindow>
 __global__ void __launch_bounds__(kThreads)
 flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
                   __nv_bfloat16* __restrict__ o, int S, int H, int K,
-                  float scale, int causal) {
+                  float scale, int causal, int window) {
   constexpr int KC = HD / 16;   // k-steps of q.k^T over the head dim
   constexpr int NT = HD / 8;    // 8-wide column tiles of the output
   constexpr int LD = HD + 8;    // padded smem row: conflict-free fragments
@@ -151,7 +196,8 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int kh = h / (H / K);
   // causal: the last query tiles have the most KV tiles; start them first,
   // all heads' at once (blockIdx.x runs fastest)
-  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kBQ;
+  const bool heavy_last = causal && !kWindow;
+  const int q0 = (heavy_last ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kBQ;
   const size_t qrow = (size_t)H * HD, krow = (size_t)K * HD;
   const __nv_bfloat16* qb = q + (size_t)b * S * qrow + (size_t)h * HD;
   const __nv_bfloat16* kb = k + (size_t)b * S * krow + (size_t)kh * HD;
@@ -177,11 +223,13 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   // running max in log2 units: exp(x * scale) = exp2(x * scale * log2(e))
   const float scale_log2 = scale * 1.4426950408889634f;
   float m0 = kMaskValue, m1 = kMaskValue, l0 = 0.f, l1 = 0.f;
+  const float mask_v = mask_value<kWindow>();
 
   // causal skip: tile j runs iff j * kBKV16 <= the block's last query row
   int kv_end = S;
   if (causal) kv_end = min(S, q0 + kBQ);
   const int n_tiles = (kv_end + kBKV16 - 1) / kBKV16;
+  const int tile0 = first_kv_tile<kWindow>(q0, window, kBKV16);
   auto load_tile = [&](int tile) {
     const int kv0 = tile * kBKV16;
     __nv_bfloat16* kd = kbuf + (tile & 1) * kBKV16 * LD;
@@ -195,8 +243,8 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     }
     cp_async_commit();
   };
-  load_tile(0);
-  for (int tile = 0; tile < n_tiles; ++tile) {
+  load_tile(tile0);
+  for (int tile = tile0; tile < n_tiles; ++tile) {
     const int kv0 = tile * kBKV16;
     if (tile + 1 < n_tiles) {
       load_tile(tile + 1);
@@ -227,7 +275,9 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
     // scale into log2 units, mask, row max over the tile
-    const bool masked = kv0 + kBKV16 > S || (causal && kv0 + kBKV16 - 1 > q0);
+    const bool masked = kv0 + kBKV16 > S ||
+                        (causal && kv0 + kBKV16 - 1 > q0) ||
+                        (kWindow && kv0 <= q0 + kBQ - 1 - window);
     float mx0 = kMaskValue, mx1 = kMaskValue;
 #pragma unroll
     for (int nt = 0; nt < kBKV16 / 8; ++nt) {
@@ -237,7 +287,9 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
         if (masked) {
           const int row = e < 2 ? r0 : r1;
           const int col = kv0 + nt * 8 + 2 * t + (e & 1);
-          if (col >= S || (causal && col > row)) x = kMaskValue;
+          if (col >= S || (causal && col > row) ||
+              (kWindow && col <= row - window))
+            x = mask_v;
         }
         s[nt][e] = x;
         if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
@@ -311,16 +363,19 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// bf16, hd 64 and 128: wgmma fed by TMA (warp-specialised)
+// bf16, hd 64, 128 and 256: wgmma fed by TMA (warp-specialised)
 // ---------------------------------------------------------------------------
 
 constexpr int kWgBQ = 128;       // query rows per block: two warpgroups of 64
-constexpr int kWgBKV = 128;      // keys per K/V tile
 constexpr int kWgStages = 2;     // K/V ring depth
 constexpr int kWgConsumers = 256;
 constexpr int kWgThreads = kWgConsumers + 32;   // + one producer warp
 constexpr int kPanel = 64;       // bf16 columns per 128-byte swizzled row
 constexpr int kPanelBytes = kWgBQ * kPanel * 2; // one 128-row panel: 16 KB
+
+// Keys per K/V tile: 128, or 64 at hd 256, where two stages of 128-key K
+// and V tiles beside the 64 KB Q tile would not fit in shared memory.
+__host__ __device__ constexpr int wg_bkv(int hd) { return hd > 128 ? 64 : 128; }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -426,6 +481,23 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// d (64 x 64, f32) += A (64 x 16, bf16, shared, K-major) . B (16 x 64, bf16,
+// shared, K-major); scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
+                                           uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // d (64 x 128, f32) += A (64 x 16, bf16, registers) . B (16 x 128, bf16,
 // shared, N-major: the transpose bit set).
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
@@ -468,77 +540,94 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
 
 template <int HD>
 struct WgSmem {
-  // each tile: HD / 64 panels of [128 rows][64 columns], 128-byte swizzled
+  static constexpr int BKV = wg_bkv(HD);
+  // each tile: HD / 64 panels of [rows][64 columns], 128-byte swizzled
   __nv_bfloat16 q[HD / kPanel][kWgBQ * kPanel];
-  __nv_bfloat16 k[kWgStages][HD / kPanel][kWgBKV * kPanel];
-  __nv_bfloat16 v[kWgStages][HD / kPanel][kWgBKV * kPanel];
+  __nv_bfloat16 k[kWgStages][HD / kPanel][BKV * kPanel];
+  __nv_bfloat16 v[kWgStages][HD / kPanel][BKV * kPanel];
   uint64_t q_full, full[kWgStages], empty[kWgStages];
 };
 
-template <int HD>
-__device__ __forceinline__ void wgmma_pv(float (&acc)[HD / 2],
-                                         const uint32_t (&a)[4], uint64_t d);
-template <>
-__device__ __forceinline__ void wgmma_pv<64>(float (&acc)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t d) {
-  wgmma_rs_n64(acc, a, d);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<128>(float (&acc)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t d) {
-  wgmma_rs_n128(acc, a, d);
-}
-
-// S (64 x 128 keys) = Q K^T: k-steps of 16 over the head dim, k-step kk 32
+// S (64 x BKV keys) = Q K^T: k-steps of 16 over the head dim, k-step kk 32
 // bytes into panel kk / 4 (inside the swizzle atom).
 template <int HD>
-__device__ __forceinline__ void qk_tile(float (&s)[64],
-                                        const __nv_bfloat16 (*q)[kWgBQ * kPanel],
-                                        const __nv_bfloat16 (*k)[kWgBKV * kPanel],
-                                        int wg) {
+__device__ __forceinline__ void qk_tile(
+    float (&s)[wg_bkv(HD) / 2], const __nv_bfloat16 (*q)[kWgBQ * kPanel],
+    const __nv_bfloat16 (*k)[wg_bkv(HD) * kPanel], int wg) {
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
-    wgmma_ss_n128(s,
-                  sw128_desc(q[kk / 4] + wg * 64 * kPanel + (kk % 4) * 16, 16),
-                  sw128_desc(k[kk / 4] + (kk % 4) * 16, 16), kk > 0);
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint64_t da =
+        sw128_desc(q[kk / 4] + wg * 64 * kPanel + (kk % 4) * 16, 16);
+    const uint64_t db = sw128_desc(k[kk / 4] + (kk % 4) * 16, 16);
+    if constexpr (wg_bkv(HD) == 128)
+      wgmma_ss_n128(s, da, db, kk > 0);
+    else
+      wgmma_ss_n64(s, da, db, kk > 0);
+  }
 }
 
-// acc += P V: k-step kk is keys 16 kk .. + 15, 2048 bytes into each panel.
+// acc += P V: k-step kk is keys 16 kk .. + 15, 16 rows of 128 bytes into
+// each panel; the next 64-column panel of V is one panel (BKV rows) on.
+// hd 256 takes two m64n128 products a k-step: columns 0-127 into acc[0..63]
+// and 128-255 (panels 2, 3) into acc[64..127], which is the accumulator
+// layout of one m64n256 product.
 template <int HD>
-__device__ __forceinline__ void pv_tile(float (&acc)[HD / 2],
-                                        const uint32_t (&pa)[kWgBKV / 16][4],
-                                        const __nv_bfloat16 (*v)[kWgBKV * kPanel]) {
+__device__ __forceinline__ void pv_tile(
+    float (&acc)[HD / 2], const uint32_t (&pa)[wg_bkv(HD) / 16][4],
+    const __nv_bfloat16 (*v)[wg_bkv(HD) * kPanel]) {
+  constexpr int BKV = wg_bkv(HD);
+  constexpr uint32_t lbo = BKV * kPanel * 2;
 #pragma unroll
-  for (int kk = 0; kk < kWgBKV / 16; ++kk)
-    wgmma_pv<HD>(acc, pa[kk],
-                 sw128_desc(v[0] + kk * 16 * kPanel, kPanelBytes));
+  for (int kk = 0; kk < BKV / 16; ++kk) {
+    if constexpr (HD == 64) {
+      wgmma_rs_n64(acc, pa[kk], sw128_desc(v[0] + kk * 16 * kPanel, lbo));
+    } else if constexpr (HD == 128) {
+      wgmma_rs_n128(acc, pa[kk], sw128_desc(v[0] + kk * 16 * kPanel, lbo));
+    } else {
+      static_assert(HD == 256, "wgmma flash: hd 64, 128 or 256");
+      wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&acc[0]), pa[kk],
+                    sw128_desc(v[0] + kk * 16 * kPanel, lbo));
+      wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&acc[64]), pa[kk],
+                    sw128_desc(v[2] + kk * 16 * kPanel, lbo));
+    }
+  }
 }
 
 // The online softmax of one score tile: mask (only tiles that reach the
-// diagonal or the ragged end), update m and l, rescale acc, and re-pack P
-// as bf16 A fragments (column tiles 2 kk, 2 kk + 1 are k-step kk).
-// kRawMax (scale > 0, the models' case): x -> x * scale_log2 is monotone,
-// so the row max is taken over the raw scores (a masked score is mask_x =
-// -1e30 / scale_log2) and scaled once, and p = exp2(x * scale_log2 - m) is
-// one FMA and one ex2.  Otherwise (scale <= 0) each score is scaled before
-// the mask and the max (mask_x = -1e30), one multiply more per score.
-template <int HD, bool kRawMax>
+// diagonal, the window's edge or the ragged end), update m and l, rescale
+// acc, and re-pack P as bf16 A fragments (column tiles 2 kk, 2 kk + 1 are
+// k-step kk).  kRawMax (scale > 0, the models' case): x -> x * scale_log2 is
+// monotone, so the row max is taken over the raw scores (a masked score is
+// mask_x = -1e30 / scale_log2) and scaled once, and p = exp2(x * scale_log2
+// - m) is one FMA and one ex2.  Otherwise (scale <= 0) each score is scaled
+// before the mask and the max (mask_x = -1e30), one multiply more per
+// score.  kWindow: the launch has a window, a separate instantiation, so
+// the window-free path carries none of its tests; there a masked score is
+// -inf (its p exactly 0), since a window can hide every key of a row's
+// first tiles, where the finite mask_x would give p = 1.  Without a window
+// every row meets a visible key (key 0) in its first tile, and the finite
+// mask_x's p is 0 from then on, as before the window existed.
+template <int HD, bool kRawMax, bool kWindow>
 __device__ __forceinline__ void softmax_tile(
-    float (&s)[64], float (&acc)[HD / 2], uint32_t (&pa)[kWgBKV / 16][4],
-    float& m0, float& m1, float& l0, float& l1, int kv0, int S, int causal,
-    int wg_row0, int r0, int r1, int t, float scale_log2, float mask_x) {
-  const bool masked =
-      kv0 + kWgBKV > S || (causal && kv0 + kWgBKV - 1 > wg_row0);
+    float (&s)[wg_bkv(HD) / 2], float (&acc)[HD / 2],
+    uint32_t (&pa)[wg_bkv(HD) / 16][4], float& m0, float& m1, float& l0,
+    float& l1, int kv0, int S, int causal, int window, int wg_row0, int r0,
+    int r1, int t, float scale_log2, float mask_x) {
+  constexpr int BKV = wg_bkv(HD);
+  constexpr int NS = BKV / 2;               // score accumulators per thread
+  const bool masked = kv0 + BKV > S ||
+                      (causal && kv0 + BKV - 1 > wg_row0) ||
+                      (kWindow && kv0 <= wg_row0 + 63 - window);
   float mx0 = kMaskValue, mx1 = kMaskValue;
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < NS; ++i) {
     float x = kRawMax ? s[i] : s[i] * scale_log2;
     if (masked) {
       const int row = (i & 2) ? r1 : r0;
       const int col = kv0 + (i >> 2) * 8 + 2 * t + (i & 1);
-      if (col >= S || (causal && col > row)) x = mask_x;
+      if (col >= S || (causal && col > row) ||
+          (kWindow && col <= row - window))
+        x = kWindow ? masked_score() : mask_x;
     }
     s[i] = x;
     if (i & 2) mx1 = fmaxf(mx1, x); else mx0 = fmaxf(mx0, x);
@@ -555,7 +644,7 @@ __device__ __forceinline__ void softmax_tile(
   m1 = mn1;
   float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < NS; ++i) {
     const float mn = (i & 2) ? mn1 : mn0;
     const float p = exp2_approx(kRawMax ? s[i] * scale_log2 - mn : s[i] - mn);
     s[i] = p;
@@ -567,7 +656,7 @@ __device__ __forceinline__ void softmax_tile(
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) acc[i] *= (i & 2) ? corr1 : corr0;
 #pragma unroll
-  for (int kk = 0; kk < kWgBKV / 16; ++kk) {
+  for (int kk = 0; kk < BKV / 16; ++kk) {
     pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
     pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
     pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
@@ -580,13 +669,16 @@ __device__ __forceinline__ void softmax_tile(
 // (+ 8 for e >= 2), column 8 j + 2 t + (e & 1).  The register A operand of
 // m64nNk16 has mma.sync m16n8k16's A layout per warp, so the scores' column
 // tiles 2 kk and 2 kk + 1 are the A fragment of the P.V k-step kk.
-// This is the consumer warpgroups' side of `flash_wgmma_kernel`.
-template <int HD, bool kRawMax>
+// This is the consumer warpgroups' side of `flash_wgmma_kernel`: it reads
+// K/V tiles tile0 .. n_tiles - 1, the i-th of them from stage i % 2.
+template <int HD, bool kRawMax, bool kWindow>
 __device__ __forceinline__ void flash_consume(WgSmem<HD>& sm,
                                               __nv_bfloat16* __restrict__ o,
                                               int S, int H, int b, int h,
-                                              int q0, int n_tiles, float scale,
-                                              int causal, int wg) {
+                                              int q0, int tile0, int n_tiles,
+                                              float scale, int causal,
+                                              int window, int wg) {
+  constexpr int BKV = wg_bkv(HD);
   constexpr int NO = HD / 2;                // output accumulators per thread
   const int w = (threadIdx.x / 32) % 4;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -605,18 +697,19 @@ __device__ __forceinline__ void flash_consume(WgSmem<HD>& sm,
   // the stage.  The two warpgroups run this loop independently, so one's
   // softmax tends to overlap the other's products.
   mbar_wait(&sm.q_full, 0);
-  for (int j = 0; j < n_tiles; ++j) {
-    const int s_ = j % kWgStages;
-    mbar_wait(&sm.full[s_], (j / kWgStages) & 1);
-    float s[64];
+  for (int j = tile0; j < n_tiles; ++j) {
+    const int it = j - tile0, s_ = it % kWgStages;
+    mbar_wait(&sm.full[s_], (it / kWgStages) & 1);
+    float s[BKV / 2];
     wgmma_fence();
     qk_tile<HD>(s, sm.q, sm.k[s_], wg);
     wgmma_commit();
     wgmma_wait0();
     reg_fence(s);
-    uint32_t pa[kWgBKV / 16][4];
-    softmax_tile<HD, kRawMax>(s, acc, pa, m0, m1, l0, l1, j * kWgBKV, S,
-                              causal, wg_row0, r0, r1, t, scale_log2, mask_x);
+    uint32_t pa[BKV / 16][4];
+    softmax_tile<HD, kRawMax, kWindow>(s, acc, pa, m0, m1, l0, l1, j * BKV,
+                                       S, causal, window, wg_row0, r0, r1, t,
+                                       scale_log2, mask_x);
     wgmma_fence();
     pv_tile<HD>(acc, pa, sm.v[s_]);
     wgmma_commit();
@@ -646,14 +739,16 @@ __device__ __forceinline__ void flash_consume(WgSmem<HD>& sm,
   }
 }
 
-template <int HD, bool kRawMax>
+template <int HD, bool kRawMax, bool kWindow>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
                    __nv_bfloat16* __restrict__ o, int S, int H, int K,
-                   float scale, int causal) {
+                   float scale, int causal, int window) {
   constexpr int NP = HD / kPanel;           // 64-column panels per row
+  constexpr int BKV = wg_bkv(HD);
+  constexpr uint32_t kv_bytes = 2u * NP * BKV * kPanel * 2;   // K + V tile
   extern __shared__ unsigned char wg_smem_raw[];
   // TMA's 128-byte swizzle repeats every 1024 bytes: align the tiles to it
   WgSmem<HD>& sm = *reinterpret_cast<WgSmem<HD>*>(
@@ -663,9 +758,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int kh = h / (H / K);
   // causal: the last query tiles have the most KV tiles; start them first,
   // all heads' at once (blockIdx.x runs fastest)
-  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kWgBQ;
+  const bool heavy_last = causal && !kWindow;
+  const int q0 = (heavy_last ? gridDim.y - 1 - blockIdx.y : blockIdx.y) *
+                 kWgBQ;
   const int kv_end = causal ? min(S, q0 + kWgBQ) : S;
-  const int n_tiles = (kv_end + kWgBKV - 1) / kWgBKV;
+  const int n_tiles = (kv_end + BKV - 1) / BKV;
+  const int tile0 = first_kv_tile<kWindow>(q0, window, BKV);
 
   if (threadIdx.x == 0) {
     mbar_init(&sm.q_full, 1);
@@ -684,22 +782,22 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_expect_tx(&sm.q_full, NP * kPanelBytes);
       for (int p = 0; p < NP; ++p)
         tma_load(sm.q[p], &tm_q, &sm.q_full, p * kPanel, h, q0, b);
-      for (int j = 0; j < n_tiles; ++j) {
-        const int s = j % kWgStages, round = j / kWgStages;
+      for (int j = tile0; j < n_tiles; ++j) {
+        const int it = j - tile0;
+        const int s = it % kWgStages, round = it / kWgStages;
         if (round > 0) mbar_wait(&sm.empty[s], (round - 1) & 1);
-        mbar_expect_tx(&sm.full[s], 2 * NP * kPanelBytes);
+        mbar_expect_tx(&sm.full[s], kv_bytes);
         for (int p = 0; p < NP; ++p) {
-          tma_load(sm.k[s][p], &tm_k, &sm.full[s], p * kPanel, kh, j * kWgBKV,
-                   b);
-          tma_load(sm.v[s][p], &tm_v, &sm.full[s], p * kPanel, kh, j * kWgBKV,
-                   b);
+          tma_load(sm.k[s][p], &tm_k, &sm.full[s], p * kPanel, kh, j * BKV, b);
+          tma_load(sm.v[s][p], &tm_v, &sm.full[s], p * kPanel, kh, j * BKV, b);
         }
       }
     }
   } else {
     // ---- consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63 ----
-    flash_consume<HD, kRawMax>(sm, o, S, H, b, h, q0, n_tiles, scale, causal,
-                               role);
+    flash_consume<HD, kRawMax, kWindow>(sm, o, S, H, b, h, q0, tile0,
+                                        n_tiles, scale, causal, window,
+                                        role);
   }
 }
 
@@ -711,11 +809,11 @@ constexpr int kBKV32 = 32;     // keys per tile
 // Thread (ty, tx) = (tid / 8, tid % 8) owns query rows ty + 16 i (i < 4);
 // for the scores, keys tx + 8 j (j < 4); for the output, columns tx + 8 c.
 
-template <int HD>
+template <int HD, bool kWindow>
 __global__ void __launch_bounds__(kThreads)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int S,
-                 int H, int K, float scale, int causal) {
+                 int H, int K, float scale, int causal, int window) {
   constexpr int LDQ = HD + 1;
   constexpr int OC = HD / 8;    // output columns per thread
   extern __shared__ float smem[];
@@ -729,7 +827,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int kh = h / (H / K);
   // causal: the last query tiles have the most KV tiles; start them first,
   // all heads' at once (blockIdx.x runs fastest)
-  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kBQ;
+  const bool heavy_last = causal && !kWindow;
+  const int q0 = (heavy_last ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kBQ;
   const size_t qrow = (size_t)H * HD, krow = (size_t)K * HD;
   const float* qb = q + (size_t)b * S * qrow + (size_t)h * HD;
   const float* kb = k + (size_t)b * S * krow + (size_t)kh * HD;
@@ -752,7 +851,9 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   int kv_end = S;
   if (causal) kv_end = min(S, q0 + kBQ);
-  for (int kv0 = 0; kv0 < kv_end; kv0 += kBKV32) {
+  const float mask_v = mask_value<kWindow>();
+  for (int kv0 = first_kv_tile<kWindow>(q0, window, kBKV32) * kBKV32;
+       kv0 < kv_end; kv0 += kBKV32) {
     __syncthreads();
     for (int i = threadIdx.x; i < kBKV32 * HD; i += kThreads) {
       const int r = i / HD, c = i % HD;
@@ -786,7 +887,9 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const int col = kv0 + tx + 8 * j;
         float x = s[i][j] * scale;
-        if (col >= S || (causal && col > row)) x = kMaskValue;
+        if (col >= S || (causal && col > row) ||
+            (kWindow && col <= row - window))
+          x = mask_v;
         s[i][j] = x;
         mx = fmaxf(mx, x);
       }
@@ -836,9 +939,9 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int HD>
+template <int HD, bool kWindow>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int S, int H, int K, float scale, int causal,
+               int S, int H, int K, float scale, int causal, int window,
                cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((size_t)(kBQ + kBKV32) * (HD + 1) +
                                        (size_t)kBKV32 * HD +
@@ -847,39 +950,41 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_f32_kernel<HD, kWindow>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   dim3 grid(B * H, (S + kBQ - 1) / kBQ);
-  flash_f32_kernel<HD><<<grid, kThreads, smem, stream>>>(
+  flash_f32_kernel<HD, kWindow><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), S, H, K, scale,
-      causal);
+      causal, window);
   return (int)cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, bool kWindow>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int S, int H, int K, float scale, int causal,
+                int S, int H, int K, float scale, int causal, int window,
                 cudaStream_t stream) {
   constexpr size_t smem = 4 * (size_t)kBKV16 * (HD + 8) * sizeof(uint16_t);
   // once per instantiation, outside any CUDA-graph capture that follows
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_bf16_kernel<HD, kWindow>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   dim3 grid(B * H, (S + kBQ - 1) / kBQ);
-  flash_bf16_kernel<HD><<<grid, kThreads, smem, stream>>>(
+  flash_bf16_kernel<HD, kWindow><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S,
-      H, K, scale, causal);
+      H, K, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -906,9 +1011,9 @@ EncodeTiled encode_tiled() {
 }
 
 // The 4-D map (hd, heads, S, B) of a (B, S, heads, hd) bf16 tensor, boxes of
-// 64 columns x 1 head x 128 rows, 128-byte swizzle, zeros out of bounds.
+// 64 columns x 1 head x `rows` rows, 128-byte swizzle, zeros out of bounds.
 cudaError_t head_map(CUtensorMap* map, const void* base, int B, int S,
-                     int heads, int hd) {
+                     int heads, int hd, int rows) {
   const EncodeTiled enc = encode_tiled();
   if (!enc) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
@@ -916,7 +1021,7 @@ cudaError_t head_map(CUtensorMap* map, const void* base, int B, int S,
   const cuuint64_t strides[3] = {(cuuint64_t)hd * 2,
                                  (cuuint64_t)heads * hd * 2,
                                  (cuuint64_t)S * heads * hd * 2};
-  const cuuint32_t box[4] = {kPanel, 1, kWgBQ, 1};
+  const cuuint32_t box[4] = {kPanel, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                          const_cast<void*>(base), dims, strides, box, unit,
@@ -927,29 +1032,59 @@ cudaError_t head_map(CUtensorMap* map, const void* base, int B, int S,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int HD, bool kRawMax>
+template <int HD, bool kRawMax, bool kWindow>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
-                 int S, int H, int K, float scale, int causal,
+                 int S, int H, int K, float scale, int causal, int window,
                  cudaStream_t stream) {
   constexpr size_t smem = sizeof(WgSmem<HD>) + 1024;   // + alignment slack
   // once per instantiation, outside any CUDA-graph capture that follows
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_wgmma_kernel<HD, kRawMax>,
+        flash_wgmma_kernel<HD, kRawMax, kWindow>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   CUtensorMap tq, tk, tv;
-  cudaError_t e = head_map(&tq, q, B, S, H, HD);
-  if (e == cudaSuccess) e = head_map(&tk, k, B, S, K, HD);
-  if (e == cudaSuccess) e = head_map(&tv, v, B, S, K, HD);
+  cudaError_t e = head_map(&tq, q, B, S, H, HD, kWgBQ);
+  if (e == cudaSuccess) e = head_map(&tk, k, B, S, K, HD, wg_bkv(HD));
+  if (e == cudaSuccess) e = head_map(&tv, v, B, S, K, HD, wg_bkv(HD));
   if (e != cudaSuccess) return (int)e;
   dim3 grid(B * H, (S + kWgBQ - 1) / kWgBQ);
-  flash_wgmma_kernel<HD, kRawMax><<<grid, kWgThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, H, K, scale, causal);
+  flash_wgmma_kernel<HD, kRawMax, kWindow><<<grid, kWgThreads, smem,
+                                              stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, H, K, scale, causal,
+      window);
   return (int)cudaGetLastError();
+}
+
+// The wgmma instantiation a launch takes: the raw-max softmax for scale >
+// 0, the window's tests only with a window.
+template <int HD>
+int launch_wgmma_any(const void* q, const void* k, const void* v, void* o,
+                     int B, int S, int H, int K, float scale, int causal,
+                     int window, cudaStream_t stream) {
+#define REPRO_WG_ARGS q, k, v, o, B, S, H, K, scale, causal, window, stream
+  if (scale > 0.f)
+    return window > 0 ? launch_wgmma<HD, true, true>(REPRO_WG_ARGS)
+                      : launch_wgmma<HD, true, false>(REPRO_WG_ARGS);
+  return window > 0 ? launch_wgmma<HD, false, true>(REPRO_WG_ARGS)
+                    : launch_wgmma<HD, false, false>(REPRO_WG_ARGS);
+#undef REPRO_WG_ARGS
+}
+
+using Launcher = int (*)(const void*, const void*, const void*, void*, int,
+                        int, int, int, float, int, int, cudaStream_t);
+
+// The instantiation a launch of the mma.sync or f32 kernel takes: the
+// window's tests only with a window.
+template <Launcher kPlain, Launcher kWindowed>
+int launch_windowed(const void* q, const void* k, const void* v, void* o,
+                    int B, int S, int H, int K, float scale, int causal,
+                    int window, cudaStream_t stream) {
+  return (window > 0 ? kWindowed : kPlain)(q, k, v, o, B, S, H, K, scale,
+                                           causal, window, stream);
 }
 
 }  // namespace
@@ -961,29 +1096,37 @@ const char* repro_cuda_error_string(int code) {
 }
 
 // q, o (B, S, H, hd); k, v (B, S, K, hd); contiguous, 16-byte aligned.
-// kernel: 0 f32 (CUDA cores), 1 bf16 mma.sync (hd 16, 32), 2 bf16 wgmma +
-// TMA (hd 64, 128).  Returns a cudaError_t (cudaErrorInvalidValue for a
-// kernel / hd pair outside those).
+// kernel: 0 f32 (CUDA cores; hd 16-256), 1 bf16 mma.sync (hd 16, 32), 2 bf16
+// wgmma + TMA (hd 64, 128, 256).  window 0: none; else key j is hidden from
+// query i when j <= i - window.  Returns a cudaError_t
+// (cudaErrorInvalidValue for a kernel / hd pair outside those, or a
+// negative window).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int B, int S, int H, int K, int hd,
-                           float scale, int causal, int kernel,
+                           float scale, int causal, int window, int kernel,
                            void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (window < 0) return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
-#define REPRO_FLASH_ARGS q, k, v, o, B, S, H, K, scale, causal, stream
+#define REPRO_FLASH_ARGS q, k, v, o, B, S, H, K, scale, causal, window, stream
   switch (kernel * 1000 + hd) {
-    case 16: return launch_f32<16>(REPRO_FLASH_ARGS);
-    case 32: return launch_f32<32>(REPRO_FLASH_ARGS);
-    case 64: return launch_f32<64>(REPRO_FLASH_ARGS);
-    case 128: return launch_f32<128>(REPRO_FLASH_ARGS);
-    case 1016: return launch_bf16<16>(REPRO_FLASH_ARGS);
-    case 1032: return launch_bf16<32>(REPRO_FLASH_ARGS);
-    case 2064:
-      return scale > 0.f ? launch_wgmma<64, true>(REPRO_FLASH_ARGS)
-                         : launch_wgmma<64, false>(REPRO_FLASH_ARGS);
-    case 2128:
-      return scale > 0.f ? launch_wgmma<128, true>(REPRO_FLASH_ARGS)
-                         : launch_wgmma<128, false>(REPRO_FLASH_ARGS);
+    case 16: return launch_windowed<launch_f32<16, false>,
+                                    launch_f32<16, true>>(REPRO_FLASH_ARGS);
+    case 32: return launch_windowed<launch_f32<32, false>,
+                                    launch_f32<32, true>>(REPRO_FLASH_ARGS);
+    case 64: return launch_windowed<launch_f32<64, false>,
+                                    launch_f32<64, true>>(REPRO_FLASH_ARGS);
+    case 128: return launch_windowed<launch_f32<128, false>,
+                                     launch_f32<128, true>>(REPRO_FLASH_ARGS);
+    case 256: return launch_windowed<launch_f32<256, false>,
+                                     launch_f32<256, true>>(REPRO_FLASH_ARGS);
+    case 1016: return launch_windowed<launch_bf16<16, false>,
+                                      launch_bf16<16, true>>(REPRO_FLASH_ARGS);
+    case 1032: return launch_windowed<launch_bf16<32, false>,
+                                      launch_bf16<32, true>>(REPRO_FLASH_ARGS);
+    case 2064: return launch_wgmma_any<64>(REPRO_FLASH_ARGS);
+    case 2128: return launch_wgmma_any<128>(REPRO_FLASH_ARGS);
+    case 2256: return launch_wgmma_any<256>(REPRO_FLASH_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef REPRO_FLASH_ARGS

@@ -5,10 +5,13 @@
 K/V) for CPU tensors and launches the CUDA kernel (csrc/flash_attention.cu)
 for CUDA tensors; anything else raises, and there is no fallback from kernel
 to plain.  Which CUDA kernel runs follows from dtype and head dim alone
-(`kernel_for`): bf16 at hd 64 and 128 (the models' widths) takes the
+(`kernel_for`): bf16 at hd 64, 128 and 256 (the models' widths) takes the
 wgmma + TMA kernel, bf16 at hd 16 and 32 the mma.sync kernel, float32 the
-CUDA-core kernel.  The kernel reads K/V at head h // (H / K) itself, so nothing is
-expanded on the card, and it masks keys at or past S.  Neither path pads:
+CUDA-core kernel.  `window` > 0 (causal only) is the reference model's
+sliding-window / local mask: key j is hidden from query i when
+j <= i - window; every kernel takes it.  The kernel reads K/V at head
+h // (H / K) itself, so nothing is expanded on the card, and it masks keys
+at or past S.  Neither path pads:
 a causal ragged S gives the padded reference's result as it stands, and
 only the reference's refusal of a non-causal S off its block multiple is
 kept, so a caller sees the reference's contract.  `launches` counts kernel
@@ -25,7 +28,7 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 
 BLOCK_Q = 128           # the reference kernel's blocks: they set which
 BLOCK_KV = 256          # non-causal S it refuses; the CUDA kernels tile
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 # the C launcher's kernel ids
 KERNELS = {"cuda_core_f32": 0, "mma_sync_bf16": 1, "wgmma_bf16": 2}
 
@@ -51,15 +54,16 @@ def _lib():
     fn = lib.flash_attention_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
+                       + [ctypes.c_float] + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
 
 def gqa_flash_attention(q, k, v, *, causal: bool = True,
-                        scale: float | None = None):
-    """q: (B, S, H, hd); k, v: (B, S, K, hd) with H % K == 0.
+                        scale: float | None = None, window: int = 0):
+    """q: (B, S, H, hd); k, v: (B, S, K, hd) with H % K == 0; `window` 0
+    (none) or > 0 with causal.
 
     Returns (B, S, H, hd) in q's dtype."""
     B, S, H, hd = q.shape
@@ -68,6 +72,9 @@ def gqa_flash_attention(q, k, v, *, causal: bool = True,
         raise ValueError(f"gqa_flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}: need k/v "
                          f"(B, S, K, hd) with H % K == 0")
+    if window < 0 or (window and not causal):
+        raise ValueError(f"gqa_flash_attention: window {window} needs to be 0"
+                         f", or > 0 with causal=True")
     scale = hd ** -0.5 if scale is None else scale
     bq, bkv = min(BLOCK_Q, S), min(BLOCK_KV, S)
     if not causal and S % max(bq, bkv):
@@ -83,7 +90,8 @@ def gqa_flash_attention(q, k, v, *, causal: bool = True,
             k = k.repeat_interleave(rep, dim=2)
             v = v.repeat_interleave(rep, dim=2)
         out = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), scale=scale, causal=causal)
+                            v.transpose(1, 2), scale=scale, causal=causal,
+                            window=window)
         return out.transpose(1, 2)
     if dev.type != "cuda":
         raise ValueError(f"gqa_flash_attention: unsupported device {dev}")
@@ -102,7 +110,7 @@ def gqa_flash_attention(q, k, v, *, causal: bool = True,
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H, K,
-        hd, float(scale), int(causal), KERNELS[kernel], stream)
+        hd, float(scale), int(causal), int(window), KERNELS[kernel], stream)
     build.check(lib, code, f"flash_attention ({kernel})")
     launches["flash_attention"] += 1
     kernel_launches[kernel] += 1

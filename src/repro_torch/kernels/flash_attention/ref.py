@@ -41,14 +41,29 @@ def compare(got, want) -> dict:
     return out
 
 
-def attention_ref(q, k, v, scale: float | None = None, causal: bool = True):
+def visible(sq: int, skv: int, window: int = 0, device=None):
+    """(sq, skv) bool: key j is visible to query i iff j <= i and, with a
+    window, j > i - window (the reference's `_mask`,
+    src/repro/models/attention.py:72-80)."""
+    qi = torch.arange(sq, device=device)[:, None]
+    ki = torch.arange(skv, device=device)[None, :]
+    m = ki <= qi
+    if window:
+        m &= ki > qi - window
+    return m
+
+
+def attention_ref(q, k, v, scale: float | None = None, causal: bool = True,
+                  window: int = 0):
     """q, k, v: (B, H, S, hd) -> (B, H, S, hd), float32 math, output in
-    q's dtype."""
+    q's dtype.  `window` > 0 (causal only) also hides key j from query i
+    when j <= i - window."""
     S, hd = q.shape[2], q.shape[3]
     scale = hd ** -0.5 if scale is None else scale
+    if window and not causal:
+        raise ValueError("attention_ref: a window needs causal=True")
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     if causal:
-        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
-        s = s.masked_fill(~mask, MASK_VALUE)
+        s = s.masked_fill(~visible(S, S, window, q.device), MASK_VALUE)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)

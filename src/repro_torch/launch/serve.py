@@ -2,9 +2,10 @@
 
     python -m repro_torch.launch.serve --arch mamba2-370m --smoke --requests 4
 
-Runs on the CUDA card unless `--device cpu` is given; without a card it
-raises rather than drop to the CPU.  Weights are drawn from `--seed` on the
-device (there is nothing to download).
+`--arch` takes every arch of `repro_torch.configs` (dense, sliding-window,
+MoE, Mamba2 and hybrid).  Runs on the CUDA card unless `--device cpu` is
+given; without a card it raises rather than drop to the CPU.  Weights are
+drawn from `--seed` on the device (there is nothing to download).
 """
 from __future__ import annotations
 
@@ -15,16 +16,16 @@ import numpy as np
 import torch
 
 
-def serve(arch: str, *, smoke: bool = False, requests: int = 4,
-          batch: int = 4, max_seq: int = 128, max_new: int = 16,
-          device: str = "cuda", seed: int = 0, params=None):
-    """Serve `requests` random prompts of 8 tokens to completion.  Returns
-    (requests, decode steps, wall seconds of the serving loop)."""
-    from repro_torch.configs import get_config
+def serve(cfg, *, requests: int = 4, batch: int = 4, max_seq: int = 128,
+          max_new: int = 16, device: str = "cuda", seed: int = 0,
+          params=None):
+    """Serve `requests` random prompts of 8 tokens to completion with the
+    model of `cfg` (a `ModelConfig`), on `params` or weights drawn from
+    `seed`.  Returns (requests, decode steps, wall seconds of the serving
+    loop)."""
     from repro_torch.models import build_model
     from repro_torch.train.serve_step import BatchServer, Request
 
-    cfg = get_config(arch, smoke=smoke)
     model = build_model(cfg, device)
     if params is None:
         params = model.init(seed)
@@ -60,9 +61,10 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
+    from repro_torch.configs import get_config
     with torch.inference_mode():
         reqs, steps, wall = serve(
-            args.arch, smoke=args.smoke, requests=args.requests,
+            get_config(args.arch, smoke=args.smoke), requests=args.requests,
             batch=args.batch, max_seq=args.max_seq, max_new=args.max_new,
             device=args.device, seed=args.seed)
     done = [r for r in reqs if r.done]

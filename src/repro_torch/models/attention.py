@@ -1,20 +1,22 @@
-"""Attention: GQA causal self-attention through the flash kernel, and
-single-token decode against a KV cache (port of `repro/models/attention.py`).
+"""Attention: GQA causal and sliding-window self-attention through the
+flash kernel, and single-token decode against a KV cache (port of
+`repro/models/attention.py`).
 
 Paths:
-  self_attention() kind 'causal' goes through
+  self_attention() kinds 'causal' and 'window' go through
                    `kernels.flash_attention.ops.gqa_flash_attention` with the
-                   un-expanded K/V (the CUDA kernel on the card, the plain
-                   dense version on the CPU) at every S.  The reference runs
-                   `attend` up to DENSE_MAX_S and `attend_chunked` above it.
+                   un-expanded K/V and `window=cfg.window` for 'window' (the
+                   CUDA kernel on the card, the plain dense version on the
+                   CPU) at every S.  The reference runs `attend` up to
+                   DENSE_MAX_S and `attend_chunked` above it.
   attend()         dense einsum with mask, and
-  attend_chunked() the online-softmax chunked loop: plain ports of the
-                   reference's own attention, kept to hold the flash path
-                   against it.
+  attend_chunked() the online-softmax chunked loop (for 'window', a KV span
+                   per query chunk): plain ports of the reference's own
+                   attention, kept to hold the flash path against it.
   decode_attend()  one new token vs the cache, plain torch (the reference
                    computes it outside any Pallas kernel).
-Kinds 'window' and 'bidir' and cross attention are not ported yet
-(ROADMAP.md, queue 1 item 11).
+Kind 'bidir' and cross attention (the encoder and the VLM's image layers)
+are not ported yet (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ DENSE_MAX_S = 2048
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"repro_torch: {what} is not ported yet; see "
-                               f"ROADMAP.md queue 1 item 11")
+                               f"ROADMAP.md queue 1")
 
 
 def init_attention(gen, d_model: int, cfg: AttnCfg) -> dict:
@@ -96,17 +98,19 @@ def attend(q, k, v, kind: str, window: int, scale: float, q_off=0):
 def attend_chunked(q, k, v, kind: str, window: int, scale: float):
     """Online-softmax chunked attention (flash-style, plain torch): outer
     loop over query chunks, inner loop over all KV chunks with causal
-    masking.  Supports Sq != Skv for 'bidir': KV is padded to a chunk
-    multiple and the padded positions are masked."""
-    if kind == "window":
-        raise _not_ported("windowed attention ('W'/'L' mixers)")
+    masking.  Windowed ('window'): per query chunk only the KV window's
+    span is read, so the work stays linear in S.  Supports Sq != Skv for
+    'bidir': KV is padded to a chunk multiple and the padded positions are
+    masked."""
     B, S, H, hd = q.shape
     S_kv = k.shape[1]
     if kind != "bidir" and S_kv != S:
-        raise ValueError("causal attention needs Sq == Skv")
+        raise ValueError("causal/windowed attention needs Sq == Skv")
     cq = min(CHUNK_Q, S)
     if S % cq:
         raise ValueError(f"attend_chunked: S={S} is not a multiple of {cq}")
+    if kind == "window" and window + cq < S:
+        return _attend_window_spans(q, k, v, window, scale, cq)
     ckv = CHUNK_KV if S_kv >= CHUNK_KV else S_kv
     pad_kv = (-S_kv) % ckv
     if pad_kv:
@@ -146,18 +150,45 @@ def attend_chunked(q, k, v, kind: str, window: int, scale: float):
     return torch.cat(outs, dim=1)
 
 
+def _attend_window_spans(q, k, v, window: int, scale: float, cq: int):
+    """The reference's windowed branch of `attend_chunked`: K/V padded in
+    front by the span, query chunk i against keys i*cq - span .. i*cq + cq,
+    dense masked softmax per chunk."""
+    B, S, H, hd = q.shape
+    kv_span = min((window + cq + CHUNK_KV - 1) // CHUNK_KV * CHUNK_KV, S)
+    kp = F.pad(k, (0, 0, 0, 0, kv_span, 0))
+    vp = F.pad(v, (0, 0, 0, 0, kv_span, 0))
+    qi = torch.arange(cq, device=q.device)[:, None]
+    kj = torch.arange(kv_span + cq, device=q.device)[None, :]
+    outs = []
+    for i in range(S // cq):
+        q_i = q[:, i * cq:(i + 1) * cq]
+        k_i = kp[:, i * cq:i * cq + kv_span + cq]
+        v_i = vp[:, i * cq:i * cq + kv_span + cq]
+        # positions of k_i run from i*cq - kv_span (pre-pad space)
+        qpos, kpos = i * cq + qi, i * cq - kv_span + kj
+        m = (kpos <= qpos) & (kpos > qpos - window) & (kpos >= 0)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q_i, k_i).float() * scale
+        logits = logits.masked_fill(~m[None, None], NEG_INF)
+        p = torch.softmax(logits, dim=-1).to(q.dtype)
+        outs.append(torch.einsum("bhqk,bkhd->bqhd", p, v_i))
+    return torch.cat(outs, dim=1)
+
+
 def self_attention(params, x, cfg: AttnCfg, kind: str, positions=None,
                    rope: bool = True):
-    """kind: 'causal' ('window' and 'bidir' are not ported). Returns
+    """kind: 'causal' | 'window' ('bidir' is not ported). Returns
     (B,S,D)."""
-    if kind != "causal":
+    if kind not in ("causal", "window"):
         raise _not_ported(f"self-attention of kind {kind!r}")
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)
     q, k, v = _qkv(params, x, cfg, positions, rope)
     scale = cfg.softmax_scale or cfg.head_dim ** -0.5
-    o = flash_ops.gqa_flash_attention(q, k, v, causal=True, scale=scale)
+    o = flash_ops.gqa_flash_attention(
+        q, k, v, causal=True, scale=scale,
+        window=cfg.window if kind == "window" else 0)
     return o.reshape(B, S, cfg.n_heads * cfg.head_dim) @ params["wo"]
 
 
@@ -169,8 +200,10 @@ def cross_attention(params, x, memory, cfg: AttnCfg):
 # Decode (single new token vs KV cache)
 # ---------------------------------------------------------------------------
 
-def decode_attend(params, x, cache_k, cache_v, position: int, cfg: AttnCfg):
-    """x: (B,1,D); cache_k/v: (B,S,K,hd) with valid entries < position.
+def decode_attend(params, x, cache_k, cache_v, position: int, cfg: AttnCfg,
+                  window: int = 0):
+    """x: (B,1,D); cache_k/v: (B,S,K,hd) with valid entries < position (and,
+    with a window, >= position - window).
     Returns (out (B,1,D), new_k (B,1,K,hd), new_v)."""
     B = x.shape[0]
     H, K, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
@@ -192,6 +225,8 @@ def decode_attend(params, x, cache_k, cache_v, position: int, cfg: AttnCfg):
     new_logit = torch.einsum("bokrd,bokd->bkro", qg, k_new).float() * scale
     ki = torch.arange(S, device=x.device)
     valid = ki[None, None, None, :] < position
+    if window:
+        valid &= ki[None, None, None, :] >= position - window
     logits = logits.masked_fill(~valid, NEG_INF)
     m = torch.maximum(logits.amax(dim=-1, keepdim=True), new_logit)
     p = torch.exp(logits - m)

@@ -4,7 +4,11 @@
 
 The reference stacks each pattern position's block parameters over the
 super-blocks (a leading n_super axis under params["decoder"]["supers"]);
-the port keeps one dict per super-block, so that axis is unstacked.  bf16
+the port keeps one dict per super-block, so that axis is unstacked; every
+leaf under it is cut the same way, the MoE block's float32 `router` and its
+(E, ...) stacks `w_gate`/`w_up`/`w_down` included (each super-block keeps
+its own (E, ...) stack), and the leading dense blocks (`first`, a list of
+unstacked blocks in both packages) carry across as they are.  bf16
 arrays arrive as `ml_dtypes.bfloat16`, which `torch.from_numpy` refuses:
 their bits go through int16 and are viewed as torch.bfloat16, so every
 weight is bit-equal to the reference's (no round trip through float32).

@@ -68,7 +68,7 @@ def apply_rope(x, positions, theta: float):
 def init_mlp(gen, d_model: int, d_ff: int, swiglu: bool = True) -> dict:
     if not swiglu:
         raise NotImplementedError("repro_torch: the GELU MLP (whisper) is not "
-                                  "ported yet; see ROADMAP.md queue 1 item 11")
+                                  "ported yet; see ROADMAP.md queue 1")
     s_in, s_out = d_model ** -0.5, d_ff ** -0.5
     return {"w_gate": _normal(gen, (d_model, d_ff), s_in),
             "w_up": _normal(gen, (d_model, d_ff), s_in),
@@ -78,7 +78,7 @@ def init_mlp(gen, d_model: int, d_ff: int, swiglu: bool = True) -> dict:
 def mlp(params, x, swiglu: bool = True):
     if not swiglu:
         raise NotImplementedError("repro_torch: the GELU MLP (whisper) is not "
-                                  "ported yet; see ROADMAP.md queue 1 item 11")
+                                  "ported yet; see ROADMAP.md queue 1")
     g = F.silu(x @ params["w_gate"])
     return ((g * (x @ params["w_up"])) @ params["w_down"]).to(x.dtype)
 

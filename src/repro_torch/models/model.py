@@ -6,10 +6,10 @@ build_model(cfg, device) -> Model with:
   logits(params, hidden)              -> (.., V_padded)
   decode_step(params, token, caches, position) -> (logits (B,1,V), caches)
   init_caches(batch, seq)             -> cache tree
-and count_params(cfg) beside it.
+and count_params(cfg, active_only) beside it.
 
 Batch layout: {"tokens": (B, S) int}.  Configs with an encoder or image
-memory are not ported yet (ROADMAP.md, queue 1 item 11), nor is the
+memory are not ported yet (ROADMAP.md, queue 1), nor is the
 reference's `input_specs` (a dry-run helper).  `device` is where init and
 init_caches allocate; it defaults to the card and does not drop to the CPU.
 """
@@ -40,7 +40,7 @@ def build_model(cfg: ModelConfig, device: str | torch.device = "cuda"
     if cfg.encoder is not None or cfg.n_img_tokens:
         raise NotImplementedError(
             f"repro_torch: {cfg.name} needs the encoder / image-memory "
-            f"branch, which is not ported yet; see ROADMAP.md queue 1 item 11")
+            f"branch, which is not ported yet; see ROADMAP.md queue 1")
     for mx, ff in cfg.pattern:
         transformer.check_ported(mx, ff)
     dev = resolve_device(device)
@@ -87,7 +87,8 @@ def build_model(cfg: ModelConfig, device: str | torch.device = "cuda"
 # Parameter accounting (analytic, as the reference's)
 # ---------------------------------------------------------------------------
 
-def _block_params(cfg: ModelConfig, mixer: str, ffn: str) -> int:
+def _block_params(cfg: ModelConfig, mixer: str, ffn: str,
+                  active_only: bool = False) -> int:
     D = cfg.d_model
     n = 2 * D                       # ln1 + ln2-ish
     if mixer == "M":
@@ -99,18 +100,27 @@ def _block_params(cfg: ModelConfig, mixer: str, ffn: str) -> int:
     else:
         a = cfg.attn
         n += D * a.n_heads * a.head_dim * 2 + D * a.n_kv * a.head_dim * 2
+    mult = 3 if cfg.swiglu else 2
     if ffn == "D":
-        n += (3 if cfg.swiglu else 2) * D * cfg.d_ff
+        n += mult * D * cfg.d_ff
+    elif ffn == "E":
+        m = cfg.moe
+        per_expert = mult * D * m.d_expert
+        routed = (m.top_k if active_only else m.n_routed) * per_expert
+        n += routed + m.n_shared * per_expert + D * m.n_routed
     return n
 
 
-def count_params(cfg: ModelConfig) -> int:
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Parameters of the model; `active_only`: those one token meets (the
+    top-k routed experts of each MoE block, not all of them)."""
     for mx, ff in cfg.pattern:
         transformer.check_ported(mx, ff)
     n = cfg.padded_vocab * cfg.d_model          # embedding
     if not cfg.tie_embeddings:
         n += cfg.padded_vocab * cfg.d_model     # head
-    n += cfg.first_k_dense * _block_params(cfg, cfg.pattern[0][0], "D")
+    n += cfg.first_k_dense * _block_params(cfg, cfg.pattern[0][0], "D",
+                                           active_only)
     for mx, ff in cfg.pattern:
-        n += cfg.n_super * _block_params(cfg, mx, ff)
+        n += cfg.n_super * _block_params(cfg, mx, ff, active_only)
     return n

@@ -160,3 +160,61 @@ def test_bf16_bars_fail_a_dropped_kv_tile(drop):
     cmp = compare(_bf16_kernel_emulation(q, k, v, drop),
                   attention_ref(q, k, v, causal=True))
     assert not cmp["ok"], cmp
+
+
+# ---------------------------------------------------------------------------
+# the causal window (the 'W'/'L' mixers) and head dim 256 (gemma3)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("hd", [16, 64, 256])
+@pytest.mark.parametrize("S,window", [(64, 1), (64, 24), (64, 200),
+                                      (2560, 32), (2560, 1024)])
+def test_attention_ref_window_matches_reference(S, window, hd):
+    """attention_ref with a window against the reference's `attend` (S 64)
+    and `attend_chunked` (S 2560: its per-query-chunk KV-span branch), f32
+    within 2e-5; and the wrapper's CPU path on un-expanded GQA K/V."""
+    B, H, K = 1, 2, 1
+    (jq, jk, jv), (q, k, v) = _inputs(S + window + hd, [(B, S, H, hd),
+                                                        (B, S, K, hd),
+                                                        (B, S, K, hd)], "f32")
+    jk, jv = jax_expand_kv(jk, H), jax_expand_kv(jv, H)
+    scale = hd ** -0.5
+    ref = jax_attend if S <= 2048 else jax_attend_chunked
+    want = np.asarray(ref(jq, jk, jv, "window", window, scale))
+    kk, vv = _expand_kv(k, H), _expand_kv(v, H)
+    got = attention_ref(q.transpose(1, 2), kk.transpose(1, 2),
+                        vv.transpose(1, 2), window=window).transpose(1, 2)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+    ops.reset_launches()
+    flash = ops.gqa_flash_attention(q, k, v, causal=True, window=window)
+    assert ops.launches["flash_attention"] == 0
+    np.testing.assert_allclose(flash.numpy(), want, rtol=2e-5, atol=2e-5)
+    if S > 2048:    # the port's own chunked loop takes the same branch
+        np.testing.assert_allclose(
+            attend_chunked(q, kk, vv, "window", window, scale).numpy(), want,
+            rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("S", [128, 384])
+def test_gqa_flash_attention_hd256_matches_pallas_kernel(S, dtype):
+    """Head dim 256, causal: the reference's Pallas kernel in interpret mode
+    (as tests/test_kernels.py runs it) against the port's wrapper."""
+    B, H, K, hd = 1, 4, 2, 256
+    (jq, jk, jv), (q, k, v) = _inputs(S + hd, [(B, S, H, hd), (B, S, K, hd),
+                                               (B, S, K, hd)], dtype)
+    tol = DTYPES[dtype][3]
+    got = ops.gqa_flash_attention(q, k, v, causal=True)
+    want = jax_flash(jq, jk, jv, causal=True, interpret=True)
+    assert got.shape == q.shape and got.dtype == q.dtype
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+def test_window_argument_is_checked():
+    q = torch.zeros((1, 64, 2, 16))
+    for kw in (dict(window=-1), dict(window=8, causal=False)):
+        with pytest.raises(ValueError, match="window"):
+            ops.gqa_flash_attention(q, q, q, **kw)
+    assert ops.HEAD_DIMS == (16, 32, 64, 128, 256)
+    assert ops.kernel_for(torch.bfloat16, 256) == "wgmma_bf16"
+    assert ops.kernel_for(torch.float32, 256) == "cuda_core_f32"

@@ -533,6 +533,75 @@ def test_flash_attention_many_query_tiles_ragged_tail(cuda):
         assert cmp["ok"], (S, cmp, BARS[torch.bfloat16])
 
 
+def _flash_plain(q, k, v, window=0, causal=True):
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    rep = q.shape[2] // k.shape[2]
+    kk, vv = (t.repeat_interleave(rep, dim=2) for t in (k, v))
+    return attention_ref(q.transpose(1, 2), kk.transpose(1, 2),
+                         vv.transpose(1, 2), causal=causal,
+                         window=window).transpose(1, 2)
+
+
+@pytest.mark.parametrize("dtype,hd,kernel", [
+    (torch.bfloat16, 16, "mma_sync_bf16"), (torch.bfloat16, 32,
+                                            "mma_sync_bf16"),
+    (torch.bfloat16, 64, "wgmma_bf16"), (torch.bfloat16, 128, "wgmma_bf16"),
+    (torch.bfloat16, 256, "wgmma_bf16"), (torch.float32, 32, "cuda_core_f32"),
+    (torch.float32, 256, "cuda_core_f32")])
+@pytest.mark.parametrize("S,window", [(300, 1), (300, 64), (700, 100),
+                                      (1000, 256), (1000, 2000), (520, 128)])
+def test_flash_attention_window_each_kernel(cuda, dtype, hd, kernel, S,
+                                            window):
+    """Every kernel with a causal window, against the plain version's mask
+    (key j visible to query i iff i - window < j <= i): windows narrower
+    than a key tile, not a multiple of one, wider than S; ragged S."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import BARS, compare
+    assert ops.kernel_for(dtype, hd) == kernel
+    gen = torch.Generator(device=cuda).manual_seed(S + window + hd)
+    q, k, v = (torch.randn((2, S, n, hd), generator=gen,
+                           device=cuda).to(dtype) for n in (4, 2, 2))
+    before = dict(ops.kernel_launches)
+    got = ops.gqa_flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert {n: c - before[n] for n, c in ops.kernel_launches.items()} == {
+        n: int(n == kernel) for n in ops.KERNELS}
+    cmp = compare(got, _flash_plain(q, k, v, window))
+    assert cmp["ok"], (cmp, BARS[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("S,causal", [(128, True), (384, True), (1000, True),
+                                      (2176, True), (256, False),
+                                      (512, False)])
+def test_flash_attention_hd256(cuda, S, causal, dtype):
+    """hd 256 (gemma3's width): the wgmma kernel with 64-key tiles (bf16)
+    and the CUDA-core kernel (f32), GQA ratio 2, unit-variance inputs."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import BARS, compare
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    q, k, v = (torch.randn((1, S, n, 256), generator=gen,
+                           device=cuda).to(dtype) for n in (4, 2, 2))
+    got = ops.gqa_flash_attention(q, k, v, causal=causal)
+    cmp = compare(got, _flash_plain(q, k, v, causal=causal))
+    assert cmp["ok"], (cmp, BARS[dtype])
+
+
+@pytest.mark.parametrize("hd", [128, 256])
+def test_flash_attention_gqa_ratio_one_windowed(cuda, hd):
+    """H = K (deepseek-moe-16b's 16/16 heads), with and without a window."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import BARS, compare
+    gen = torch.Generator(device=cuda).manual_seed(hd)
+    q, k, v = (torch.randn((2, 640, 4, hd), generator=gen,
+                           device=cuda).bfloat16() for _ in range(3))
+    for window in (0, 200):
+        got = ops.gqa_flash_attention(q, k, v, causal=True, window=window)
+        cmp = compare(got, _flash_plain(q, k, v, window))
+        assert cmp["ok"], (window, cmp, BARS[torch.bfloat16])
+
+
 @pytest.mark.parametrize("carry", [False, True])
 def test_ssd_scan_main_shape(cuda, carry):
     """mamba2-370m's SSD shape (L 4096, H 32, P 64, N 128, chunk 256), once
@@ -794,3 +863,73 @@ def test_agent_staging_batch_on_card_equals_per_cell_stack(cuda):
     for (k, x), (_, y) in zip(leaf_paths(agent_mod.export_agents(got)),
                               leaf_paths(agent_mod.export_agents(want))):
         assert x.dtype == y.dtype and np.array_equal(x, y), k
+
+
+# ---------------------------------------------------------------------------
+# the later model families: one full-width layer of each, card against CPU
+# (the zoo's bf16 bar: rtol 2e-2, atol 2e-2 x max |CPU|; MoE layers on the
+# CPU run's routes, repro_torch.testing.RouteReplay, the card's own top-k
+# agreeing on MIN_ROUTE_AGREEMENT of the tokens), and the MoE layer's
+# repeat run
+# ---------------------------------------------------------------------------
+
+FAMILY_LAYERS = [("gemma3-12b", ("L", "D")), ("gemma3-12b", ("G", "D")),
+                 ("deepseek-moe-16b", ("A", "E")), ("qwen3-32b", ("A", "D")),
+                 ("phi3-medium-14b", ("A", "D")),
+                 ("mixtral-8x22b", ("W", "E")),
+                 ("jamba-1.5-large-398b", ("A", "E"))]
+
+
+@pytest.mark.parametrize("arch,block", FAMILY_LAYERS,
+                         ids=[f"{a}-{''.join(b)}" for a, b in FAMILY_LAYERS])
+def test_full_width_layer_card_matches_cpu(cuda, arch, block):
+    import dataclasses
+    from repro_torch.testing import RouteReplay, hold_bf16, tree_to
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config(arch), n_layers=1, pattern=(block,),
+                              first_k_dense=0)
+    card, cpu = build_model(cfg, cuda), build_model(cfg, "cpu")
+    params = card.init(4)
+    toks = torch.randint(1, cfg.vocab, (1, 128),
+                         generator=torch.Generator().manual_seed(4))
+    routes = RouteReplay()
+    with torch.inference_mode():
+        with routes.record():
+            want = cpu.apply(tree_to(params, "cpu"), {"tokens": toks})[0]
+        before = ops.kernel_launches["wgmma_bf16"]
+        with routes.replay():
+            got = card.apply(params, {"tokens": toks.to(cuda)})[0]
+        torch.cuda.synchronize()
+    assert ops.kernel_launches["wgmma_bf16"] == before + 1
+    hold_bf16(got, want, f"{arch} {block}")
+    routes.check(f"{arch} {block}")
+    assert routes.seen == (128 if cfg.moe is not None else 0)
+
+
+def test_moe_layer_repeat_runs_equal_on_card(cuda):
+    """deepseek-moe-16b's MoE layer at full width (E 64, top 6, 2 shared),
+    T 4096 and T 4 (a decode step at batch 4): two runs torch.equal, the
+    combine gathering each token's slots in a fixed order."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.testing import RouteReplay
+    cfg = get_config("deepseek-moe-16b")
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    params = moe.init_moe(gen, cfg.d_model, cfg.moe)
+    for T in (4096, 4):
+        x = torch.randn((1, T, cfg.d_model), generator=gen,
+                        device=cuda).bfloat16()
+        (y0, a0), (y1, a1) = (moe.moe_ffn(params, x, cfg.moe)
+                              for _ in range(2))
+        assert torch.equal(y0, y1) and torch.isfinite(y0.float()).all()
+        assert all(torch.equal(a0[k], a1[k]) for k in a0)
+        routes = RouteReplay()
+        with routes.record():
+            moe.route({k: v.cpu() for k, v in params.items()},
+                      x.reshape(T, -1).cpu(), cfg.moe)
+        with routes.replay():
+            moe.route(params, x.reshape(T, -1), cfg.moe)
+        routes.check(f"deepseek-moe-16b MoE layer T {T}, card vs CPU")
+        assert routes.seen == T

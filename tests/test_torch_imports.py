@@ -18,7 +18,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / n for n in ("chip_smoke.py", "same_call_baseline.py",
-                       "episode_in_turns.py", "grid_in_turns.py")]
+                       "episode_in_turns.py", "grid_in_turns.py",
+                       "flash_in_turns.py")]
 OPS_FILES = sorted(PORT.rglob("ops.py"))
 
 
@@ -52,7 +53,11 @@ def test_port_has_files_to_scan():
                  "nmp/scenarios.py", "nmp/plan.py", "nmp/partition.py",
                  "nmp/sweep.py", "configs/aimm_nmp.py",
                  "nmp/continual.py", "nmp/serving.py", "nmp/faults.py",
-                 "train/checkpoint.py", "core/tree.py"):
+                 "train/checkpoint.py", "core/tree.py", "models/moe.py",
+                 "configs/gemma3_12b.py", "configs/deepseek_moe_16b.py",
+                 "configs/qwen3_32b.py", "configs/phi3_medium_14b.py",
+                 "configs/mixtral_8x22b.py",
+                 "configs/jamba_1_5_large_398b.py", "testing.py"):
         assert want in names
     assert (ROOT / "chip_smoke.py").exists()
     assert {p.name for p in (PORT / "csrc").glob("*.cu")} == {

@@ -191,17 +191,38 @@ def test_serve_smoke_cpu_completes_every_request(arch, capsys):
 
 
 def test_device_policy_and_unported_parts_raise():
+    """The device policy, and what stays unported raising with a pointer to
+    ROADMAP.md: whisper's config and model (the encoder, cross-attention and
+    the GELU MLP), kinds 'bidir' and cross attention, and the MoE FFN
+    without SwiGLU."""
+    import dataclasses
+
+    from repro.configs import get_config as jax_cfg
+    from repro_torch.configs.base import EncoderCfg, MoECfg
+    from repro_torch.models import moe
     cfg = get_config("minitron-8b", smoke=True)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             build_model(cfg)
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("mixtral-8x22b")
+        get_config("whisper-large-v3")
+    w = jax_cfg("whisper-large-v3", smoke=True)
+    whisper = dataclasses.replace(
+        cfg, name=w.name, family=w.family, pattern=w.pattern,
+        swiglu=w.swiglu, encoder=EncoderCfg(**dataclasses.asdict(w.encoder)))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(whisper, device="cpu")
     x = torch.zeros((1, 8, cfg.d_model), dtype=torch.bfloat16)
     m = build_model(cfg, device="cpu")
     blk = m.init(0)["decoder"]["supers"][0]["0"]["mixer"]
-    for kind in ("window", "bidir"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            attention.self_attention(blk, x, cfg.attn, kind)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        attention.self_attention(blk, x, cfg.attn, "bidir")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         attention.cross_attention(blk, x, x, cfg.attn)
+    mcfg = MoECfg(n_routed=4, top_k=2, d_expert=16)
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        moe.init_moe(gen, cfg.d_model, mcfg, swiglu=False)
+    params = moe.init_moe(gen, cfg.d_model, mcfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        moe.moe_ffn(params, x, mcfg, swiglu=False)
