@@ -88,7 +88,12 @@ Phases (each prints its lines; the run exits 0 only if every phase passes):
     mixtral-8x22b's sliding-window layer (H 48, K 8, hd 128, window 4096)
     at S 8192, each within BARS,
     beside its bound (4 H hd x the visible query-key pairs) and one SDPA
-    call (flash backend; a boolean band mask for a window); the SSD scan at
+    call (flash backend; a boolean band mask for a window); non-causal with
+    a key length of its own (ZOO_KV_SHAPES): whisper-large-v3's encoder (S
+    1500, H = K = 20, hd 64) and cross attention (448 x 1500), and
+    llama-3.2-vision-11b's cross attention (4096 x 1601, H 32, K 8, hd
+    128) in bf16, and whisper's cross shape again on the f32 and (hd 32)
+    mma.sync kernels, each within BARS beside its bound and SDPA; the SSD scan at
     mamba2-370m's (H 32, P 64, N 128, chunk 256) within 1e-4, once with
     fast decay and once with the state carried across chunks; graph-timed,
     with SDPA timed beside flash as the library yardstick, and the SSD's
@@ -97,26 +102,35 @@ Phases (each prints its lines; the run exits 0 only if every phase passes):
     (kernels) against the port's CPU path, depth cut to one super-block
     (minitron-8b, mamba2-370m, qwen3-32b, phi3-medium-14b, mixtral-8x22b:
     2 layers; gemma3-12b: 6; deepseek-moe-16b: its dense first layer and
-    one MoE layer), MoE layers on the CPU run's routes
+    one MoE layer; llama-3.2-vision-11b: one 'C' and four 'A' layers over
+    1601 image tokens; whisper-large-v3: 2 encoder and 2 decoder layers,
+    1500 frames and 448 tokens), MoE layers on the CPU run's routes
     (`repro_torch.testing.RouteReplay`; the card's own top-k must agree on
     MIN_ROUTE_AGREEMENT of the tokens);
-    the smoke gemma3-12b and mixtral-8x22b through 48 teacher-forced
-    decode steps on both (past their window of 32, so the card's ring
-    buffers wrap); deepseek-moe-16b's MoE layer at full width twice on the
-    card, torch.equal.
+    the smoke gemma3-12b, mixtral-8x22b, whisper-large-v3 and
+    llama-3.2-vision-11b through 48 teacher-forced decode steps on both
+    (the windowed ones past their window of 32, so the card's ring
+    buffers wrap; the others on their zero cross caches);
+    deepseek-moe-16b's MoE layer at full width twice on the card,
+    torch.equal.
  8. the model zoo's main path (ZOO_RUNS) at full width, random weights
     from a seed: prefill forward (`apply` + `logits`, B 1, S 4096) of
-    minitron-8b, mamba2-370m, gemma3-12b, deepseek-moe-16b, qwen3-32b and
-    phi3-medium-14b at full depth, and of mixtral-8x22b with its depth cut
-    to 2 layers at S 8192 (the phase's `reduced` line), one flash launch
-    per attention layer and one SSD launch per Mamba layer per forward,
+    minitron-8b, mamba2-370m, gemma3-12b, deepseek-moe-16b, qwen3-32b,
+    phi3-medium-14b and llama-3.2-vision-11b (over 1601 random image
+    embeddings) at full depth, whisper-large-v3 at full depth (32 + 32
+    layers) over 1500 random encoder frames and 448 tokens, and
+    mixtral-8x22b with its depth cut to 2 layers at S 8192 (the phase's
+    `reduced` line), one flash launch per attention layer (two per 'C'
+    layer, one per encoder layer) and one SSD launch per Mamba layer per
+    forward,
     then the serving loop of `launch/serve.py` for each (4 requests,
     batch 4), with the zoo kernels' counts set to 0 just before and read
     just after.
  9. profile: torch.profiler over one warm prefill forward and one serving
-    loop of each arch (busy share, top kernels by device time).
-10. a JSON line with every kernel's numbers, then the result line
-    {"ok": true, "device": {...}}.
+    loop of minitron-8b, mamba2-370m, whisper-large-v3 and
+    llama-3.2-vision-11b (busy share, top kernels by device time).
+10. each phase's wall seconds (`[time]`), a JSON line with every
+    kernel's numbers, then the result line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA card it
 exits non-zero before printing any result.
@@ -943,16 +957,40 @@ def ssd_inputs(dev, carry: bool, seed: int = 0):
 
 # mixtral-8x22b's prefill length: S 8192, so that its window of 4096 bites
 MIXTRAL_SEQ = 8192
-# The flash shapes of the later archs' main path (bf16, B 1): gemma3-12b's
-# global and local layers (hd 256, window 1024), deepseek-moe-16b's (GQA
-# ratio 1), qwen3-32b's and phi3-medium-14b's at S 4096, and mixtral-8x22b's
-# sliding-window layer at S 8192 (window 4096).
+# whisper-large-v3's published 30 s window (1500 encoder frames) and decoder
+# length (448 tokens)
+WHISPER_FRAMES = 1500
+WHISPER_TOKENS = 448
+# The causal flash shapes of the later archs' main path (bf16, B 1):
+# gemma3-12b's global and local layers (hd 256, window 1024),
+# deepseek-moe-16b's (GQA ratio 1), qwen3-32b's and phi3-medium-14b's at
+# S 4096, mixtral-8x22b's sliding-window layer at S 8192 (window 4096), and
+# whisper-large-v3's decoder self-attention (S 448, hd 64).
 ZOO_FLASH_SHAPES = (("gemma3-12b global", "gemma3-12b", ZOO_SEQ, False),
                     ("gemma3-12b local", "gemma3-12b", ZOO_SEQ, True),
                     ("deepseek-moe-16b", "deepseek-moe-16b", ZOO_SEQ, False),
                     ("qwen3-32b", "qwen3-32b", ZOO_SEQ, False),
                     ("phi3-medium-14b", "phi3-medium-14b", ZOO_SEQ, False),
-                    ("mixtral-8x22b W", "mixtral-8x22b", MIXTRAL_SEQ, True))
+                    ("mixtral-8x22b W", "mixtral-8x22b", MIXTRAL_SEQ, True),
+                    ("whisper-large-v3 decoder", "whisper-large-v3",
+                     WHISPER_TOKENS, False))
+# Non-causal flash with its own key length (label, arch, S, S_kv, dtype, hd
+# or None for the arch's): whisper's encoder (bidirectional, S 1500) and
+# cross attention (448 x 1500), llama-3.2-vision-11b's cross attention (4096
+# text tokens x 1601 image tokens), bf16; then the same mode on the other
+# two CUDA kernels (f32 on CUDA cores, and bf16 at hd 32 through mma.sync)
+# at whisper's cross shape.
+ZOO_KV_SHAPES = (
+    ("whisper-large-v3 encoder", "whisper-large-v3", WHISPER_FRAMES,
+     WHISPER_FRAMES, "bf16", None),
+    ("whisper-large-v3 cross", "whisper-large-v3", WHISPER_TOKENS,
+     WHISPER_FRAMES, "bf16", None),
+    ("llama-3.2-vision-11b cross", "llama-3.2-vision-11b", ZOO_SEQ, 1601,
+     "bf16", None),
+    ("whisper-large-v3 cross f32", "whisper-large-v3", WHISPER_TOKENS,
+     WHISPER_FRAMES, "f32", None),
+    ("whisper-large-v3 cross hd 32", "whisper-large-v3", WHISPER_TOKENS,
+     WHISPER_FRAMES, "bf16", 32))
 
 
 def visible_pairs(S: int, window: int) -> int:
@@ -978,9 +1016,10 @@ def event_ms(fn, reps: int = 3) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def flash_plain(q, k, v, window: int = 0):
-    """attention_ref on (B, S, H | K, hd) q/k/v, one KV head's query heads
-    at a time, so the f32 scores of S 8192 stay a few GB."""
+def flash_plain(q, k, v, window: int = 0, causal: bool = True):
+    """attention_ref on (B, S, H, hd) q and (B, S_kv, K, hd) k/v, one KV
+    head's query heads at a time, so the f32 scores of S 8192 stay a few
+    GB."""
     import torch
     from repro_torch.kernels.flash_attention.ref import attention_ref
     H, K = q.shape[2], k.shape[2]
@@ -989,17 +1028,21 @@ def flash_plain(q, k, v, window: int = 0):
         q[:, :, j * rep:(j + 1) * rep].transpose(1, 2),
         k[:, :, j:j + 1].expand(-1, -1, rep, -1).transpose(1, 2),
         v[:, :, j:j + 1].expand(-1, -1, rep, -1).transpose(1, 2),
-        window=window).transpose(1, 2) for j in range(K)]
+        window=window, causal=causal).transpose(1, 2) for j in range(K)]
     return torch.cat(outs, dim=2)
 
 
-def zoo_flash_shape(dev, label: str, arch: str, S: int, windowed: bool
-                    ) -> dict:
-    """One later arch's flash shape in bf16: the kernel against the plain
-    version within BARS, graph-timed, beside its bound (4 H hd x the
-    visible query-key pairs at the bf16 tensor-core rate, or q/k/v/o bytes
-    over HBM) and one SDPA call for the same function (the flash backend
-    for the causal shape; a boolean band attn_mask for a window)."""
+def zoo_flash_shape(dev, label: str, arch: str, S: int,
+                    windowed: bool = False, S_kv: int | None = None,
+                    dtype: str = "bf16", hd: int | None = None) -> dict:
+    """One later arch's flash shape: the kernel against the plain version
+    within BARS, graph-timed, beside its bound (4 H hd x the visible
+    query-key pairs at the tensor-core rate of bf16, or the f32 CUDA-core
+    rate, or q/k/v/o bytes over HBM) and one SDPA call for the same
+    function (the flash backend for bf16 without a mask; a boolean band
+    attn_mask for a window; the default backend for f32).  Causal, unless
+    `S_kv` is given: then non-causal with keys of that length (the
+    encoder's and cross attention)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -1007,43 +1050,53 @@ def zoo_flash_shape(dev, label: str, arch: str, S: int, windowed: bool
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import BARS, compare, visible
     a = get_config(arch).attn
-    H, K, hd = a.n_heads, a.n_kv, a.head_dim
+    H, K, hd = a.n_heads, a.n_kv, hd or a.head_dim
     window = a.window if windowed else 0
+    causal = S_kv is None
+    S_kv = S if causal else S_kv
+    tdt = {"bf16": torch.bfloat16, "f32": torch.float32}[dtype]
     gen = torch.Generator(device=dev)
-    gen.manual_seed(S + hd + window)
-    q, k, v = (torch.randn((1, S, n, hd), generator=gen,
-                           device=dev).bfloat16() for n in (H, K, K))
+    gen.manual_seed(S + S_kv + hd + window)
+    q, k, v = (torch.randn((1, n_s, n, hd), generator=gen, device=dev).to(tdt)
+               for n_s, n in ((S, H), (S_kv, K), (S_kv, K)))
     kernel = fops.kernel_for(q.dtype, hd)
+    run = lambda: fops.gqa_flash_attention_kv(q, k, v, causal=causal,
+                                              window=window)
     before = fops.kernel_launches[kernel]
-    got = fops.gqa_flash_attention(q, k, v, causal=True, window=window)
-    want = flash_plain(q, k, v, window)
+    got = run()
+    want = flash_plain(q, k, v, window, causal)
     torch.cuda.synchronize()
     cmp = compare(got, want)
     if fops.kernel_launches[kernel] != before + 1 or not cmp["ok"]:
         raise AssertionError(f"flash_attention {label} ({kernel}): {cmp}, "
-                             f"bars {BARS[torch.bfloat16]}, launches "
+                             f"bars {BARS[tdt]}, launches "
                              f"{fops.kernel_launches}")
     del want
-    k_ms = graph_ms(lambda: fops.gqa_flash_attention(
-        q, k, v, causal=True, window=window), 20)
-    p_ms = event_ms(lambda: flash_plain(q, k, v, window), 2)
+    k_ms = graph_ms(run, 20)
+    p_ms = event_ms(lambda: flash_plain(q, k, v, window, causal), 2)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     if window:
         band = visible(S, S, window, dev)
         lib_ms = event_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=band, enable_gqa=True), 5)
         lib = "SDPA, boolean band attn_mask"
-    else:
+    elif dtype == "bf16":
         with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
             lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+                qt, kt, vt, is_causal=causal, enable_gqa=True), 20)
         lib = "SDPA, flash backend"
-    pairs = H * visible_pairs(S, window)
+    else:
+        lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True), 20)
+        lib = "SDPA, default backend"
+    pairs = H * (visible_pairs(S, window) if causal else S * S_kv)
     flops = 4 * hd * pairs
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
-    b_ms, b_by = bound(nbytes, flops, BF16_OPS_PER_S)
-    log(f"[zoo-kernels] flash_attention bf16 ({kernel}) {label}: B=1 S={S} "
-        f"H={H} K={K} hd={hd} window={window}: max abs err "
+    b_ms, b_by = bound(nbytes, flops, BF16_OPS_PER_S if dtype == "bf16"
+                       else F32_OPS_PER_S)
+    log(f"[zoo-kernels] flash_attention {dtype} ({kernel}) {label}: B=1 "
+        f"S={S} S_kv={S_kv} H={H} K={K} hd={hd} "
+        f"{'causal' if causal else 'non-causal'} window={window}: max abs err "
         f"{cmp['max_abs_err']:.3g}, relative L2 {cmp['rel_l2']:.3g}, worst "
         f"row {cmp['row_rel_l2']:.3g}; kernel {k_ms:.4f} ms/launch (graph), "
         f"plain {p_ms:.4f} ms, {lib} {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
@@ -1051,7 +1104,8 @@ def zoo_flash_shape(dev, label: str, arch: str, S: int, windowed: bool
         f"{flops / k_ms / 1e9:.1f} TFLOP/s)")
     del q, k, v, got
     torch.cuda.empty_cache()
-    return dict(label=label, S=S, H=H, K=K, hd=hd, window=window,
+    return dict(label=label, S=S, S_kv=S_kv, H=H, K=K, hd=hd, dtype=dtype,
+                causal=causal, window=window,
                 kernel=kernel, max_abs_err=cmp["max_abs_err"], ms=k_ms,
                 plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib_ms, library=lib)
@@ -1139,8 +1193,11 @@ def phase_zoo_kernels(dev) -> list[dict]:
         f"{cmp['rel_l2']:.3g}, worst row {cmp['row_rel_l2']:.3g}; kernel "
         f"{m_ms:.4f} ms/launch (graph)")
     del a32, got
-    frec["shapes"] = [zoo_flash_shape(dev, *shape) for shape in
-                      ZOO_FLASH_SHAPES]
+    frec["shapes"] = ([zoo_flash_shape(dev, *shape) for shape in
+                       ZOO_FLASH_SHAPES]
+                      + [zoo_flash_shape(dev, label, arch, S, S_kv=S_kv,
+                                         dtype=dt, hd=hd)
+                         for label, arch, S, S_kv, dt, hd in ZOO_KV_SHAPES])
     results.append(dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu",
@@ -1195,15 +1252,20 @@ def phase_zoo_kernels(dev) -> list[dict]:
     return results
 
 
-ZOO_ARCHS = ("minitron-8b", "mamba2-370m")
+ZOO_ARCHS = ("minitron-8b", "mamba2-370m", "whisper-large-v3",
+             "llama-3.2-vision-11b")
 # The zoo's main path: (arch, layers or None for the published depth,
 # prefill S).  mixtral-8x22b (141 B parameters, ~282 GB of bf16 weights)
 # runs at full width with its depth cut to 2 layers, at S 8192 so that
-# its window of 4096 bites; every other arch at full width and depth.
+# its window of 4096 bites; every other arch at full width and depth,
+# whisper-large-v3 at its decoder length of 448 tokens over 1500 encoder
+# frames, llama-3.2-vision-11b's S 4096 over its 1601 image tokens.
 ZOO_RUNS = (("minitron-8b", None, ZOO_SEQ), ("mamba2-370m", None, ZOO_SEQ),
             ("gemma3-12b", None, ZOO_SEQ), ("deepseek-moe-16b", None, ZOO_SEQ),
             ("qwen3-32b", None, ZOO_SEQ), ("phi3-medium-14b", None, ZOO_SEQ),
-            ("mixtral-8x22b", 2, MIXTRAL_SEQ))
+            ("mixtral-8x22b", 2, MIXTRAL_SEQ),
+            ("whisper-large-v3", None, WHISPER_TOKENS),
+            ("llama-3.2-vision-11b", None, ZOO_SEQ))
 
 
 def zoo_launches() -> dict[str, int]:
@@ -1232,21 +1294,48 @@ def zoo_tokens(dev, cfg, seq: int, seed: int = 0):
                          device=dev)
 
 
+def zoo_batch(dev, cfg, seq: int, seed: int = 0) -> dict:
+    """The prefill batch of `cfg` on `dev`: tokens (B, seq), plus the
+    stubbed frontend's output in bf16 from the seed: whisper's enc_frames
+    (B, 1500, D), llama-vision's img_embed (B, n_img_tokens, D)."""
+    import torch
+    batch = {"tokens": zoo_tokens(dev, cfg, seq, seed)}
+    n_mem = (WHISPER_FRAMES if cfg.encoder is not None else
+             cfg.n_img_tokens)
+    if n_mem:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + 1)
+        key = "enc_frames" if cfg.encoder is not None else "img_embed"
+        batch[key] = torch.randn((ZOO_BATCH, n_mem, cfg.d_model),
+                                 generator=gen, device=dev).bfloat16()
+    return batch
+
+
 def zoo_config(arch: str, layers: int | None):
+    """`arch` at full width, its depth cut to `layers` if given (an
+    encoder's too)."""
     import dataclasses
     from repro_torch.configs import get_config
     cfg = get_config(arch)
-    return cfg if layers is None else dataclasses.replace(cfg,
-                                                          n_layers=layers)
+    if layers is None:
+        return cfg
+    if cfg.encoder is not None:
+        cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+            cfg.encoder, n_layers=layers))
+    return dataclasses.replace(cfg, n_layers=layers)
 
 
 def per_forward(cfg) -> dict[str, int]:
     """Kernel launches one prefill forward of `cfg` makes: flash once per
-    attention layer (a leading dense block is one), the SSD scan once per
-    Mamba layer."""
-    n_attn = sum(mx in "AGWL" for mx, _ in cfg.pattern)
+    attention layer (a leading dense block is one), twice per 'C' layer
+    (its self-attention and its cross attention) and once per encoder
+    layer, the SSD scan once per Mamba layer."""
+    n_attn = sum(mx in "AGWLB" for mx, _ in cfg.pattern) + 2 * sum(
+        mx == "C" for mx, _ in cfg.pattern)
+    n_enc = cfg.encoder.n_layers if cfg.encoder is not None else 0
     n_ssd = sum(mx == "M" for mx, _ in cfg.pattern)
-    return {"flash_attention": cfg.first_k_dense + cfg.n_super * n_attn,
+    return {"flash_attention": (cfg.first_k_dense + cfg.n_super * n_attn
+                                + n_enc),
             "ssd_scan": cfg.n_super * n_ssd}
 
 
@@ -1266,7 +1355,9 @@ def phase_zoo_model(dev) -> tuple[dict[str, int], dict]:
     full = SHAPES["prefill_32k"]
     log(f"[zoo] prefill shape: {full.name} (S {full.seq}, batch "
         f"{full.global_batch}) cut to batch {ZOO_BATCH} and S {ZOO_SEQ} "
-        f"({MIXTRAL_SEQ} for mixtral-8x22b)")
+        f"({MIXTRAL_SEQ} for mixtral-8x22b; whisper-large-v3 at its "
+        f"published {WHISPER_TOKENS} decoder tokens over {WHISPER_FRAMES} "
+        f"encoder frames)")
     reset_zoo_launches()
     by_arch = {}
     for arch, layers, seq in ZOO_RUNS:
@@ -1279,13 +1370,13 @@ def phase_zoo_model(dev) -> tuple[dict[str, int], dict]:
         params = model.init(0)
         torch.cuda.synchronize()
         t_init = time.perf_counter() - t0
-        toks = zoo_tokens(dev, cfg, seq)
+        batch = zoo_batch(dev, cfg, seq)
         walls, arch_before = [], zoo_launches()
         with torch.inference_mode():
             for _ in range(2):
                 before, kb = zoo_launches(), flash_by_kernel()
                 t0 = time.perf_counter()
-                hidden, _ = model.apply(params, {"tokens": toks})
+                hidden, _ = model.apply(params, batch)
                 logits = model.logits(params, hidden)
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t0)
@@ -1312,6 +1403,11 @@ def phase_zoo_model(dev) -> tuple[dict[str, int], dict]:
         n, n_act = count_params(cfg), count_params(cfg, active_only=True)
         depth = ("" if layers is None else
                  f", depth cut from {get_config_layers(arch)} to {layers}")
+        if cfg.encoder is not None:
+            depth += (f", encoder {cfg.encoder.n_layers} layers over "
+                      f"{WHISPER_FRAMES} frames")
+        elif cfg.n_img_tokens:
+            depth += f", {cfg.n_img_tokens} image tokens"
         log(f"[zoo] {arch}: {n / 1e9:.3f} B params ({n_act / 1e9:.3f} B "
             f"active; {cfg.n_layers} layers{depth}, d_model {cfg.d_model}), "
             f"init {t_init:.2f} s; prefill B={ZOO_BATCH} S={seq}: first "
@@ -1333,7 +1429,7 @@ def phase_zoo_model(dev) -> tuple[dict[str, int], dict]:
                              peak_gib=peak / 2**30,
                              serve_steps_per_s=steps / t_serve,
                              serve_peak_gib=serve_peak / 2**30)
-        del params, model
+        del params, model, batch
         torch.cuda.empty_cache()
     launches = zoo_launches()
     log(f"[zoo] launches over the phase: {json.dumps(launches)}, flash by "
@@ -1349,52 +1445,64 @@ def get_config_layers(arch: str) -> int:
     return get_config(arch).n_layers
 
 
-# card vs CPU: (arch, layers) at full width, B 1, S 256; the depth cut to
-# one super-block (gemma3-12b's is 6 layers; deepseek-moe-16b's 2 are its
-# dense first layer and one MoE layer).
-ZOO_CPU_RUNS = (("minitron-8b", 2), ("mamba2-370m", 2), ("gemma3-12b", 6),
-                ("deepseek-moe-16b", 2), ("qwen3-32b", 2),
-                ("phi3-medium-14b", 2), ("mixtral-8x22b", 2))
+# card vs CPU: (arch, layers, S) at full width, B 1; the depth cut to one
+# super-block (gemma3-12b's is 6 layers; deepseek-moe-16b's 2 are its dense
+# first layer and one MoE layer; llama-3.2-vision-11b's 5 are one 'C' and
+# four 'A' layers, over its 1601 image tokens), whisper-large-v3 to 2
+# encoder and 2 decoder layers at its 1500 frames and 448 tokens.
+ZOO_CPU_RUNS = (("minitron-8b", 2, 256), ("mamba2-370m", 2, 256),
+                ("gemma3-12b", 6, 256), ("deepseek-moe-16b", 2, 256),
+                ("qwen3-32b", 2, 256), ("phi3-medium-14b", 2, 256),
+                ("mixtral-8x22b", 2, 256),
+                ("whisper-large-v3", 2, WHISPER_TOKENS),
+                ("llama-3.2-vision-11b", 5, 256))
+# smoke archs decoded teacher-forced on the card and the CPU: the windowed
+# ones past their window of 32, the cross-attention ones on their zero
+# cross caches
+ZOO_CPU_DECODES = ("gemma3-12b", "mixtral-8x22b", "whisper-large-v3",
+                   "llama-3.2-vision-11b")
 
 
 def phase_zoo_card_vs_cpu(dev) -> None:
-    """ZOO_CPU_RUNS at full width, B 1, S 256: the final hidden state on the
-    card (kernels) against the port's CPU path (plain versions) on the same
-    weights, without the LM head, MoE layers on the CPU run's routes.  Bar:
-    rtol 2e-2, atol 2e-2 x max |CPU value| -- bf16 matmuls and reductions
-    round at other places on the two devices, and the flash kernel rounds
-    P to bf16 for its second product.  Then the smoke gemma3-12b and
-    mixtral-8x22b through a teacher-forced decode of 48 tokens on both
-    (past their window of 32: the ring buffers wrap on the card), and
-    deepseek-moe-16b's MoE layer at full width twice on the card,
-    torch.equal."""
-    import dataclasses
+    """ZOO_CPU_RUNS at full width, B 1: the final hidden state on the card
+    (kernels) against the port's CPU path (plain versions) on the same
+    weights and inputs, without the LM head, MoE layers on the CPU run's
+    routes.  Bar: rtol 2e-2, atol 2e-2 x max |CPU value| -- bf16 matmuls
+    and reductions round at other places on the two devices, and the
+    flash kernel rounds P to bf16 for its second product.  Then the smoke
+    ZOO_CPU_DECODES through a teacher-forced decode of 48 tokens on both
+    (gemma3-12b and mixtral-8x22b past their window of 32: the ring
+    buffers wrap on the card), and deepseek-moe-16b's MoE layer at full
+    width twice on the card, torch.equal."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import build_model, moe
     from repro_torch.testing import RouteReplay, hold_bf16, tree_to
-    for arch, layers in ZOO_CPU_RUNS:
-        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    for arch, layers, seq in ZOO_CPU_RUNS:
+        cfg = zoo_config(arch, layers)
         card, cpu = build_model(cfg, dev), build_model(cfg, "cpu")
         params = card.init(1)
         on_cpu = tree_to(params, "cpu")
-        toks = zoo_tokens(dev, cfg, 256, seed=1)
+        batch = zoo_batch(dev, cfg, seq, seed=1)
         routes = RouteReplay()
         with torch.inference_mode():
             t0 = time.perf_counter()
             with routes.record():
-                h_cpu = cpu.apply(on_cpu, {"tokens": toks.cpu()})[0]
+                h_cpu = cpu.apply(on_cpu, tree_to(batch, "cpu"))[0]
             t_cpu = time.perf_counter() - t0
             with routes.replay():
-                h_card = card.apply(params, {"tokens": toks})[0]
+                h_card = card.apply(params, batch)[0]
         verdict = hold_bf16(h_card, h_cpu, f"{arch} depth {layers}")
         agree = routes.check(f"{arch} depth {layers}")
-        log(f"[zoo-cpu] {arch} depth {layers}, B 1, S 256, full width: card "
+        mem = {k: tuple(v.shape) for k, v in batch.items() if k != "tokens"}
+        log(f"[zoo-cpu] {arch} depth {layers}"
+            f"{' (encoder too)' if cfg.encoder is not None else ''}, B 1, "
+            f"S {seq}{f', memory {mem}' if mem else ''}, full width: card "
             f"vs CPU {verdict}; {agree}; CPU forward "
             f"{t_cpu:.2f} s")
-        del params, on_cpu, card, cpu
+        del params, on_cpu, card, cpu, batch
         torch.cuda.empty_cache()
-    for arch in ("gemma3-12b", "mixtral-8x22b"):
+    for arch in ZOO_CPU_DECODES:
         cfg = get_config(arch, smoke=True)
         card, cpu = build_model(cfg, dev), build_model(cfg, "cpu")
         params = card.init(2)
@@ -1417,8 +1525,13 @@ def phase_zoo_card_vs_cpu(dev) -> None:
                 token = (prompt[:, t + 1:t + 2] if t + 1 < n_prompt
                          else l_cpu[:, -1].float().argmax(-1)[:, None])
         agree = routes.check(f"{arch} smoke decode")
-        log(f"[zoo-cpu] {arch} smoke (window {cfg.attn.window}): teacher-"
-            f"forced decode of {steps} tokens, B {B}, {seq}-entry caches, "
+        windowed = any(mx in "WL" for mx, _ in cfg.pattern)
+        n_cross = sum(mx == "C" for mx, _ in cfg.pattern) * cfg.n_super
+        log(f"[zoo-cpu] {arch} smoke ("
+            + (f"window {cfg.attn.window}" if windowed else
+               f"{n_cross} 'C' blocks on zero cross caches")
+            + f"): teacher-forced decode of {steps} tokens, B {B}, {seq}-"
+            f"entry caches, "
             f"card vs CPU within the bar at every step (max abs err "
             f"{worst:.4g}); {agree}")
     cfg = get_config("deepseek-moe-16b")
@@ -2121,14 +2234,15 @@ def phase_faults(dev) -> dict[str, int]:
 
 
 def profiled(fn):
-    """Run fn() under torch.profiler; returns (wall s with the profiler on,
-    [(device us, launches, kernel name)] by kernel).  Fails if the profiler
-    saw no device time."""
+    """Run fn() under torch.profiler, tracing the device alone (the busy
+    share and the kernel table need no host-op events, and recording and
+    collecting them slows the host); returns (wall s with the profiler
+    on, [(device us, launches, kernel name)] by kernel).  Fails if the
+    profiler saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2174,9 +2288,10 @@ def phase_profile(dev) -> None:
 
 
 def phase_zoo_profile(dev) -> None:
-    """torch.profiler over one warm prefill forward (B 1, S 4096) and one
-    serving loop of each arch, after their timed runs: device busy share,
-    launches, and the top kernels by device time."""
+    """torch.profiler over one warm prefill forward (B 1, S 4096; whisper
+    448 tokens over 1500 frames) and one serving loop of each of
+    ZOO_ARCHS, after their timed runs: device busy share, launches, and
+    the top kernels by device time."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
@@ -2185,9 +2300,9 @@ def phase_zoo_profile(dev) -> None:
         cfg = get_config(arch)
         model = build_model(cfg, dev)
         params = model.init(0)
-        toks = zoo_tokens(dev, cfg, ZOO_SEQ)
-        prefill = lambda: model.logits(params, model.apply(
-            params, {"tokens": toks})[0])
+        batch = zoo_batch(dev, cfg, WHISPER_TOKENS if cfg.encoder is not None
+                          else ZOO_SEQ)
+        prefill = lambda: model.logits(params, model.apply(params, batch)[0])
         with torch.inference_mode():
             prefill()
             runs = (("prefill", profiled(prefill)),
@@ -2202,7 +2317,7 @@ def phase_zoo_profile(dev) -> None:
             for us, cnt, key in rows[:6]:
                 log(f"[zoo-profile]   {us / 1e3:8.3f} ms {cnt:6d}x "
                     f"({100 * us / dev_us:4.1f}%)  {key[:80]}")
-        del params, model
+        del params, model, batch
         torch.cuda.empty_cache()
 
 
@@ -2232,23 +2347,33 @@ def main() -> int:
             if "Used" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
-    kernels = phase_kernels(dev)
+    walls = {}
+
+    def timed(fn, *args):
+        """fn(*args), its wall seconds kept under its name."""
+        t = time.perf_counter()
+        out = fn(*args)
+        walls[fn.__name__] = round(time.perf_counter() - t, 1)
+        return out
+
+    kernels = timed(phase_kernels, dev)
     floor = kernels[0]["launch_floor_ms"]
-    kernels.append(phase_prng(dev, floor))
-    kernels.append(phase_batched_linear(dev, floor))
-    widths = phase_sweep_widths(dev, floor)
-    phase_cells(dev)
-    launches, split, rates = phase_main_path(dev)
-    phase_profile(dev)
-    grid_launches, grid_shapes = phase_grid(dev, rates)
-    lifecycle = {"continual": phase_continual(dev),
-                 "serving": phase_serving(dev),
-                 "faults": phase_faults(dev)}
-    kernels += phase_zoo_kernels(dev)
-    phase_zoo_card_vs_cpu(dev)
-    zoo_counts, zoo_archs = phase_zoo_model(dev)
+    kernels.append(timed(phase_prng, dev, floor))
+    kernels.append(timed(phase_batched_linear, dev, floor))
+    widths = timed(phase_sweep_widths, dev, floor)
+    timed(phase_cells, dev)
+    launches, split, rates = timed(phase_main_path, dev)
+    timed(phase_profile, dev)
+    grid_launches, grid_shapes = timed(phase_grid, dev, rates)
+    lifecycle = {"continual": timed(phase_continual, dev),
+                 "serving": timed(phase_serving, dev),
+                 "faults": timed(phase_faults, dev)}
+    kernels += timed(phase_zoo_kernels, dev)
+    timed(phase_zoo_card_vs_cpu, dev)
+    zoo_counts, zoo_archs = timed(phase_zoo_model, dev)
     launches.update(zoo_counts)
-    phase_zoo_profile(dev)
+    timed(phase_zoo_profile, dev)
+    log(f"[time] wall seconds by phase: {json.dumps(walls)}")
     for k in kernels:
         name = k["name"]
         # each main path's own run: the episodes, the grid, the zoo

@@ -4,8 +4,11 @@
 // Replaces src/repro/kernels/flash_attention/kernel.py:80 `flash_attention`
 // (`_flash_kernel`, :31): softmax(q k^T * scale, masked) v with an online
 // softmax (running max m, running sum l, f32 accumulator acc), skipping the
-// KV tiles above the diagonal.  q, o: (B, S, H, hd); k, v: (B, S, K, hd) with
-// H % K == 0.  The KV head of query head h is h / (H / K), so the expanded
+// KV tiles above the diagonal.  q, o: (B, S, H, hd); k, v: (B, S_kv, K, hd)
+// with H % K == 0; S_kv == S when causal, any S_kv >= 1 without (the
+// encoder's bidirectional and the decoder's cross attention,
+// src/repro/models/attention.py:180-225, which the reference computes
+// outside Pallas: queries S, keys S_kv).  The KV head of query head h is h / (H / K), so the expanded
 // K/V of the reference's wrapper is never materialised.  `window` > 0 also
 // hides key j from query i when j <= i - window (the reference model's
 // sliding-window and local mixers, src/repro/models/attention.py:72-80,
@@ -69,8 +72,9 @@
 // carries none of its tests: run-time window tests cost the mma.sync and
 // f32 kernels 4-6% at minitron-8b's shape, and -inf on the window-free path
 // cost the wgmma kernel ~3.5%, in turns against the kernels without a
-// window (flash_in_turns.py).  Keys at or past S are masked (TMA fills rows
-// past S with zeros), so a ragged S needs no padding here.
+// window (flash_in_turns.py).  Keys at or past S_kv are masked (TMA fills
+// rows past S_kv with zeros), so a ragged S or S_kv needs no padding here:
+// query tiles run to S, key tiles to S_kv.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -179,8 +183,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
-                  __nv_bfloat16* __restrict__ o, int S, int H, int K,
-                  float scale, int causal, int window) {
+                  __nv_bfloat16* __restrict__ o, int S, int Skv, int H,
+                  int K, float scale, int causal, int window) {
   constexpr int KC = HD / 16;   // k-steps of q.k^T over the head dim
   constexpr int NT = HD / 8;    // 8-wide column tiles of the output
   constexpr int LD = HD + 8;    // padded smem row: conflict-free fragments
@@ -200,8 +204,8 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int q0 = (heavy_last ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kBQ;
   const size_t qrow = (size_t)H * HD, krow = (size_t)K * HD;
   const __nv_bfloat16* qb = q + (size_t)b * S * qrow + (size_t)h * HD;
-  const __nv_bfloat16* kb = k + (size_t)b * S * krow + (size_t)kh * HD;
-  const __nv_bfloat16* vb = v + (size_t)b * S * krow + (size_t)kh * HD;
+  const __nv_bfloat16* kb = k + (size_t)b * Skv * krow + (size_t)kh * HD;
+  const __nv_bfloat16* vb = v + (size_t)b * Skv * krow + (size_t)kh * HD;
   __nv_bfloat16* ob = o + (size_t)b * S * qrow + (size_t)h * HD;
 
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
@@ -226,7 +230,8 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const float mask_v = mask_value<kWindow>();
 
   // causal skip: tile j runs iff j * kBKV16 <= the block's last query row
-  int kv_end = S;
+  // (causal has S_kv == S)
+  int kv_end = Skv;
   if (causal) kv_end = min(S, q0 + kBQ);
   const int n_tiles = (kv_end + kBKV16 - 1) / kBKV16;
   const int tile0 = first_kv_tile<kWindow>(q0, window, kBKV16);
@@ -236,7 +241,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     __nv_bfloat16* vd = vbuf + (tile & 1) * kBKV16 * LD;
     for (int i = threadIdx.x; i < kBKV16 * VEC; i += kThreads) {
       const int r = i / VEC, c = (i % VEC) * 8;
-      const bool in = kv0 + r < S;  // rows past S: zeros, read nothing
+      const bool in = kv0 + r < Skv;  // rows past S_kv: zeros, read nothing
       const size_t off = (size_t)(in ? kv0 + r : 0) * krow + c;
       cp_async16(kd + r * LD + c, kb + off, in);
       cp_async16(vd + r * LD + c, vb + off, in);
@@ -275,7 +280,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
     // scale into log2 units, mask, row max over the tile
-    const bool masked = kv0 + kBKV16 > S ||
+    const bool masked = kv0 + kBKV16 > Skv ||
                         (causal && kv0 + kBKV16 - 1 > q0) ||
                         (kWindow && kv0 <= q0 + kBQ - 1 - window);
     float mx0 = kMaskValue, mx1 = kMaskValue;
@@ -287,7 +292,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
         if (masked) {
           const int row = e < 2 ? r0 : r1;
           const int col = kv0 + nt * 8 + 2 * t + (e & 1);
-          if (col >= S || (causal && col > row) ||
+          if (col >= Skv || (causal && col > row) ||
               (kWindow && col <= row - window))
             x = mask_v;
         }
@@ -611,11 +616,11 @@ template <int HD, bool kRawMax, bool kWindow>
 __device__ __forceinline__ void softmax_tile(
     float (&s)[wg_bkv(HD) / 2], float (&acc)[HD / 2],
     uint32_t (&pa)[wg_bkv(HD) / 16][4], float& m0, float& m1, float& l0,
-    float& l1, int kv0, int S, int causal, int window, int wg_row0, int r0,
+    float& l1, int kv0, int Skv, int causal, int window, int wg_row0, int r0,
     int r1, int t, float scale_log2, float mask_x) {
   constexpr int BKV = wg_bkv(HD);
   constexpr int NS = BKV / 2;               // score accumulators per thread
-  const bool masked = kv0 + BKV > S ||
+  const bool masked = kv0 + BKV > Skv ||
                       (causal && kv0 + BKV - 1 > wg_row0) ||
                       (kWindow && kv0 <= wg_row0 + 63 - window);
   float mx0 = kMaskValue, mx1 = kMaskValue;
@@ -625,7 +630,7 @@ __device__ __forceinline__ void softmax_tile(
     if (masked) {
       const int row = (i & 2) ? r1 : r0;
       const int col = kv0 + (i >> 2) * 8 + 2 * t + (i & 1);
-      if (col >= S || (causal && col > row) ||
+      if (col >= Skv || (causal && col > row) ||
           (kWindow && col <= row - window))
         x = kWindow ? masked_score() : mask_x;
     }
@@ -674,10 +679,11 @@ __device__ __forceinline__ void softmax_tile(
 template <int HD, bool kRawMax, bool kWindow>
 __device__ __forceinline__ void flash_consume(WgSmem<HD>& sm,
                                               __nv_bfloat16* __restrict__ o,
-                                              int S, int H, int b, int h,
-                                              int q0, int tile0, int n_tiles,
-                                              float scale, int causal,
-                                              int window, int wg) {
+                                              int S, int Skv, int H, int b,
+                                              int h, int q0, int tile0,
+                                              int n_tiles, float scale,
+                                              int causal, int window,
+                                              int wg) {
   constexpr int BKV = wg_bkv(HD);
   constexpr int NO = HD / 2;                // output accumulators per thread
   const int w = (threadIdx.x / 32) % 4;
@@ -708,8 +714,8 @@ __device__ __forceinline__ void flash_consume(WgSmem<HD>& sm,
     reg_fence(s);
     uint32_t pa[BKV / 16][4];
     softmax_tile<HD, kRawMax, kWindow>(s, acc, pa, m0, m1, l0, l1, j * BKV,
-                                       S, causal, window, wg_row0, r0, r1, t,
-                                       scale_log2, mask_x);
+                                       Skv, causal, window, wg_row0, r0, r1,
+                                       t, scale_log2, mask_x);
     wgmma_fence();
     pv_tile<HD>(acc, pa, sm.v[s_]);
     wgmma_commit();
@@ -744,8 +750,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
-                   __nv_bfloat16* __restrict__ o, int S, int H, int K,
-                   float scale, int causal, int window) {
+                   __nv_bfloat16* __restrict__ o, int S, int Skv, int H,
+                   int K, float scale, int causal, int window) {
   constexpr int NP = HD / kPanel;           // 64-column panels per row
   constexpr int BKV = wg_bkv(HD);
   constexpr uint32_t kv_bytes = 2u * NP * BKV * kPanel * 2;   // K + V tile
@@ -761,7 +767,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const bool heavy_last = causal && !kWindow;
   const int q0 = (heavy_last ? gridDim.y - 1 - blockIdx.y : blockIdx.y) *
                  kWgBQ;
-  const int kv_end = causal ? min(S, q0 + kWgBQ) : S;
+  const int kv_end = causal ? min(S, q0 + kWgBQ) : Skv;
   const int n_tiles = (kv_end + BKV - 1) / BKV;
   const int tile0 = first_kv_tile<kWindow>(q0, window, BKV);
 
@@ -795,7 +801,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
   } else {
     // ---- consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63 ----
-    flash_consume<HD, kRawMax, kWindow>(sm, o, S, H, b, h, q0, tile0,
+    flash_consume<HD, kRawMax, kWindow>(sm, o, S, Skv, H, b, h, q0, tile0,
                                         n_tiles, scale, causal, window,
                                         role);
   }
@@ -813,7 +819,7 @@ template <int HD, bool kWindow>
 __global__ void __launch_bounds__(kThreads)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int S,
-                 int H, int K, float scale, int causal, int window) {
+                 int Skv, int H, int K, float scale, int causal, int window) {
   constexpr int LDQ = HD + 1;
   constexpr int OC = HD / 8;    // output columns per thread
   extern __shared__ float smem[];
@@ -831,8 +837,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = (heavy_last ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kBQ;
   const size_t qrow = (size_t)H * HD, krow = (size_t)K * HD;
   const float* qb = q + (size_t)b * S * qrow + (size_t)h * HD;
-  const float* kb = k + (size_t)b * S * krow + (size_t)kh * HD;
-  const float* vb = v + (size_t)b * S * krow + (size_t)kh * HD;
+  const float* kb = k + (size_t)b * Skv * krow + (size_t)kh * HD;
+  const float* vb = v + (size_t)b * Skv * krow + (size_t)kh * HD;
   float* ob = o + (size_t)b * S * qrow + (size_t)h * HD;
 
   for (int i = threadIdx.x; i < kBQ * HD; i += kThreads) {
@@ -849,7 +855,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < OC; ++c) acc[i][c] = 0.f;
   }
 
-  int kv_end = S;
+  int kv_end = Skv;                  // causal has S_kv == S
   if (causal) kv_end = min(S, q0 + kBQ);
   const float mask_v = mask_value<kWindow>();
   for (int kv0 = first_kv_tile<kWindow>(q0, window, kBKV32) * kBKV32;
@@ -857,7 +863,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     for (int i = threadIdx.x; i < kBKV32 * HD; i += kThreads) {
       const int r = i / HD, c = i % HD;
-      const bool in = kv0 + r < S;
+      const bool in = kv0 + r < Skv;
       ks[r * LDQ + c] = in ? kb[(size_t)(kv0 + r) * krow + c] : 0.f;
       vs[r * HD + c] = in ? vb[(size_t)(kv0 + r) * krow + c] : 0.f;
     }
@@ -887,7 +893,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const int col = kv0 + tx + 8 * j;
         float x = s[i][j] * scale;
-        if (col >= S || (causal && col > row) ||
+        if (col >= Skv || (causal && col > row) ||
             (kWindow && col <= row - window))
           x = mask_v;
         s[i][j] = x;
@@ -941,8 +947,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int HD, bool kWindow>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int S, int H, int K, float scale, int causal, int window,
-               cudaStream_t stream) {
+               int S, int Skv, int H, int K, float scale, int causal,
+               int window, cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((size_t)(kBQ + kBKV32) * (HD + 1) +
                                        (size_t)kBKV32 * HD +
                                        (size_t)kBQ * (kBKV32 + 1));
@@ -959,15 +965,15 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   dim3 grid(B * H, (S + kBQ - 1) / kBQ);
   flash_f32_kernel<HD, kWindow><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, H, K, scale,
-      causal, window);
+      static_cast<const float*>(v), static_cast<float*>(o), S, Skv, H, K,
+      scale, causal, window);
   return (int)cudaGetLastError();
 }
 
 template <int HD, bool kWindow>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int S, int H, int K, float scale, int causal, int window,
-                cudaStream_t stream) {
+                int S, int Skv, int H, int K, float scale, int causal,
+                int window, cudaStream_t stream) {
   constexpr size_t smem = 4 * (size_t)kBKV16 * (HD + 8) * sizeof(uint16_t);
   // once per instantiation, outside any CUDA-graph capture that follows
   static bool configured = false;
@@ -984,7 +990,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S,
-      H, K, scale, causal, window);
+      Skv, H, K, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -1034,8 +1040,8 @@ cudaError_t head_map(CUtensorMap* map, const void* base, int B, int S,
 
 template <int HD, bool kRawMax, bool kWindow>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
-                 int S, int H, int K, float scale, int causal, int window,
-                 cudaStream_t stream) {
+                 int S, int Skv, int H, int K, float scale, int causal,
+                 int window, cudaStream_t stream) {
   constexpr size_t smem = sizeof(WgSmem<HD>) + 1024;   // + alignment slack
   // once per instantiation, outside any CUDA-graph capture that follows
   static bool configured = false;
@@ -1048,14 +1054,14 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
   }
   CUtensorMap tq, tk, tv;
   cudaError_t e = head_map(&tq, q, B, S, H, HD, kWgBQ);
-  if (e == cudaSuccess) e = head_map(&tk, k, B, S, K, HD, wg_bkv(HD));
-  if (e == cudaSuccess) e = head_map(&tv, v, B, S, K, HD, wg_bkv(HD));
+  if (e == cudaSuccess) e = head_map(&tk, k, B, Skv, K, HD, wg_bkv(HD));
+  if (e == cudaSuccess) e = head_map(&tv, v, B, Skv, K, HD, wg_bkv(HD));
   if (e != cudaSuccess) return (int)e;
   dim3 grid(B * H, (S + kWgBQ - 1) / kWgBQ);
   flash_wgmma_kernel<HD, kRawMax, kWindow><<<grid, kWgThreads, smem,
                                               stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, H, K, scale, causal,
-      window);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, Skv, H, K, scale,
+      causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -1063,9 +1069,10 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
 // 0, the window's tests only with a window.
 template <int HD>
 int launch_wgmma_any(const void* q, const void* k, const void* v, void* o,
-                     int B, int S, int H, int K, float scale, int causal,
-                     int window, cudaStream_t stream) {
-#define REPRO_WG_ARGS q, k, v, o, B, S, H, K, scale, causal, window, stream
+                     int B, int S, int Skv, int H, int K, float scale,
+                     int causal, int window, cudaStream_t stream) {
+#define REPRO_WG_ARGS q, k, v, o, B, S, Skv, H, K, scale, causal, window, \
+                      stream
   if (scale > 0.f)
     return window > 0 ? launch_wgmma<HD, true, true>(REPRO_WG_ARGS)
                       : launch_wgmma<HD, true, false>(REPRO_WG_ARGS);
@@ -1075,16 +1082,16 @@ int launch_wgmma_any(const void* q, const void* k, const void* v, void* o,
 }
 
 using Launcher = int (*)(const void*, const void*, const void*, void*, int,
-                        int, int, int, float, int, int, cudaStream_t);
+                        int, int, int, int, float, int, int, cudaStream_t);
 
 // The instantiation a launch of the mma.sync or f32 kernel takes: the
 // window's tests only with a window.
 template <Launcher kPlain, Launcher kWindowed>
 int launch_windowed(const void* q, const void* k, const void* v, void* o,
-                    int B, int S, int H, int K, float scale, int causal,
-                    int window, cudaStream_t stream) {
-  return (window > 0 ? kWindowed : kPlain)(q, k, v, o, B, S, H, K, scale,
-                                           causal, window, stream);
+                    int B, int S, int Skv, int H, int K, float scale,
+                    int causal, int window, cudaStream_t stream) {
+  return (window > 0 ? kWindowed : kPlain)(q, k, v, o, B, S, Skv, H, K,
+                                           scale, causal, window, stream);
 }
 
 }  // namespace
@@ -1095,20 +1102,23 @@ const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q, o (B, S, H, hd); k, v (B, S, K, hd); contiguous, 16-byte aligned.
+// q, o (B, S, H, hd); k, v (B, S_kv, K, hd); contiguous, 16-byte aligned.
 // kernel: 0 f32 (CUDA cores; hd 16-256), 1 bf16 mma.sync (hd 16, 32), 2 bf16
-// wgmma + TMA (hd 64, 128, 256).  window 0: none; else key j is hidden from
-// query i when j <= i - window.  Returns a cudaError_t
-// (cudaErrorInvalidValue for a kernel / hd pair outside those, or a
-// negative window).
+// wgmma + TMA (hd 64, 128, 256).  window 0: none; else (causal only) key j
+// is hidden from query i when j <= i - window.  Returns a cudaError_t
+// (cudaErrorInvalidValue for a kernel / hd pair outside those, a negative
+// window, a window without causal, S_kv < 1, or causal with S_kv != S).
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* o, int B, int S, int H, int K, int hd,
-                           float scale, int causal, int window, int kernel,
-                           void* stream_ptr) {
+                           void* o, int B, int S, int S_kv, int H, int K,
+                           int hd, float scale, int causal, int window,
+                           int kernel, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (window < 0) return (int)cudaErrorInvalidValue;
+  if (window < 0 || (window > 0 && !causal) || S_kv < 1 ||
+      (causal && S_kv != S))
+    return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
-#define REPRO_FLASH_ARGS q, k, v, o, B, S, H, K, scale, causal, window, stream
+#define REPRO_FLASH_ARGS q, k, v, o, B, S, S_kv, H, K, scale, causal, window, \
+                         stream
   switch (kernel * 1000 + hd) {
     case 16: return launch_windowed<launch_f32<16, false>,
                                     launch_f32<16, true>>(REPRO_FLASH_ARGS);

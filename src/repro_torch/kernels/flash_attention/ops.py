@@ -1,21 +1,25 @@
 """Wrapper of the flash-attention kernel: GQA, layout and the padding rule of
 `repro/kernels/flash_attention/ops.py`.
 
-`gqa_flash_attention` takes the plain version (ref.py, on the GQA-expanded
-K/V) for CPU tensors and launches the CUDA kernel (csrc/flash_attention.cu)
-for CUDA tensors; anything else raises, and there is no fallback from kernel
-to plain.  Which CUDA kernel runs follows from dtype and head dim alone
-(`kernel_for`): bf16 at hd 64, 128 and 256 (the models' widths) takes the
-wgmma + TMA kernel, bf16 at hd 16 and 32 the mma.sync kernel, float32 the
-CUDA-core kernel.  `window` > 0 (causal only) is the reference model's
-sliding-window / local mask: key j is hidden from query i when
-j <= i - window; every kernel takes it.  The kernel reads K/V at head
-h // (H / K) itself, so nothing is expanded on the card, and it masks keys
-at or past S.  Neither path pads:
-a causal ragged S gives the padded reference's result as it stands, and
-only the reference's refusal of a non-causal S off its block multiple is
-kept, so a caller sees the reference's contract.  `launches` counts kernel
-launches and nothing else; `kernel_launches` splits that count by kernel.
+Two entries, one kernel.  `gqa_flash_attention_kv` is what the model layers
+call: q (B, S, H, hd) against k, v (B, S_kv, K, hd), causal (S_kv == S) or
+not (any S and S_kv, the encoder's bidirectional and the decoder's cross
+attention); the kernel masks keys at or past S_kv, so nothing is padded.
+`gqa_flash_attention` keeps the reference wrapper's contract: S_kv == S,
+and a non-causal S off the reference kernel's block multiple is refused
+(the reference's model never meets that refusal: it runs dense `attend`
+up to DENSE_MAX_S).  Both take the plain version (ref.py, on the
+GQA-expanded K/V) for CPU tensors and launch the CUDA kernel
+(csrc/flash_attention.cu) for CUDA tensors; anything else raises, and
+there is no fallback from kernel to plain.  Which CUDA kernel runs follows
+from dtype and head dim alone (`kernel_for`): bf16 at hd 64, 128 and 256
+(the models' widths) takes the wgmma + TMA kernel, bf16 at hd 16 and 32
+the mma.sync kernel, float32 the CUDA-core kernel.  `window` > 0 (causal
+only) is the reference model's sliding-window / local mask: key j is
+hidden from query i when j <= i - window; every kernel takes it.  The
+kernel reads K/V at head h // (H / K) itself, so nothing is expanded on
+the card.  `launches` counts kernel launches and nothing else;
+`kernel_launches` splits that count by kernel.
 """
 from __future__ import annotations
 
@@ -27,7 +31,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 BLOCK_Q = 128           # the reference kernel's blocks: they set which
-BLOCK_KV = 256          # non-causal S it refuses; the CUDA kernels tile
+BLOCK_KV = 256          # non-causal S it refuses (the CUDA kernels tile
+                        # on their own)
 HEAD_DIMS = (16, 32, 64, 128, 256)
 # the C launcher's kernel ids
 KERNELS = {"cuda_core_f32": 0, "mma_sync_bf16": 1, "wgmma_bf16": 2}
@@ -53,7 +58,7 @@ def _lib():
     lib = build.load("flash_attention")
     fn = lib.flash_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                        + [ctypes.c_float] + [ctypes.c_int] * 3
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -63,23 +68,43 @@ def _lib():
 def gqa_flash_attention(q, k, v, *, causal: bool = True,
                         scale: float | None = None, window: int = 0):
     """q: (B, S, H, hd); k, v: (B, S, K, hd) with H % K == 0; `window` 0
-    (none) or > 0 with causal.
+    (none) or > 0 with causal; a non-causal S on the reference kernel's
+    block multiple.
 
     Returns (B, S, H, hd) in q's dtype."""
-    B, S, H, hd = q.shape
-    K = k.shape[2]
-    if k.shape != (B, S, K, hd) or v.shape != k.shape or K == 0 or H % K:
+    S = q.shape[1]
+    if k.ndim != 4 or k.shape[1] != S:
         raise ValueError(f"gqa_flash_attention: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)}: need k/v "
-                         f"(B, S, K, hd) with H % K == 0")
-    if window < 0 or (window and not causal):
-        raise ValueError(f"gqa_flash_attention: window {window} needs to be 0"
-                         f", or > 0 with causal=True")
-    scale = hd ** -0.5 if scale is None else scale
+                         f"{tuple(k.shape)}: need k/v (B, S, K, hd)")
     bq, bkv = min(BLOCK_Q, S), min(BLOCK_KV, S)
     if not causal and S % max(bq, bkv):
         raise ValueError("gqa_flash_attention: non-causal requires a "
                          f"block-aligned seq len, got S={S}")
+    return gqa_flash_attention_kv(q, k, v, causal=causal, scale=scale,
+                                  window=window)
+
+
+def gqa_flash_attention_kv(q, k, v, *, causal: bool = True,
+                           scale: float | None = None, window: int = 0):
+    """q: (B, S, H, hd); k, v: (B, S_kv, K, hd) with H % K == 0 and
+    S_kv >= 1; causal needs S_kv == S, and `window` (0 or > 0) needs
+    causal.  Any S and S_kv otherwise.
+
+    Returns (B, S, H, hd) in q's dtype."""
+    B, S, H, hd = q.shape
+    S_kv, K = k.shape[1], k.shape[2]
+    if k.shape != (B, S_kv, K, hd) or v.shape != k.shape or K == 0 \
+            or H % K or S_kv == 0:
+        raise ValueError(f"gqa_flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}: need k/v "
+                         f"(B, S_kv, K, hd) with H % K == 0, S_kv >= 1")
+    if causal and S_kv != S:
+        raise ValueError(f"gqa_flash_attention: causal attention needs "
+                         f"S_kv == S, got S={S}, S_kv={S_kv}")
+    if window < 0 or (window and not causal):
+        raise ValueError(f"gqa_flash_attention: window {window} needs to be 0"
+                         f", or > 0 with causal=True")
+    scale = hd ** -0.5 if scale is None else scale
     dev = q.device
     if k.device != dev or v.device != dev:
         raise ValueError(f"gqa_flash_attention: tensors on {dev}, {k.device}"
@@ -109,8 +134,9 @@ def gqa_flash_attention(q, k, v, *, causal: bool = True,
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H, K,
-        hd, float(scale), int(causal), int(window), KERNELS[kernel], stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, S_kv,
+        H, K, hd, float(scale), int(causal), int(window), KERNELS[kernel],
+        stream)
     build.check(lib, code, f"flash_attention ({kernel})")
     launches["flash_attention"] += 1
     kernel_launches[kernel] += 1

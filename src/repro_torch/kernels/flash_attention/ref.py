@@ -55,13 +55,16 @@ def visible(sq: int, skv: int, window: int = 0, device=None):
 
 def attention_ref(q, k, v, scale: float | None = None, causal: bool = True,
                   window: int = 0):
-    """q, k, v: (B, H, S, hd) -> (B, H, S, hd), float32 math, output in
-    q's dtype.  `window` > 0 (causal only) also hides key j from query i
-    when j <= i - window."""
-    S, hd = q.shape[2], q.shape[3]
+    """q: (B, H, S, hd), k, v: (B, H, S_kv, hd) -> (B, H, S, hd), float32
+    math, output in q's dtype.  Causal needs S_kv == S; `window` > 0
+    (causal only) also hides key j from query i when j <= i - window."""
+    S, S_kv, hd = q.shape[2], k.shape[2], q.shape[3]
     scale = hd ** -0.5 if scale is None else scale
     if window and not causal:
         raise ValueError("attention_ref: a window needs causal=True")
+    if causal and S_kv != S:
+        raise ValueError(f"attention_ref: causal attention needs S_kv == S, "
+                         f"got S={S}, S_kv={S_kv}")
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     if causal:
         s = s.masked_fill(~visible(S, S, window, q.device), MASK_VALUE)

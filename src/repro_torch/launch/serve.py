@@ -3,7 +3,8 @@
     python -m repro_torch.launch.serve --arch mamba2-370m --smoke --requests 4
 
 `--arch` takes every arch of `repro_torch.configs` (dense, sliding-window,
-MoE, Mamba2 and hybrid).  Runs on the CUDA card unless `--device cpu` is
+MoE, Mamba2, hybrid, encoder-decoder and vision: their cross caches are
+zeros, as the reference's server never fills them).  Runs on the CUDA card unless `--device cpu` is
 given; without a card it raises rather than drop to the CPU.  Weights are
 drawn from `--seed` on the device (there is nothing to download).
 """

@@ -1,22 +1,29 @@
-"""Attention: GQA causal and sliding-window self-attention through the
-flash kernel, and single-token decode against a KV cache (port of
-`repro/models/attention.py`).
+"""Attention: GQA causal, sliding-window and bidirectional self-attention
+and cross attention through the flash kernel, and single-token decode
+against a KV cache (port of `repro/models/attention.py`).
 
 Paths:
-  self_attention() kinds 'causal' and 'window' go through
-                   `kernels.flash_attention.ops.gqa_flash_attention` with the
-                   un-expanded K/V and `window=cfg.window` for 'window' (the
-                   CUDA kernel on the card, the plain dense version on the
-                   CPU) at every S.  The reference runs `attend` up to
-                   DENSE_MAX_S and `attend_chunked` above it.
-  attend()         dense einsum with mask, and
+  self_attention() kinds 'causal', 'window' and 'bidir' go through
+                   `kernels.flash_attention.ops.gqa_flash_attention_kv` with
+                   the un-expanded K/V (the CUDA kernel on the card, the
+                   plain dense version on the CPU) at every S: causal, with
+                   `window=cfg.window` for 'window', or non-causal for
+                   'bidir' (the encoder), at any S, 1500 included.  The
+                   reference runs `attend` up to DENSE_MAX_S and
+                   `attend_chunked` above it.
+  cross_attention() queries (B, Sq, D) against a memory (B, S_kv, D) or its
+                   precomputed (k, v): through the same kernel, non-causal
+                   with S_kv != Sq, for Sq > DECODE_MAX_Q (prefill); dense
+                   `attend` at or below it (decode), as the reference
+                   computes it outside any Pallas kernel.  No RoPE, no
+                   qk-norm, as in the reference.
+  attend()         dense einsum with mask,
   attend_chunked() the online-softmax chunked loop (for 'window', a KV span
-                   per query chunk): plain ports of the reference's own
-                   attention, kept to hold the flash path against it.
+                   per query chunk; `kv_valid` masks padded keys): plain
+                   ports of the reference's own attention, kept to hold the
+                   flash path against it.
   decode_attend()  one new token vs the cache, plain torch (the reference
                    computes it outside any Pallas kernel).
-Kind 'bidir' and cross attention (the encoder and the VLM's image layers)
-are not ported yet (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -32,11 +39,8 @@ NEG_INF = -1e9
 CHUNK_Q = 512
 CHUNK_KV = 1024
 DENSE_MAX_S = 2048
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"repro_torch: {what} is not ported yet; see "
-                               f"ROADMAP.md queue 1")
+DECODE_MAX_Q = 16       # cross attention at or below it: dense `attend`
+KINDS = ("causal", "window", "bidir")
 
 
 def init_attention(gen, d_model: int, cfg: AttnCfg) -> dict:
@@ -95,17 +99,19 @@ def attend(q, k, v, kind: str, window: int, scale: float, q_off=0):
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
 
 
-def attend_chunked(q, k, v, kind: str, window: int, scale: float):
+def attend_chunked(q, k, v, kind: str, window: int, scale: float,
+                   kv_valid: int | None = None):
     """Online-softmax chunked attention (flash-style, plain torch): outer
     loop over query chunks, inner loop over all KV chunks with causal
     masking.  Windowed ('window'): per query chunk only the KV window's
     span is read, so the work stays linear in S.  Supports Sq != Skv for
-    'bidir': KV is padded to a chunk multiple and the padded positions are
-    masked."""
+    'bidir' (cross attention): KV is padded to a chunk multiple and the
+    positions at or past `kv_valid` (default Skv) are masked."""
     B, S, H, hd = q.shape
     S_kv = k.shape[1]
     if kind != "bidir" and S_kv != S:
         raise ValueError("causal/windowed attention needs Sq == Skv")
+    kv_valid = S_kv if kv_valid is None else kv_valid
     cq = min(CHUNK_Q, S)
     if S % cq:
         raise ValueError(f"attend_chunked: S={S} is not a multiple of {cq}")
@@ -119,7 +125,7 @@ def attend_chunked(q, k, v, kind: str, window: int, scale: float):
     nkv = k.shape[1] // ckv
     kc = k.reshape(B, nkv, ckv, H, hd)
     vc = v.reshape(B, nkv, ckv, H, hd)
-    masked_kv = S_kv < nkv * ckv
+    masked_kv = kv_valid < nkv * ckv
     outs = []
     for i in range(S // cq):
         q_i = q[:, i * cq:(i + 1) * cq]
@@ -137,7 +143,7 @@ def attend_chunked(q, k, v, kind: str, window: int, scale: float):
                 logits = logits.masked_fill(~msk[None, None], NEG_INF)
             if masked_kv:
                 logits = logits.masked_fill(
-                    ~(k_pos < S_kv)[None, None, None], NEG_INF)
+                    ~(k_pos < kv_valid)[None, None, None], NEG_INF)
             m_new = torch.maximum(m_run, logits.amax(dim=-1))
             p = torch.exp(logits - m_new[..., None])
             corr = torch.exp(m_run - m_new)
@@ -177,23 +183,43 @@ def _attend_window_spans(q, k, v, window: int, scale: float, cq: int):
 
 def self_attention(params, x, cfg: AttnCfg, kind: str, positions=None,
                    rope: bool = True):
-    """kind: 'causal' | 'window' ('bidir' is not ported). Returns
-    (B,S,D)."""
-    if kind not in ("causal", "window"):
-        raise _not_ported(f"self-attention of kind {kind!r}")
+    """kind: 'causal' | 'window' | 'bidir'. Returns (B,S,D)."""
+    if kind not in KINDS:
+        raise ValueError(f"self_attention: kind {kind!r} not in {KINDS}")
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)
     q, k, v = _qkv(params, x, cfg, positions, rope)
     scale = cfg.softmax_scale or cfg.head_dim ** -0.5
-    o = flash_ops.gqa_flash_attention(
-        q, k, v, causal=True, scale=scale,
+    o = flash_ops.gqa_flash_attention_kv(
+        q, k, v, causal=kind != "bidir", scale=scale,
         window=cfg.window if kind == "window" else 0)
     return o.reshape(B, S, cfg.n_heads * cfg.head_dim) @ params["wo"]
 
 
+# ---------------------------------------------------------------------------
+# Cross attention (whisper decoder / VLM image layers)
+# ---------------------------------------------------------------------------
+
 def cross_attention(params, x, memory, cfg: AttnCfg):
-    raise _not_ported("cross attention ('C' mixers, the encoder)")
+    """x: (B,Sq,D) queries; memory: (B,Skv,D) or precomputed (k, v), each
+    (B,Skv,K,hd). Returns (B,Sq,D)."""
+    B, Sq, _ = x.shape
+    H, K, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    q = (x @ params["wq"]).reshape(B, Sq, H, hd)
+    if isinstance(memory, tuple):
+        k, v = memory
+    else:
+        Skv = memory.shape[1]
+        k = (memory @ params["wk"]).reshape(B, Skv, K, hd)
+        v = (memory @ params["wv"]).reshape(B, Skv, K, hd)
+    scale = cfg.softmax_scale or hd ** -0.5
+    if Sq <= DECODE_MAX_Q:
+        o = attend(q, _expand_kv(k, H), _expand_kv(v, H), "bidir", 0, scale)
+    else:
+        o = flash_ops.gqa_flash_attention_kv(q, k, v, causal=False,
+                                             scale=scale)
+    return o.reshape(B, Sq, H * hd) @ params["wo"]
 
 
 # ---------------------------------------------------------------------------

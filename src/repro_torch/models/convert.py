@@ -3,8 +3,9 @@
 `jax.tree.map(np.asarray, ...)`, into the port's parameter layout.
 
 The reference stacks each pattern position's block parameters over the
-super-blocks (a leading n_super axis under params["decoder"]["supers"]);
-the port keeps one dict per super-block, so that axis is unstacked; every
+super-blocks (a leading n_super axis under params["decoder"]["supers"],
+and n_layers of the encoder under params["encoder"]["supers"]); the port
+keeps one dict per super-block, so that axis is unstacked; every
 leaf under it is cut the same way, the MoE block's float32 `router` and its
 (E, ...) stacks `w_gate`/`w_up`/`w_down` included (each super-block keeps
 its own (E, ...) stack), and the leading dense blocks (`first`, a list of
@@ -43,13 +44,20 @@ def params_from_numpy(cfg: ModelConfig, tree: dict,
                       device: str | torch.device = "cuda") -> dict:
     dev = resolve_device(device)
     conv = lambda t: _map(t, lambda a: to_tensor(a, dev))
-    dec = tree["decoder"]
-    supers = [{key: _map(sub, lambda a, i=i: to_tensor(np.asarray(a)[i], dev))
-               for key, sub in dec["supers"].items()}
-              for i in range(cfg.n_super)]
+
+    def stack(st: dict, n_super: int) -> dict:
+        supers = [{key: _map(sub, lambda a, i=i: to_tensor(np.asarray(a)[i],
+                                                           dev))
+                   for key, sub in st["supers"].items()}
+                  for i in range(n_super)]
+        return {"first": conv(st["first"]), "supers": supers}
+
     out = {"embed": conv(tree["embed"]),
-           "decoder": {"first": conv(dec["first"]), "supers": supers},
+           "decoder": stack(tree["decoder"], cfg.n_super),
            "ln_f": conv(tree["ln_f"])}
     if "head" in tree:
         out["head"] = conv(tree["head"])
+    if cfg.encoder is not None:
+        out["encoder"] = stack(tree["encoder"], cfg.encoder.n_layers)
+        out["ln_enc"] = conv(tree["ln_enc"])
     return out

@@ -1,5 +1,5 @@
 """Fundamental layers, forward only (port of `repro/models/layers.py`):
-RMSNorm, RoPE, the SwiGLU MLP, embeddings.
+RMSNorm, RoPE, the SwiGLU and GELU MLPs, embeddings.
 
 Pure functions over explicit parameter dicts.  Parameters are bf16; norms
 and softmax accumulate in fp32.  The reference's sharding roles and its
@@ -66,19 +66,23 @@ def apply_rope(x, positions, theta: float):
 # ---------------------------------------------------------------------------
 
 def init_mlp(gen, d_model: int, d_ff: int, swiglu: bool = True) -> dict:
-    if not swiglu:
-        raise NotImplementedError("repro_torch: the GELU MLP (whisper) is not "
-                                  "ported yet; see ROADMAP.md queue 1")
     s_in, s_out = d_model ** -0.5, d_ff ** -0.5
-    return {"w_gate": _normal(gen, (d_model, d_ff), s_in),
-            "w_up": _normal(gen, (d_model, d_ff), s_in),
-            "w_down": _normal(gen, (d_ff, d_model), s_out)}
+    params = {"w_gate": _normal(gen, (d_model, d_ff), s_in)} if swiglu else {}
+    params["w_up"] = _normal(gen, (d_model, d_ff), s_in)
+    params["w_down"] = _normal(gen, (d_ff, d_model), s_out)
+    return params
+
+
+def gelu(x):
+    """`jax.nn.gelu`'s default, the tanh approximation (torch's own default
+    is the exact erf form)."""
+    return F.gelu(x, approximate="tanh")
 
 
 def mlp(params, x, swiglu: bool = True):
+    """SwiGLU, or (swiglu False, whisper) gelu(x w_up) w_down."""
     if not swiglu:
-        raise NotImplementedError("repro_torch: the GELU MLP (whisper) is not "
-                                  "ported yet; see ROADMAP.md queue 1")
+        return (gelu(x @ params["w_up"]) @ params["w_down"]).to(x.dtype)
     g = F.silu(x @ params["w_gate"])
     return ((g * (x @ params["w_up"])) @ params["w_down"]).to(x.dtype)
 

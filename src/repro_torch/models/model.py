@@ -8,10 +8,13 @@ build_model(cfg, device) -> Model with:
   init_caches(batch, seq)             -> cache tree
 and count_params(cfg, active_only) beside it.
 
-Batch layout: {"tokens": (B, S) int}.  Configs with an encoder or image
-memory are not ported yet (ROADMAP.md, queue 1), nor is the
-reference's `input_specs` (a dry-run helper).  `device` is where init and
-init_caches allocate; it defaults to the card and does not drop to the CPU.
+Batch layout: {"tokens": (B, S) int}, plus per family the stubbed
+frontend's output, as the reference's: encdec `enc_frames` (B, S_enc, D)
+frame embeddings (the encoder's input), vlm `img_embed` (B, n_img, D)
+patch embeddings (the cross attention's memory as they are).  The
+reference's `input_specs` (a dry-run helper) has no counterpart.  `device`
+is where init and init_caches allocate; it defaults to the card and does
+not drop to the CPU.
 """
 from __future__ import annotations
 
@@ -23,6 +26,8 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers, mamba, transformer
 from repro_torch.models.layers import DTYPE
+
+ENCODER_PATTERN = (("B", "D"),)
 
 
 class Model(NamedTuple):
@@ -37,12 +42,8 @@ class Model(NamedTuple):
 
 def build_model(cfg: ModelConfig, device: str | torch.device = "cuda"
                 ) -> Model:
-    if cfg.encoder is not None or cfg.n_img_tokens:
-        raise NotImplementedError(
-            f"repro_torch: {cfg.name} needs the encoder / image-memory "
-            f"branch, which is not ported yet; see ROADMAP.md queue 1")
     for mx, ff in cfg.pattern:
-        transformer.check_ported(mx, ff)
+        transformer.check_block(mx, ff)
     dev = resolve_device(device)
     V = cfg.padded_vocab
     emb_scale = torch.tensor(cfg.d_model ** 0.5, dtype=DTYPE, device=dev)
@@ -55,12 +56,30 @@ def build_model(cfg: ModelConfig, device: str | torch.device = "cuda"
                   "ln_f": layers.init_rmsnorm(cfg.d_model, dev)}
         if not cfg.tie_embeddings:
             params["head"] = layers.init_lm_head(gen, cfg.d_model, V)
+        if cfg.encoder is not None:
+            params["encoder"] = transformer.init_stack(
+                gen, cfg, pattern=ENCODER_PATTERN,
+                n_super=cfg.encoder.n_layers, first_k_dense=0)
+            params["ln_enc"] = layers.init_rmsnorm(cfg.d_model, dev)
         return params
+
+    def memory(params, batch):
+        """The cross attention's memory: the encoder's output after ln_enc,
+        or the image embeddings in bf16; None for a decoder alone."""
+        if cfg.encoder is not None:
+            enc, _ = transformer.apply_stack(
+                params["encoder"], batch["enc_frames"].to(DTYPE), cfg,
+                pattern=ENCODER_PATTERN)
+            return layers.rmsnorm(params["ln_enc"], enc, cfg.norm_eps)
+        if cfg.n_img_tokens:
+            return batch["img_embed"].to(DTYPE)
+        return None
 
     def apply(params, batch):
         x = layers.embed(params["embed"], batch["tokens"]).to(DTYPE)
         x = x * emb_scale
-        x, aux = transformer.apply_stack(params["decoder"], x, cfg)
+        x, aux = transformer.apply_stack(params["decoder"], x, cfg,
+                                         memory=memory(params, batch))
         return layers.rmsnorm(params["ln_f"], x, cfg.norm_eps), aux
 
     def logits(params, hidden):
@@ -69,7 +88,14 @@ def build_model(cfg: ModelConfig, device: str | torch.device = "cuda"
         return hidden @ params["head"]["w"]
 
     def init_caches(batch: int, seq: int) -> dict:
-        return transformer.init_caches(cfg, batch, seq, dev)
+        """With an encoder or image memory, each 'C' block also gets a zero
+        cross cache of n_img_tokens entries (else seq), as the
+        reference's."""
+        mem_len = 0
+        if cfg.encoder is not None or cfg.n_img_tokens:
+            mem_len = cfg.n_img_tokens or seq
+        return transformer.init_caches(cfg, batch, seq, dev,
+                                       memory_len=mem_len)
 
     def decode_step(params, token, caches, position: int):
         """token: (B,1) int. Returns (logits (B,1,V), new caches)."""
@@ -100,6 +126,8 @@ def _block_params(cfg: ModelConfig, mixer: str, ffn: str,
     else:
         a = cfg.attn
         n += D * a.n_heads * a.head_dim * 2 + D * a.n_kv * a.head_dim * 2
+        if mixer == "C":            # the cross attention's projections
+            n += D * a.n_heads * a.head_dim * 2 + D * a.n_kv * a.head_dim * 2
     mult = 3 if cfg.swiglu else 2
     if ffn == "D":
         n += mult * D * cfg.d_ff
@@ -113,9 +141,10 @@ def _block_params(cfg: ModelConfig, mixer: str, ffn: str,
 
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     """Parameters of the model; `active_only`: those one token meets (the
-    top-k routed experts of each MoE block, not all of them)."""
+    top-k routed experts of each MoE block, not all of them).  The
+    encoder's blocks count; the norms are counted as the reference's."""
     for mx, ff in cfg.pattern:
-        transformer.check_ported(mx, ff)
+        transformer.check_block(mx, ff)
     n = cfg.padded_vocab * cfg.d_model          # embedding
     if not cfg.tie_embeddings:
         n += cfg.padded_vocab * cfg.d_model     # head
@@ -123,4 +152,6 @@ def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
                                            active_only)
     for mx, ff in cfg.pattern:
         n += cfg.n_super * _block_params(cfg, mx, ff, active_only)
+    if cfg.encoder is not None:
+        n += cfg.encoder.n_layers * _block_params(cfg, "B", "D", active_only)
     return n

@@ -27,18 +27,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoECfg
-from repro_torch.models.layers import _normal
-
-
-def _gelu_not_ported() -> NotImplementedError:
-    return NotImplementedError("repro_torch: the GELU MLP (whisper) is not "
-                               "ported yet, in the MoE FFN either; see "
-                               "ROADMAP.md queue 1")
+from repro_torch.models.layers import _normal, gelu
 
 
 def init_moe(gen, d_model: int, cfg: MoECfg, swiglu: bool = True) -> dict:
-    if not swiglu:
-        raise _gelu_not_ported()
+    """The reference's leaves whatever `swiglu` (without it the gates
+    `w_gate`/`ws_gate` are drawn and never read, as there)."""
     E, Fe = cfg.n_routed, cfg.d_expert
     s_in, s_out = d_model ** -0.5, Fe ** -0.5
     params = {
@@ -61,21 +55,20 @@ def _capacity(n_tokens: int, cfg: MoECfg) -> int:
 
 
 def moe_ffn(params, x, cfg: MoECfg, swiglu: bool = True):
-    """x: (B, S, D) -> (B, S, D), plus aux metrics dict."""
-    if not swiglu:
-        raise _gelu_not_ported()
+    """x: (B, S, D) -> (B, S, D), plus aux metrics dict.  swiglu False:
+    GELU experts (and shared experts), gelu(x w_up) w_down."""
     B, S, D = x.shape
     T = B * S
     G = max(cfg.dispatch_groups, 1)
     if T % G or (T // G) * cfg.top_k < cfg.n_routed:
         G = 1
     if G > 1:
-        outs, auxs = zip(*(_moe_dispatch(params, xg, cfg)
+        outs, auxs = zip(*(_moe_dispatch(params, xg, cfg, swiglu)
                            for xg in x.reshape(G, T // G, 1, D)))
         aux = {k: torch.stack([a[k] for a in auxs]).mean()
                for k in auxs[0]}
         return torch.stack(outs).reshape(B, S, D), aux
-    return _moe_dispatch(params, x, cfg)
+    return _moe_dispatch(params, x, cfg, swiglu)
 
 
 def select_experts(logits, cfg: MoECfg):
@@ -138,7 +131,7 @@ def route(params, xf, cfg: MoECfg) -> dict:
                 tok_slots=tok_slots)
 
 
-def _moe_dispatch(params, x, cfg: MoECfg):
+def _moe_dispatch(params, x, cfg: MoECfg, swiglu: bool = True):
     """Single-group dispatch (the reference's `_moe_dispatch`)."""
     B, S, D = x.shape
     T = B * S
@@ -148,8 +141,11 @@ def _moe_dispatch(params, x, cfg: MoECfg):
     C, tok_of_slot, valid_slot = r["C"], r["tok_of_slot"], r["valid_slot"]
 
     xe = xf[tok_of_slot.long()] * valid_slot[..., None].to(x.dtype)  # (E,C,D)
-    h = F.silu(torch.bmm(xe, params["w_gate"]))
-    h = h * torch.bmm(xe, params["w_up"])
+    if swiglu:
+        h = F.silu(torch.bmm(xe, params["w_gate"]))
+        h = h * torch.bmm(xe, params["w_up"])
+    else:
+        h = gelu(torch.bmm(xe, params["w_up"]))
     ye = torch.bmm(h, params["w_down"])                           # (E, C, D)
 
     w = (r["gate_of_slot"] * valid_slot)[..., None].to(x.dtype)
@@ -162,9 +158,11 @@ def _moe_dispatch(params, x, cfg: MoECfg):
     for j in range(K):
         out = out + yw[r["tok_slots"][:, j]]
 
-    if cfg.n_shared:
+    if cfg.n_shared and swiglu:
         g = F.silu(xf @ params["ws_gate"])
         out = out + (g * (xf @ params["ws_up"])) @ params["ws_down"]
+    elif cfg.n_shared:
+        out = out + gelu(xf @ params["ws_up"]) @ params["ws_down"]
 
     # load-balance aux (Switch-style): E * sum_e f_e * p_e
     me = torch.softmax(r["logits"], dim=-1).mean(dim=0)

@@ -218,3 +218,80 @@ def test_window_argument_is_checked():
     assert ops.HEAD_DIMS == (16, 32, 64, 128, 256)
     assert ops.kernel_for(torch.bfloat16, 256) == "wgmma_bf16"
     assert ops.kernel_for(torch.float32, 256) == "cuda_core_f32"
+
+
+# ---------------------------------------------------------------------------
+# non-causal with S_kv != S (the encoder's 'B' layers and cross attention)
+# ---------------------------------------------------------------------------
+
+KV_CASES = [(1, 48, 16), (40, 17, 16), (100, 1500, 64), (448, 1500, 64),
+            (300, 77, 128), (513, 2100, 32)]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("S,S_kv,hd", KV_CASES)
+def test_attention_ref_separate_kv_length_matches_reference(S, S_kv, hd,
+                                                            dtype):
+    """attention_ref, non-causal, q (B, H, S, hd) against k/v (B, H, S_kv,
+    hd): the reference's own `attention_ref` and its model's dense
+    `attend` of kind 'bidir' on the same inputs; and the wrapper's CPU path
+    on un-expanded GQA K/V (no launch)."""
+    B, H, K = 2, 4, 2
+    (jq, jk, jv), (q, k, v) = _inputs(S + S_kv + hd, [(B, S, H, hd),
+                                                      (B, S_kv, K, hd),
+                                                      (B, S_kv, K, hd)],
+                                      dtype)
+    tol = DTYPES[dtype][3]
+    kk, vv = _expand_kv(k, H), _expand_kv(v, H)
+    got = attention_ref(q.transpose(1, 2), kk.transpose(1, 2),
+                        vv.transpose(1, 2), causal=False).transpose(1, 2)
+    jkk, jvv = jax_expand_kv(jk, H), jax_expand_kv(jv, H)
+    want = jax_attention_ref(jq.transpose(0, 2, 1, 3), jkk.transpose(0, 2, 1, 3),
+                             jvv.transpose(0, 2, 1, 3), causal=False)
+    np.testing.assert_allclose(_np(got), _np(want.transpose(0, 2, 1, 3)),
+                               rtol=tol, atol=tol)
+    want = jax_attend(jq, jkk, jvv, "bidir", 0, hd ** -0.5)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+    ops.reset_launches()
+    flash = ops.gqa_flash_attention_kv(q, k, v, causal=False)
+    assert ops.launches["flash_attention"] == 0
+    assert flash.shape == q.shape and flash.dtype == q.dtype
+    np.testing.assert_allclose(_np(flash), _np(got), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("S,S_kv,kv_valid", [(1024, 1500, 1500),
+                                             (512, 2100, 2100),
+                                             (1024, 3072, 2600)])
+def test_attend_chunked_kv_valid_matches_reference(S, S_kv, kv_valid):
+    """attend_chunked of kind 'bidir' with K/V padded to a CHUNK_KV multiple
+    and the keys at or past `kv_valid` masked, against the reference's."""
+    B, H, hd = 1, 2, 32
+    (jq, jk, jv), (q, k, v) = _inputs(S_kv + kv_valid, [(B, S, H, hd),
+                                                        (B, S_kv, H, hd),
+                                                        (B, S_kv, H, hd)],
+                                      "f32")
+    want = jax_attend_chunked(jq, jk, jv, "bidir", 0, hd ** -0.5,
+                              kv_valid=kv_valid)
+    got = attend_chunked(q, k, v, "bidir", 0, hd ** -0.5, kv_valid=kv_valid)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_separate_kv_length_is_checked():
+    """Causal needs S_kv == S (the reference asserts it, attention.py:105);
+    S_kv 0 is refused; `gqa_flash_attention` keeps the reference wrapper's
+    contract (S_kv == S)."""
+    q = torch.zeros((1, 64, 2, 16))
+    kv = torch.zeros((1, 80, 2, 16))
+    with pytest.raises(ValueError, match="S_kv == S"):
+        ops.gqa_flash_attention_kv(q, kv, kv, causal=True)
+    with pytest.raises(ValueError, match="S_kv"):
+        ops.gqa_flash_attention_kv(q, kv[:, :0], kv[:, :0], causal=False)
+    with pytest.raises(ValueError, match="window"):
+        ops.gqa_flash_attention_kv(q, kv, kv, causal=False, window=8)
+    with pytest.raises(ValueError, match=r"\(B, S, K, hd\)"):
+        ops.gqa_flash_attention(q, kv, kv, causal=False)
+    with pytest.raises(ValueError, match="S_kv == S"):
+        attention_ref(q.transpose(1, 2), kv.transpose(1, 2),
+                      kv.transpose(1, 2), causal=True)
+    assert ops.gqa_flash_attention_kv(q, kv, kv, causal=False).shape == q.shape

@@ -933,3 +933,103 @@ def test_moe_layer_repeat_runs_equal_on_card(cuda):
             moe.route(params, x.reshape(T, -1), cfg.moe)
         routes.check(f"deepseek-moe-16b MoE layer T {T}, card vs CPU")
         assert routes.seen == T
+
+
+# ---------------------------------------------------------------------------
+# non-causal flash with S_kv != S (the encoder's 'B' layers and cross
+# attention), each CUDA kernel; whole 'B' and 'C' blocks at full width
+# ---------------------------------------------------------------------------
+
+KV_KERNELS = [(torch.bfloat16, 16, "mma_sync_bf16"),
+              (torch.bfloat16, 32, "mma_sync_bf16"),
+              (torch.bfloat16, 64, "wgmma_bf16"),
+              (torch.bfloat16, 128, "wgmma_bf16"),
+              (torch.bfloat16, 256, "wgmma_bf16"),
+              (torch.float32, 32, "cuda_core_f32"),
+              (torch.float32, 128, "cuda_core_f32")]
+
+
+@pytest.mark.parametrize("dtype,hd,kernel", KV_KERNELS,
+                         ids=[f"{k}-hd{h}" for _, h, k in KV_KERNELS])
+@pytest.mark.parametrize("S,S_kv", [(100, 1500), (448, 1500), (1500, 1500),
+                                    (300, 77), (1000, 17), (130, 129),
+                                    (1, 200)])
+def test_flash_attention_separate_kv_length_each_kernel(cuda, dtype, hd,
+                                                        kernel, S, S_kv):
+    """Non-causal, q (B, S) against k/v (B, S_kv): S_kv above and below S,
+    ragged on both sides (the last query and key tiles part-full), against
+    the plain version within BARS."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import BARS, compare
+    assert ops.kernel_for(dtype, hd) == kernel
+    gen = torch.Generator(device=cuda).manual_seed(S + S_kv + hd)
+    q = torch.randn((2, S, 4, hd), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((2, S_kv, 2, hd), generator=gen,
+                        device=cuda).to(dtype) for _ in range(2))
+    before = dict(ops.kernel_launches)
+    got = ops.gqa_flash_attention_kv(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert {n: c - before[n] for n, c in ops.kernel_launches.items()} == {
+        n: int(n == kernel) for n in ops.KERNELS}
+    assert got.shape == q.shape and got.dtype == dtype
+    cmp = compare(got, _flash_plain(q, k, v, causal=False))
+    assert cmp["ok"], (cmp, BARS[dtype])
+
+
+def test_flash_attention_causal_separate_kv_length_raises(cuda):
+    """Causal with S_kv != S: the wrapper raises before any launch, and the
+    C launcher refuses it too (cudaErrorInvalidValue), as does a window
+    without causal."""
+    from repro_torch.kernels.flash_attention import ops
+    q = torch.zeros((1, 64, 2, 64), device=cuda, dtype=torch.bfloat16)
+    kv = torch.zeros((1, 96, 2, 64), device=cuda, dtype=torch.bfloat16)
+    out = torch.empty_like(q)
+    before = ops.launches["flash_attention"]
+    with pytest.raises(ValueError, match="S_kv == S"):
+        ops.gqa_flash_attention_kv(q, kv, kv, causal=True)
+    assert ops.launches["flash_attention"] == before
+    lib = ops._lib()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for causal, window, s_kv in ((1, 0, 96), (0, 8, 96), (0, 0, 0)):
+        code = lib.flash_attention_launch(
+            q.data_ptr(), kv.data_ptr(), kv.data_ptr(), out.data_ptr(), 1, 64,
+            s_kv, 2, 2, 64, 0.125, causal, window, ops.KERNELS["wgmma_bf16"],
+            stream)
+        assert code != 0, (causal, window, s_kv)
+
+
+ENCDEC_BLOCKS = [("whisper-large-v3", 448, 1500),
+                 ("llama-3.2-vision-11b", 256, 1601)]
+
+
+@pytest.mark.parametrize("arch,S,S_mem", ENCDEC_BLOCKS)
+def test_full_width_encdec_block_card_matches_cpu(cuda, arch, S, S_mem):
+    """One full-width 'C' block on the card (kernels) against the CPU path,
+    final hidden state, the zoo's bf16 bar: whisper's with one encoder 'B'
+    block before it (enc_frames S 1500, tokens 448: the 'B' self-attention,
+    the causal self-attention and the 448 x 1500 cross attention, three
+    launches), llama-vision's against 1601 image tokens (two launches)."""
+    import dataclasses
+    from repro_torch.configs import EncoderCfg, get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import build_model
+    from repro_torch.testing import hold_bf16, tree_to
+    cfg = dataclasses.replace(get_config(arch), n_layers=1,
+                              pattern=(("C", "D"),))
+    if cfg.encoder is not None:
+        cfg = dataclasses.replace(cfg, encoder=EncoderCfg(n_layers=1,
+                                                          dec_seq=S))
+    card, cpu = build_model(cfg, cuda), build_model(cfg, "cpu")
+    params = card.init(6)
+    g = torch.Generator().manual_seed(6)
+    batch = {"tokens": torch.randint(1, cfg.vocab, (1, S), generator=g)}
+    key = "enc_frames" if cfg.encoder is not None else "img_embed"
+    batch[key] = torch.randn((1, S_mem, cfg.d_model), generator=g).bfloat16()
+    with torch.inference_mode():
+        want = cpu.apply(tree_to(params, "cpu"), batch)[0]
+        before = ops.kernel_launches["wgmma_bf16"]
+        got = card.apply(params, {k: v.to(cuda) for k, v in batch.items()})[0]
+        torch.cuda.synchronize()
+    n = 3 if cfg.encoder is not None else 2
+    assert ops.kernel_launches["wgmma_bf16"] == before + n
+    hold_bf16(got, want, f"{arch} 'C' block")

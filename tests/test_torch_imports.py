@@ -57,7 +57,9 @@ def test_port_has_files_to_scan():
                  "configs/gemma3_12b.py", "configs/deepseek_moe_16b.py",
                  "configs/qwen3_32b.py", "configs/phi3_medium_14b.py",
                  "configs/mixtral_8x22b.py",
-                 "configs/jamba_1_5_large_398b.py", "testing.py"):
+                 "configs/jamba_1_5_large_398b.py", "testing.py",
+                 "configs/whisper_large_v3.py",
+                 "configs/llama_3_2_vision_11b.py"):
         assert want in names
     assert (ROOT / "chip_smoke.py").exists()
     assert {p.name for p in (PORT / "csrc").glob("*.cu")} == {
@@ -107,8 +109,9 @@ def test_model_zoo_entry_points_default_to_cuda():
     else:
         with pytest.raises(RuntimeError, match="cuda"):
             build_model(get_config("mamba2-370m", smoke=True))
-        with pytest.raises(RuntimeError, match="cuda"):
-            main(["--arch", "mamba2-370m", "--smoke"])
+        for arch in ("mamba2-370m", "whisper-large-v3"):
+            with pytest.raises(RuntimeError, match="cuda"):
+                main(["--arch", arch, "--smoke"])
 
 
 def test_zoo_wrappers_on_cpu_take_the_plain_version_and_count_nothing():

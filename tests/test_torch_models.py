@@ -191,38 +191,30 @@ def test_serve_smoke_cpu_completes_every_request(arch, capsys):
 
 
 def test_device_policy_and_unported_parts_raise():
-    """The device policy, and what stays unported raising with a pointer to
-    ROADMAP.md: whisper's config and model (the encoder, cross-attention and
-    the GELU MLP), kinds 'bidir' and cross attention, and the MoE FFN
-    without SwiGLU."""
+    """The device policy: `build_model` defaults to the card and raises
+    without one (no drop to the CPU), on the CPU when asked; every arch of
+    the reference builds there (whisper's encoder, cross attention and GELU
+    MLP included since they were ported), and what is no part of the zoo
+    raises: an unknown arch, block kind or attention kind."""
     import dataclasses
 
-    from repro.configs import get_config as jax_cfg
-    from repro_torch.configs.base import EncoderCfg, MoECfg
-    from repro_torch.models import moe
+    from repro.configs import ARCHS as JAX_ARCHS
+    from repro_torch.configs import ARCHS as PORT_ARCHS
     cfg = get_config("minitron-8b", smoke=True)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             build_model(cfg)
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("whisper-large-v3")
-    w = jax_cfg("whisper-large-v3", smoke=True)
-    whisper = dataclasses.replace(
-        cfg, name=w.name, family=w.family, pattern=w.pattern,
-        swiglu=w.swiglu, encoder=EncoderCfg(**dataclasses.asdict(w.encoder)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(whisper, device="cpu")
+        with pytest.raises(RuntimeError, match="cuda"):
+            build_model(get_config("whisper-large-v3", smoke=True))
+    assert PORT_ARCHS == JAX_ARCHS
+    for arch in PORT_ARCHS:
+        m = build_model(get_config(arch, smoke=True), device="cpu")
+        assert m.device == torch.device("cpu")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("whisper-tiny")
+    with pytest.raises(ValueError, match="mixers"):
+        build_model(dataclasses.replace(cfg, pattern=(("X", "D"),)), "cpu")
     x = torch.zeros((1, 8, cfg.d_model), dtype=torch.bfloat16)
-    m = build_model(cfg, device="cpu")
-    blk = m.init(0)["decoder"]["supers"][0]["0"]["mixer"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention.self_attention(blk, x, cfg.attn, "bidir")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention.cross_attention(blk, x, x, cfg.attn)
-    mcfg = MoECfg(n_routed=4, top_k=2, d_expert=16)
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        moe.init_moe(gen, cfg.d_model, mcfg, swiglu=False)
-    params = moe.init_moe(gen, cfg.d_model, mcfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        moe.moe_ffn(params, x, mcfg, swiglu=False)
+    blk = build_model(cfg, device="cpu").init(0)["decoder"]["supers"][0]
+    with pytest.raises(ValueError, match="kind"):
+        attention.self_attention(blk["0"]["mixer"], x, cfg.attn, "cross")
