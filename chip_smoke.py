@@ -1329,14 +1329,15 @@ def per_forward(cfg) -> dict[str, int]:
     """Kernel launches one prefill forward of `cfg` makes: flash once per
     attention layer (a leading dense block is one), twice per 'C' layer
     (its self-attention and its cross attention) and once per encoder
-    layer, the SSD scan once per Mamba layer."""
+    layer, the SSD scan once per Mamba layer; no backward."""
     n_attn = sum(mx in "AGWLB" for mx, _ in cfg.pattern) + 2 * sum(
         mx == "C" for mx, _ in cfg.pattern)
     n_enc = cfg.encoder.n_layers if cfg.encoder is not None else 0
     n_ssd = sum(mx == "M" for mx, _ in cfg.pattern)
     return {"flash_attention": (cfg.first_k_dense + cfg.n_super * n_attn
                                 + n_enc),
-            "ssd_scan": cfg.n_super * n_ssd}
+            "ssd_scan": cfg.n_super * n_ssd,
+            "flash_attention_bwd": 0, "ssd_scan_bwd": 0}
 
 
 def phase_zoo_model(dev) -> tuple[dict[str, int], dict]:
@@ -2321,6 +2322,435 @@ def phase_zoo_profile(dev) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Training (the LM training path of launch/train.py and its backward
+# kernels)
+# ---------------------------------------------------------------------------
+
+# The training cells: minitron-8b at full width with its depth cut from 32
+# to 4 layers (the training state of 32 layers, ~119 GB, exceeds the card),
+# mamba2-370m at full width and depth; both at S 4096, global batch 2 in 2
+# microbatches, 4 steps with a checkpoint every 2 and a node failure
+# injected before step 3 (the loop resumes at the step-2 checkpoint, so step
+# 2 runs twice: the replay must give the first run's loss).  minitron-8b
+# keeps int8 moments (`--quantized-opt`): with f32 moments its checkpoint
+# is 29 GB, which took 74 s to write and 76 s to read back on the chip
+# machine's disk (my chip run, PR 20), over this run's time budget; int8
+# moments make it ~12 GB.  (arch, layers or None, quantized optimizer)
+TRAIN_RUNS = (("minitron-8b", 4, True), ("mamba2-370m", None, False))
+TRAIN_SEQ = 4096
+TRAIN_BATCH = 2
+TRAIN_MICROBATCHES = 2
+TRAIN_STEPS = 4
+TRAIN_FAIL_AT = 3
+# card vs CPU, one step's loss and gradients (no optimizer step): the
+# [zoo-cpu] depth, B 1, S 256
+TRAIN_CPU_RUNS = (("minitron-8b", 2, 256), ("mamba2-370m", 2, 256))
+
+
+def _flash_bwd_inputs(dev, dtype, seed: int = 0):
+    """q, k, v and an output cotangent at minitron-8b's attention shape."""
+    import torch
+    q, k, v = flash_inputs(dev, dtype, seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    do = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+    return q, k, v, do
+
+
+def _kernel_grads(fn, xs, dy):
+    """torch.autograd.grad of fn(*xs) with cotangent dy, the inputs
+    detached and requiring grad (the card's path: the backward kernels)."""
+    import torch
+    xs = [t.detach().requires_grad_() for t in xs]
+    return torch.autograd.grad(fn(*xs), xs, dy)
+
+
+def phase_train_kernels(dev) -> list[dict]:
+    """The backward kernels (kernel rows 8 and 9) against autograd through
+    their plain versions on the same card inputs: flash attention's at
+    minitron-8b's shape (B 1, S 4096, H 32, K 8, hd 128), in f32 and bf16
+    within `GRAD_BARS` (flash_attention/ref.py), the SSD scan's at
+    mamba2-370m's (chunk 256), both decay cases, within 1e-4 relative L2
+    per gradient; two runs torch.equal; device time per launch from a CUDA
+    graph beside the bound, the plain version (autograd's forward plus
+    backward less its forward, CUDA events) and, for flash, SDPA's backward
+    (flash backend, timed alike); the variants not ported raise."""
+    from contextlib import nullcontext
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import (
+        GRAD_BARS, attention_grads_ref, attention_ref, compare_grad)
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_grads_ref
+    results = []
+
+    def nb(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    # ---- flash attention backward ----
+    a = get_config("minitron-8b").attn
+    H, K, hd, S = a.n_heads, a.n_kv, a.head_dim, ZOO_SEQ
+    scale = hd ** -0.5
+    flash = lambda q, k, v: fops.gqa_flash_attention_kv(q, k, v, causal=True)
+    frec = {}
+    for dtype, label in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        q, k, v, do = _flash_bwd_inputs(dev, dtype)
+        before = fops.launches["flash_attention_bwd"]
+        runs = [_kernel_grads(flash, (q, k, v), do) for _ in range(2)]
+        torch.cuda.synchronize()
+        if fops.launches["flash_attention_bwd"] != before + 2:
+            raise AssertionError(f"flash backward {label}: launches "
+                                 f"{fops.launches}")
+        if not all_equal(runs[0], runs[1]):
+            raise AssertionError(f"flash backward {label}: two card runs "
+                                 f"differ")
+        _, *want = attention_grads_ref(q, k, v, do)
+        cmps = {n: compare_grad(g, w) for n, g, w in
+                zip(("dq", "dk", "dv"), runs[0], want)}
+        if not all(c["ok"] for c in cmps.values()):
+            raise AssertionError(f"flash backward {label} beyond "
+                                 f"{GRAD_BARS[dtype]}: {cmps}")
+        del runs, want
+        lse = torch.empty((1, H, S), dtype=torch.float32, device=dev)
+        o = fops._forward(q, k, v, scale, True, 0, lse)
+        k_ms = graph_ms(lambda: fops.flash_backward(q, k, v, o, lse, do,
+                                                    scale), 5)
+
+        def plain_fb():
+            attention_grads_ref(q, k, v, do)
+
+        def plain_f():
+            kk, vv = (t.repeat_interleave(H // K, dim=2) for t in (k, v))
+            attention_ref(q.transpose(1, 2), kk.transpose(1, 2),
+                          vv.transpose(1, 2))
+        p_ms = event_ms(plain_fb, 2) - event_ms(plain_f, 2)
+        qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
+                      for t in (q, k, v))
+        dot = do.transpose(1, 2)
+        # SDPA's flash backend for bf16; torch's own choice for f32, which
+        # the flash backend does not take
+        backend = lambda: (sdpa_kernel(SDPBackend.FLASH_ATTENTION)
+                           if dtype == torch.bfloat16 else nullcontext())
+
+        def sdpa_fb():
+            with backend():
+                out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                     is_causal=True,
+                                                     enable_gqa=True)
+                torch.autograd.grad(out, (qt, kt, vt), dot)
+
+        def sdpa_f():
+            with backend(), torch.no_grad():
+                F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True)
+        lib_ms = event_ms(sdpa_fb, 5) - event_ms(sdpa_f, 5)
+        lib = ("SDPA backward, flash backend" if dtype == torch.bfloat16
+               else "SDPA backward, default backend")
+        pairs = H * visible_pairs(S, 0)
+        flops = 2.5 * 4 * hd * pairs        # 2.5 x the forward's products
+        nbytes = nb(q, k, v, o, do, lse) + nb(q, k, v)   # + dq, dk, dv
+        b_ms, b_by = bound(nbytes, flops, BF16_OPS_PER_S if
+                           dtype == torch.bfloat16 else F32_OPS_PER_S)
+        err = max(c["max_abs_err"] for c in cmps.values())
+        log(f"[train-kernels] flash_attention_bwd {label}: B=1 S={S} H={H} "
+            f"K={K} hd={hd} causal: "
+            + ", ".join(f"{n} max abs err {c['max_abs_err']:.3g} rel L2 "
+                        f"{c['rel_l2']:.3g}" for n, c in cmps.items())
+            + f" (bars {GRAD_BARS[dtype]}); two runs torch.equal; kernel "
+            f"{k_ms:.4f} ms/launch (graph), plain {p_ms:.4f} ms, {lib} "
+            f"{lib_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}, {flops:.4g} FLOP; "
+            f"{flops / k_ms / 1e9:.1f} TFLOP/s)")
+        frec[label] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                           bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                           library=lib)
+        del q, k, v, do, o, lse, qt, kt, vt
+        torch.cuda.empty_cache()
+    # the variants not ported: the forward runs, the backward raises
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    for what, kw, d, skv in (("window", dict(window=64), 128, 200),
+                             ("non-causal", dict(causal=False), 128, 200),
+                             ("S_kv != S", dict(causal=False), 64, 300),
+                             ("hd 32", {}, 32, 200), ("hd 16", {}, 16, 200),
+                             ("hd 256", {}, 256, 200)):
+        q = torch.randn((1, 200, 4, d), generator=gen, device=dev).bfloat16()
+        kv = torch.randn((1, skv, 2, d), generator=gen, device=dev
+                         ).bfloat16()
+        q.requires_grad_()
+        out = fops.gqa_flash_attention_kv(q, kv, kv, **kw)
+        try:
+            out.sum().backward()
+        except NotImplementedError:
+            continue
+        raise AssertionError(f"flash backward {what}: did not raise")
+    log("[train-kernels] flash backward of a window, non-causal, S_kv != S,"
+        " hd 32, 16 and 256: each forward ran, each backward raised "
+        "NotImplementedError")
+    results.append(dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="none: XLA's autodiff of src/repro/models/attention.py:83 "
+                 "attend / :92 attend_chunked (jax.value_and_grad, "
+                 "src/repro/train/train_step.py:541)",
+        **frec["bf16"], f32={k: v for k, v in frec["f32"].items()}))
+
+    # ---- SSD scan backward ----
+    cfg = get_config("mamba2-370m")
+    Q = cfg.ssm.chunk
+    err = 0.0
+    for carry in (False, True):
+        xs = ssd_inputs(dev, carry)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(7)
+        dy = torch.randn(xs[0].shape, generator=gen, device=dev)
+        before = sops.launches["ssd_scan_bwd"]
+        runs = [_kernel_grads(lambda *t: sops.ssd(*t, chunk=Q), xs, dy)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        if sops.launches["ssd_scan_bwd"] != before + 2:
+            raise AssertionError(f"ssd backward: launches {sops.launches}")
+        if not all_equal(runs[0], runs[1]):
+            raise AssertionError(f"ssd backward (carry {carry}): two card "
+                                 f"runs differ")
+        want = ssd_grads_ref(*xs, dy, chunk=Q)
+        rels = {n: float((g - w).norm() / w.norm()) for n, g, w in
+                zip(("dx", "db", "dc", "ddt", "da"), runs[0], want)}
+        if max(rels.values()) > 1e-4:
+            raise AssertionError(f"ssd backward (carry {carry}) beyond 1e-4 "
+                                 f"relative L2: {rels}")
+        e = max_abs_err(runs[0], want)
+        err = max(err, e)
+        log(f"[train-kernels] ssd_scan_bwd carry={carry}: relative L2 "
+            + ", ".join(f"{n} {r:.3g}" for n, r in rels.items())
+            + f" (bar 1e-4), max abs err {e:.3g}; two runs torch.equal")
+        del runs, want
+    xf = [t.contiguous() for t in xs]
+    y, states, seg_end, seg, cb = sops._forward(xf, Q)
+    k_ms = graph_ms(lambda: sops.ssd_backward(xf, dy, states, seg_end, seg,
+                                              cb, Q), 10)
+    p_ms = (event_ms(lambda: ssd_grads_ref(*xs, dy, chunk=Q), 2)
+            - event_ms(lambda: ssd_chunked(*xs, chunk=Q), 2))
+    Bz, L, Hs, P = xs[0].shape
+    N = xs[1].shape[-1]
+    nc = L // Q
+    # multiply-adds, from the kernels' loops at these shapes: the reverse
+    # state T_c (chunks 1..), per head the inter term's C R and the state's
+    # B G (chunks but the first / the last), M = dy x^T and (CB E dt)^T dy
+    # over the causal half, the head-summed dC / dB state terms again per
+    # head, and dCB's two products over the causal half
+    half = Q * (Q + 1) // 2
+    macs = Bz * (5 * (nc - 1) * Hs * Q * N * P + 2 * Hs * nc * half * P
+                 + 2 * nc * half * N)
+    flops = 2 * macs
+    moved = nb(*xs, dy, states, seg_end, seg, cb) + nb(*xs)
+    f_ms, f_by = bound(moved, flops)
+    t_ms, t_by = bound(moved, 3 * flops, TF32_OPS_PER_S)
+    b_ms, b_by = min((f_ms, f_by), (t_ms, t_by))
+    log(f"[train-kernels] ssd_scan_bwd B={Bz} L={L} H={Hs} P={P} N={N} "
+        f"chunk={Q}: kernel {k_ms:.4f} ms/launch (graph), plain {p_ms:.4f} "
+        f"ms, bound {f_ms:.4f} ms on f32 CUDA cores ({f_by}), {t_ms:.4f} ms "
+        f"as 3xTF32 ({t_by}), {flops:.4g} FLOP, {moved} B; "
+        f"{flops / k_ms / 1e9:.1f} TFLOP/s")
+    results.append(dict(
+        name="ssd_scan_bwd", route="cuda",
+        source="src/repro_torch/csrc/ssd_scan_bwd.cu",
+        replaces="none: XLA's autodiff of src/repro/models/mamba.py:104 "
+                 "chunk_step (jax.value_and_grad, "
+                 "src/repro/train/train_step.py:541)",
+        max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None))
+    return results
+
+
+def phase_train(dev) -> tuple[dict[str, int], dict]:
+    """The training main path (TRAIN_RUNS) through launch/train.py's
+    `train`: 4 steps with the restart drill, the kernels' counts set to 0
+    just before each arch and read just after.  Each step must launch the
+    arch's kernel exactly n_layers x microbatches times forward and as
+    often backward, the losses must be finite and the replayed step's loss
+    the first run's.  Then one more step under torch.profiler (busy share,
+    top kernels).  Returns the counts over the phase and the per-arch
+    numbers."""
+    import shutil
+    import torch
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch.train import train
+    from repro_torch.models.model import (build_model, count_params,
+                                          model_flops)
+    from repro_torch.train.optimizer import adamw, quantized_adamw
+    from repro_torch.train.train_step import make_train_step
+    ckpt_root = ROOT / "build" / "train_ckpt"
+    total = {}
+    by_arch = {}
+    log(f"[train] cells: S {TRAIN_SEQ}, global batch {TRAIN_BATCH} in "
+        f"{TRAIN_MICROBATCHES} microbatches, {TRAIN_STEPS} steps, a "
+        f"checkpoint every 2, a node failure injected before step "
+        f"{TRAIN_FAIL_AT}; AdamW (lr 1e-3, weight decay 0.01, clip 1.0), "
+        f"int8 moments where marked")
+    for arch, layers, quantized in TRAIN_RUNS:
+        shutil.rmtree(ckpt_root / arch, ignore_errors=True)
+        reset_zoo_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = train(arch, steps=TRAIN_STEPS, seq=TRAIN_SEQ,
+                    global_batch=TRAIN_BATCH,
+                    microbatches=TRAIN_MICROBATCHES, device=str(dev),
+                    layers=layers, fail_at=(TRAIN_FAIL_AT,),
+                    checkpoint_every=2, keep=1, quantized_opt=quantized,
+                    ckpt_dir=str(ckpt_root / arch),
+                    log=lambda m, a=arch: log(f"[train] {a}: {m}"))
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        counts = zoo_launches()
+        cfg = res["cfg"]
+        L = res["losses"]
+        n_runs = len(L)                 # steps run, the replay included
+        mixer = "ssd_scan" if cfg.ssm is not None else "flash_attention"
+        per_step = cfg.n_layers * TRAIN_MICROBATCHES
+        want = {mixer: per_step * n_runs, f"{mixer}_bwd": per_step * n_runs}
+        other = "flash_attention" if mixer == "ssd_scan" else "ssd_scan"
+        want.update({other: 0, f"{other}_bwd": 0})
+        if counts != want:
+            raise AssertionError(f"{arch} training launched {counts}, "
+                                 f"expected {want}")
+        if res["restarts"] != 1 or n_runs != TRAIN_STEPS + 1:
+            raise AssertionError(f"{arch}: restarts {res['restarts']}, "
+                                 f"{n_runs} steps run")
+        if not all(map(lambda x: x == x and abs(x) < float("inf"), L)):
+            raise AssertionError(f"{arch}: losses not finite: {L}")
+        if L[2] != L[3]:
+            raise AssertionError(f"{arch}: step 2 gave {L[2]} and, replayed "
+                                 f"from the checkpoint, {L[3]}")
+        times = res["step_times"]
+        step_s = sorted(times[1:])[len(times[1:]) // 2]     # median, warm
+        tokens = res["tokens_per_step"]
+        mflops = model_flops(cfg, ShapeCfg("train_cell", TRAIN_SEQ,
+                                           TRAIN_BATCH, "train"))
+        # one more step under the profiler, on the trained state
+        model = build_model(cfg, dev)
+        opt = (quantized_adamw if quantized else adamw)(
+            1e-3, weight_decay=0.01, grad_clip=1.0)
+        step_fn = make_train_step(model, opt,
+                                  microbatches=TRAIN_MICROBATCHES)
+        from repro_torch.train.data import DataConfig, SyntheticDataset
+        batch = next(SyntheticDataset(DataConfig(
+            vocab=cfg.vocab, seq=TRAIN_SEQ, global_batch=TRAIN_BATCH),
+            start_step=TRAIN_STEPS, device=dev))
+        p, s = res["params"], res["opt_state"]
+        prof_wall, rows = profiled(lambda: step_fn(
+            p, s, batch, torch.tensor(TRAIN_STEPS, device=dev)))
+        dev_us = sum(r[0] for r in rows)
+        busy = dev_us / 1e6 / prof_wall
+        n = count_params(cfg)
+        depth = ("" if layers is None else
+                 f", depth cut from {get_config_layers(arch)} to {layers}")
+        log(f"[train] {arch}: {n / 1e9:.3f} B params ({cfg.n_layers} layers"
+            f"{depth}, d_model {cfg.d_model}; "
+            f"{'int8' if quantized else 'f32'} moments); losses "
+            f"{[round(x, 4) for x in L]} (step 2 replayed after the restart:"
+            f" {L[2]} == {L[3]}); step {step_s:.3f} s warm (steps "
+            f"{[round(t, 3) for t in times]}), {tokens / step_s:.0f} "
+            f"tokens/s, model_flops {mflops:.4g} = "
+            f"{mflops / step_s / BF16_OPS_PER_S:.4f} of the bf16 peak; "
+            f"peak device memory {peak / 2**30:.2f} GiB; wall {wall:.1f} s "
+            f"with the checkpoints; launches {json.dumps(counts)} "
+            f"({per_step} forward and {per_step} backward a step)")
+        log(f"[train] {arch} profile of one step: wall {prof_wall:.3f} s "
+            f"(profiler on), device kernels {dev_us / 1e3:.1f} ms in "
+            f"{sum(r[1] for r in rows)} launches, busy share {busy:.4f}")
+        for us, cnt, key in rows[:6]:
+            log(f"[train]   {us / 1e3:8.3f} ms {cnt:6d}x "
+                f"({100 * us / dev_us:4.1f}%)  {key[:80]}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        by_arch[arch] = dict(params=n, layers=cfg.n_layers, step_s=step_s,
+                             quantized_opt=quantized,
+                             tokens_per_s=tokens / step_s,
+                             mfu=mflops / step_s / BF16_OPS_PER_S,
+                             peak_gib=peak / 2**30, busy_share=busy,
+                             losses=L, launches=counts)
+        del res, p, s, model, step_fn, batch
+        shutil.rmtree(ckpt_root / arch, ignore_errors=True)
+        torch.cuda.empty_cache()
+    reduced = {arch: f"n_layers {get_config_layers(arch)} -> {layers}"
+               for arch, layers, _ in TRAIN_RUNS if layers is not None}
+    log(f"[train] reduced: {json.dumps(reduced)}")
+    return total, by_arch
+
+
+def hold_bf16_on_card(got, want, what: str) -> float:
+    """The zoo's bf16 bar (`repro_torch.testing.hold_bf16`: rtol
+    BF16_RTOL, atol BF16_RTOL x max |want|) evaluated on the card, where
+    a billion-entry embedding gradient compares in a fraction of a second;
+    returns max abs err / max |want|."""
+    import torch
+    from repro_torch.testing import BF16_RTOL
+    g, w = got.float(), want.to(got.device).float()
+    if g.shape != w.shape:
+        raise AssertionError(f"{what}: shape {tuple(g.shape)} against "
+                             f"{tuple(w.shape)}")
+    top = float(w.abs().max())
+    if not torch.allclose(g, w, rtol=BF16_RTOL, atol=BF16_RTOL * top):
+        raise AssertionError(f"{what}: differs beyond rtol {BF16_RTOL}, "
+                             f"atol {BF16_RTOL * top:.3g}: max abs "
+                             f"{float((g - w).abs().max()):.3g}")
+    return float((g - w).abs().max()) / max(top, 1e-30)
+
+
+def phase_train_card_vs_cpu(dev) -> None:
+    """TRAIN_CPU_RUNS at full width, B 1: one step's loss and every
+    gradient leaf (no optimizer step) on the card (kernels forward and
+    backward) against the port's CPU path (plain versions, autograd) on
+    the same weights and tokens, within the zoo's bf16 bar (the leaves
+    compared on the card)."""
+    import torch
+    from repro_torch.core.tree import leaf_paths, tree_leaves, tree_unflatten
+    from repro_torch.models import build_model
+    from repro_torch.testing import hold_bf16, tree_to
+    from repro_torch.train.train_step import make_loss_fn
+
+    def value_and_grad(model, params, batch):
+        leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+        loss, _ = make_loss_fn(model)(tree_unflatten(params, leaves), batch)
+        return loss, tree_unflatten(params, list(torch.autograd.grad(
+            loss, leaves)))
+
+    for arch, layers, seq in TRAIN_CPU_RUNS:
+        cfg = zoo_config(arch, layers)
+        card, cpu = build_model(cfg, dev), build_model(cfg, "cpu")
+        params = card.init(1)
+        tokens = zoo_tokens(dev, cfg, seq + 1, seed=1)
+        batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+        reset_zoo_launches()
+        loss_card, g_card = value_and_grad(card, params, batch)
+        torch.cuda.synchronize()
+        counts = zoo_launches()
+        t0 = time.perf_counter()
+        loss_cpu, g_cpu = value_and_grad(cpu, tree_to(params, "cpu"),
+                                         tree_to(batch, "cpu"))
+        t_cpu = time.perf_counter() - t0
+        verdict = hold_bf16(loss_card.detach(), loss_cpu.detach(),
+                            f"{arch} loss")
+        worst = max((hold_bf16_on_card(gc, gp, f"{arch} gradient {k}"), k)
+                    for (k, gc), (_, gp) in zip(leaf_paths(g_card),
+                                                leaf_paths(g_cpu)))
+        log(f"[train-cpu] {arch} depth {layers}, B 1, S {seq}, full width: "
+            f"loss card {float(loss_card.detach()):.5f} vs CPU "
+            f"{float(loss_cpu.detach()):.5f} "
+            f"({verdict}); every one of {len(tree_leaves(g_cpu))} gradient "
+            f"leaves within the bar (worst max abs / max |CPU| "
+            f"{worst[0]:.3g} at {worst[1]}); card launches "
+            f"{json.dumps(counts)}; CPU step {t_cpu:.1f} s")
+        del params, g_card, g_cpu, card, cpu
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2373,6 +2803,11 @@ def main() -> int:
     zoo_counts, zoo_archs = timed(phase_zoo_model, dev)
     launches.update(zoo_counts)
     timed(phase_zoo_profile, dev)
+    kernels += timed(phase_train_kernels, dev)
+    timed(phase_train_card_vs_cpu, dev)
+    train_counts, train_archs = timed(phase_train, dev)
+    for name, n in train_counts.items():
+        launches[name] = launches.get(name, 0) + n
     log(f"[time] wall seconds by phase: {json.dumps(walls)}")
     for k in kernels:
         name = k["name"]
@@ -2392,6 +2827,13 @@ def main() -> int:
             k["launches_by_arch"] = {a: r["launches"][name]
                                      for a, r in zoo_archs.items()
                                      if r["launches"][name]}
+        if train_counts.get(name):
+            # the training cells' run (forward with the LSE store, and the
+            # backward kernels)
+            k["launches_train"] = train_counts[name]
+            k["launches_train_by_arch"] = {
+                a: r["launches"][name] for a, r in train_archs.items()
+                if r["launches"][name]}
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"[card] {card}")

@@ -75,6 +75,12 @@
 // window (flash_in_turns.py).  Keys at or past S_kv are masked (TMA fills
 // rows past S_kv with zeros), so a ragged S or S_kv needs no padding here:
 // query tiles run to S, key tiles to S_kv.
+//
+// Training (`flash_attention_lse_launch`): the wgmma and f32 kernels also
+// store each row's log-sum-exp m + log l (natural units, (B, H, S) f32),
+// from which the backward kernels (flash_attention_bwd.cu) recompute P.
+// The store is a compile-time flag (kLse), a separate instantiation as the
+// window is, so prefill, which passes no LSE, runs the code it ran before.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -676,9 +682,10 @@ __device__ __forceinline__ void softmax_tile(
 // tiles 2 kk and 2 kk + 1 are the A fragment of the P.V k-step kk.
 // This is the consumer warpgroups' side of `flash_wgmma_kernel`: it reads
 // K/V tiles tile0 .. n_tiles - 1, the i-th of them from stage i % 2.
-template <int HD, bool kRawMax, bool kWindow>
+template <int HD, bool kRawMax, bool kWindow, bool kLse>
 __device__ __forceinline__ void flash_consume(WgSmem<HD>& sm,
                                               __nv_bfloat16* __restrict__ o,
+                                              float* __restrict__ lse,
                                               int S, int Skv, int H, int b,
                                               int h, int q0, int tile0,
                                               int n_tiles, float scale,
@@ -731,6 +738,15 @@ __device__ __forceinline__ void flash_consume(WgSmem<HD>& sm,
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  if constexpr (kLse) {
+    // the row's log-sum-exp of the scaled scores, natural units (m is in
+    // log2 units): what the backward recomputes P from
+    if (t == 0) {
+      float* lb = lse + ((size_t)b * H + h) * S;
+      if (r0 < S) lb[r0] = m0 * 0.6931471805599453f + logf(l0);
+      if (r1 < S) lb[r1] = m1 * 0.6931471805599453f + logf(l1);
+    }
+  }
   const size_t qrow = (size_t)H * HD;
   __nv_bfloat16* ob = o + (size_t)b * S * qrow + (size_t)h * HD;
 #pragma unroll
@@ -745,13 +761,14 @@ __device__ __forceinline__ void flash_consume(WgSmem<HD>& sm,
   }
 }
 
-template <int HD, bool kRawMax, bool kWindow>
+template <int HD, bool kRawMax, bool kWindow, bool kLse>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
                    __nv_bfloat16* __restrict__ o, int S, int Skv, int H,
-                   int K, float scale, int causal, int window) {
+                   int K, float scale, int causal, int window,
+                   float* __restrict__ lse) {
   constexpr int NP = HD / kPanel;           // 64-column panels per row
   constexpr int BKV = wg_bkv(HD);
   constexpr uint32_t kv_bytes = 2u * NP * BKV * kPanel * 2;   // K + V tile
@@ -801,9 +818,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
   } else {
     // ---- consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63 ----
-    flash_consume<HD, kRawMax, kWindow>(sm, o, S, Skv, H, b, h, q0, tile0,
-                                        n_tiles, scale, causal, window,
-                                        role);
+    flash_consume<HD, kRawMax, kWindow, kLse>(sm, o, lse, S, Skv, H, b, h,
+                                              q0, tile0, n_tiles, scale,
+                                              causal, window, role);
   }
 }
 
@@ -815,11 +832,12 @@ constexpr int kBKV32 = 32;     // keys per tile
 // Thread (ty, tx) = (tid / 8, tid % 8) owns query rows ty + 16 i (i < 4);
 // for the scores, keys tx + 8 j (j < 4); for the output, columns tx + 8 c.
 
-template <int HD, bool kWindow>
+template <int HD, bool kWindow, bool kLse>
 __global__ void __launch_bounds__(kThreads)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int S,
-                 int Skv, int H, int K, float scale, int causal, int window) {
+                 int Skv, int H, int K, float scale, int causal, int window,
+                 float* __restrict__ lse) {
   constexpr int LDQ = HD + 1;
   constexpr int OC = HD / 8;    // output columns per thread
   extern __shared__ float smem[];
@@ -939,16 +957,19 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = q0 + ty + 16 * i;
     if (row >= S) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    if constexpr (kLse) {   // the row's log-sum-exp, for the backward
+      if (tx == 0) lse[((size_t)b * H + h) * S + row] = m[i] + logf(l[i]);
+    }
 #pragma unroll
     for (int c = 0; c < OC; ++c)
       ob[(size_t)row * qrow + tx + 8 * c] = acc[i][c] * inv;
   }
 }
 
-template <int HD, bool kWindow>
+template <int HD, bool kWindow, bool kLse = false>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                int S, int Skv, int H, int K, float scale, int causal,
-               int window, cudaStream_t stream) {
+               int window, cudaStream_t stream, float* lse) {
   const size_t smem = sizeof(float) * ((size_t)(kBQ + kBKV32) * (HD + 1) +
                                        (size_t)kBKV32 * HD +
                                        (size_t)kBQ * (kBKV32 + 1));
@@ -956,24 +977,24 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_f32_kernel<HD, kWindow>,
+        flash_f32_kernel<HD, kWindow, kLse>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   dim3 grid(B * H, (S + kBQ - 1) / kBQ);
-  flash_f32_kernel<HD, kWindow><<<grid, kThreads, smem, stream>>>(
+  flash_f32_kernel<HD, kWindow, kLse><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), S, Skv, H, K,
-      scale, causal, window);
+      scale, causal, window, lse);
   return (int)cudaGetLastError();
 }
 
 template <int HD, bool kWindow>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
                 int S, int Skv, int H, int K, float scale, int causal,
-                int window, cudaStream_t stream) {
+                int window, cudaStream_t stream, float*) {
   constexpr size_t smem = 4 * (size_t)kBKV16 * (HD + 8) * sizeof(uint16_t);
   // once per instantiation, outside any CUDA-graph capture that follows
   static bool configured = false;
@@ -1038,16 +1059,16 @@ cudaError_t head_map(CUtensorMap* map, const void* base, int B, int S,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int HD, bool kRawMax, bool kWindow>
+template <int HD, bool kRawMax, bool kWindow, bool kLse = false>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
                  int S, int Skv, int H, int K, float scale, int causal,
-                 int window, cudaStream_t stream) {
+                 int window, cudaStream_t stream, float* lse) {
   constexpr size_t smem = sizeof(WgSmem<HD>) + 1024;   // + alignment slack
   // once per instantiation, outside any CUDA-graph capture that follows
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_wgmma_kernel<HD, kRawMax, kWindow>,
+        flash_wgmma_kernel<HD, kRawMax, kWindow, kLse>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     configured = true;
@@ -1058,10 +1079,10 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
   if (e == cudaSuccess) e = head_map(&tv, v, B, Skv, K, HD, wg_bkv(HD));
   if (e != cudaSuccess) return (int)e;
   dim3 grid(B * H, (S + kWgBQ - 1) / kWgBQ);
-  flash_wgmma_kernel<HD, kRawMax, kWindow><<<grid, kWgThreads, smem,
-                                              stream>>>(
+  flash_wgmma_kernel<HD, kRawMax, kWindow, kLse><<<grid, kWgThreads, smem,
+                                                    stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, Skv, H, K, scale,
-      causal, window);
+      causal, window, lse);
   return (int)cudaGetLastError();
 }
 
@@ -1070,9 +1091,10 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
 template <int HD>
 int launch_wgmma_any(const void* q, const void* k, const void* v, void* o,
                      int B, int S, int Skv, int H, int K, float scale,
-                     int causal, int window, cudaStream_t stream) {
+                     int causal, int window, cudaStream_t stream,
+                     float* lse) {
 #define REPRO_WG_ARGS q, k, v, o, B, S, Skv, H, K, scale, causal, window, \
-                      stream
+                      stream, lse
   if (scale > 0.f)
     return window > 0 ? launch_wgmma<HD, true, true>(REPRO_WG_ARGS)
                       : launch_wgmma<HD, true, false>(REPRO_WG_ARGS);
@@ -1082,16 +1104,19 @@ int launch_wgmma_any(const void* q, const void* k, const void* v, void* o,
 }
 
 using Launcher = int (*)(const void*, const void*, const void*, void*, int,
-                        int, int, int, int, float, int, int, cudaStream_t);
+                        int, int, int, int, float, int, int, cudaStream_t,
+                        float*);
 
 // The instantiation a launch of the mma.sync or f32 kernel takes: the
 // window's tests only with a window.
 template <Launcher kPlain, Launcher kWindowed>
 int launch_windowed(const void* q, const void* k, const void* v, void* o,
                     int B, int S, int Skv, int H, int K, float scale,
-                    int causal, int window, cudaStream_t stream) {
+                    int causal, int window, cudaStream_t stream,
+                    float* lse) {
   return (window > 0 ? kWindowed : kPlain)(q, k, v, o, B, S, Skv, H, K,
-                                           scale, causal, window, stream);
+                                           scale, causal, window, stream,
+                                           lse);
 }
 
 }  // namespace
@@ -1118,7 +1143,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
 #define REPRO_FLASH_ARGS q, k, v, o, B, S, S_kv, H, K, scale, causal, window, \
-                         stream
+                         stream, nullptr
   switch (kernel * 1000 + hd) {
     case 16: return launch_windowed<launch_f32<16, false>,
                                     launch_f32<16, true>>(REPRO_FLASH_ARGS);
@@ -1140,6 +1165,31 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef REPRO_FLASH_ARGS
+}
+
+// The training forward: as flash_attention_launch, and also the row
+// log-sum-exp lse (B, H, S) float32 of the scaled scores, which the
+// backward (flash_attention_bwd.cu) recomputes P from.  Causal, no window,
+// S_kv == S, scale > 0; kernel 0 (f32) or 2 (wgmma), hd 64 or 128: the
+// variants the backward takes.  A separate instantiation (kLse), so the
+// prefill path above runs the code it ran before the store existed.
+int flash_attention_lse_launch(const void* q, const void* k, const void* v,
+                               void* o, void* lse, int B, int S, int H,
+                               int K, int hd, float scale, int kernel,
+                               void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (!(scale > 0.f) || lse == nullptr) return (int)cudaErrorInvalidValue;
+  if (B == 0 || S == 0) return 0;
+  float* l = static_cast<float*>(lse);
+#define REPRO_LSE_ARGS q, k, v, o, B, S, S, H, K, scale, 1, 0, stream, l
+  switch (kernel * 1000 + hd) {
+    case 64: return launch_f32<64, false, true>(REPRO_LSE_ARGS);
+    case 128: return launch_f32<128, false, true>(REPRO_LSE_ARGS);
+    case 2064: return launch_wgmma<64, true, false, true>(REPRO_LSE_ARGS);
+    case 2128: return launch_wgmma<128, true, false, true>(REPRO_LSE_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef REPRO_LSE_ARGS
 }
 
 }  // extern "C"

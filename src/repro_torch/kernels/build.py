@@ -21,12 +21,13 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("epoch_fused", "dueling_qnet", "flash_attention", "ssd_scan",
-           "threefry", "batched_linear")
+           "threefry", "batched_linear", "flash_attention_bwd",
+           "ssd_scan_bwd")
 
 # sm_90a (Hopper) for every source.  -fmad=false (no a*b+c contraction)
 # only where a contract is exact: the epoch core's EMA decay then +1.0 adds
 # and TOM scores, threefry's uniform scaling and choice sums, and the
-# TD step's batched products and sums (batch-invariant order).  The dueling Q-network's and the zoo kernels' bars are
+# TD step's batched products and sums (batch-invariant order).  The dueling Q-network's and the zoo kernels' bars (their backward kernels' too) are
 # tolerances, so their products, softmax and decay arithmetic may contract
 # into FMAs.
 BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -34,7 +35,8 @@ BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 EXACT_FLAGS = ("-fmad=false",)
 SOURCE_FLAGS = {"epoch_fused": EXACT_FLAGS, "dueling_qnet": (),
                 "flash_attention": (), "ssd_scan": (),
-                "threefry": EXACT_FLAGS, "batched_linear": EXACT_FLAGS}
+                "threefry": EXACT_FLAGS, "batched_linear": EXACT_FLAGS,
+                "flash_attention_bwd": (), "ssd_scan_bwd": ()}
 
 
 def nvcc_flags(name: str) -> tuple[str, ...]:

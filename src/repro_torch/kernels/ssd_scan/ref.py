@@ -71,3 +71,12 @@ def ssd_chunked(x, b, c, dt, a, *, chunk: int):
         R = R * _clip_exp(seg_end[:, 0, :])[:, :, None, None] + S
         ys.append(y_intra + y_inter)
     return torch.stack(ys, dim=1).reshape(Bsz, L, H, P)
+
+
+def ssd_grads_ref(x, b, c, dt, a, dy, *, chunk: int):
+    """The plain version of the backward: dx, db, dc, ddt, da by autograd
+    through `ssd_chunked`, on whatever device the inputs are."""
+    xs = [t.detach().requires_grad_() for t in (x, b, c, dt, a)]
+    with torch.enable_grad():
+        y = ssd_chunked(*xs, chunk=chunk)
+        return torch.autograd.grad(y, xs, dy)

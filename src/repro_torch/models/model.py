@@ -6,7 +6,8 @@ build_model(cfg, device) -> Model with:
   logits(params, hidden)              -> (.., V_padded)
   decode_step(params, token, caches, position) -> (logits (B,1,V), caches)
   init_caches(batch, seq)             -> cache tree
-and count_params(cfg, active_only) beside it.
+and count_params(cfg, active_only), model_flops(cfg, shape) and
+abstract_init(model) beside it.
 
 Batch layout: {"tokens": (B, S) int}, plus per family the stubbed
 frontend's output, as the reference's: encdec `enc_frames` (B, S_enc, D)
@@ -23,7 +24,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeCfg
 from repro_torch.models import layers, mamba, transformer
 from repro_torch.models.layers import DTYPE
 
@@ -42,9 +43,12 @@ class Model(NamedTuple):
 
 def build_model(cfg: ModelConfig, device: str | torch.device = "cuda"
                 ) -> Model:
+    return _build_on(cfg, resolve_device(device))
+
+
+def _build_on(cfg: ModelConfig, dev: torch.device) -> Model:
     for mx, ff in cfg.pattern:
         transformer.check_block(mx, ff)
-    dev = resolve_device(device)
     V = cfg.padded_vocab
     emb_scale = torch.tensor(cfg.d_model ** 0.5, dtype=DTYPE, device=dev)
 
@@ -109,6 +113,27 @@ def build_model(cfg: ModelConfig, device: str | torch.device = "cuda"
     return Model(cfg, dev, init, apply, logits, decode_step, init_caches)
 
 
+def abstract_init(model: Model) -> dict:
+    """The parameter tree's shapes and dtypes without allocating anything:
+    `model.init` traced under a `FakeTensorMode` (the random draws make no
+    storage), every leaf returned as a tensor on the meta device
+    (`.shape`, `.dtype`).  The reference also returns each leaf's sharding
+    role; the port's `init` builds none, so roles wait for the sharding
+    slice (ROADMAP.md queue 1)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        fake = _build_on(model.cfg, torch.device("cpu")).init(0)
+
+    def meta(tree):
+        if isinstance(tree, dict):
+            return {k: meta(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [meta(v) for v in tree]
+        return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
+
+    return meta(fake)
+
+
 # ---------------------------------------------------------------------------
 # Parameter accounting (analytic, as the reference's)
 # ---------------------------------------------------------------------------
@@ -155,3 +180,44 @@ def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     if cfg.encoder is not None:
         n += cfg.encoder.n_layers * _block_params(cfg, "B", "D", active_only)
     return n
+
+
+def model_flops(cfg: ModelConfig, shape: ShapeCfg) -> float:
+    """MODEL_FLOPS, as the reference's: 6 N D for training (N the active
+    parameters, D the tokens), 2 N D for an inference step, plus the
+    attention score and value products written out (a causal layer at S / 2
+    average context, a windowed one at min(window, S))."""
+    n_active = count_params(cfg, active_only=True)
+    B, S = shape.global_batch, shape.seq
+    if shape.kind == "train":
+        tokens = B * S
+        flops = 6.0 * n_active * tokens
+        mult = 3.0
+    elif shape.kind == "prefill":
+        tokens = B * S
+        flops = 2.0 * n_active * tokens
+        mult = 1.0
+    else:  # decode: one token, but attention reads the full cache
+        tokens = B
+        flops = 2.0 * n_active * tokens
+        mult = 1.0
+    a = cfg.attn
+    attn_layers = sum(1 for mx, _ in cfg.pattern if mx in "AGWLCB")
+    n_attn = cfg.n_super * attn_layers + cfg.first_k_dense
+    if cfg.encoder is not None and shape.kind != "decode":
+        n_attn += cfg.encoder.n_layers
+    hdim = a.n_heads * a.head_dim
+    if shape.kind == "decode":
+        flops += mult * n_attn * 4.0 * B * S * hdim
+    else:
+        per_layer = 0.0
+        for mx, _ in cfg.pattern:
+            if mx in ("W", "L"):
+                ctx = min(a.window, S)
+            elif mx in ("A", "G", "C", "B"):
+                ctx = S / 2
+            else:
+                continue
+            per_layer += 4.0 * B * S * ctx * hdim
+        flops += mult * cfg.n_super * per_layer
+    return flops

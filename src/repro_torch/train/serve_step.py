@@ -1,13 +1,18 @@
 """Serving: batched decode with KV caches and simple continuous batching
-(slot-based request admission); port of `repro/train/serve_step.py`."""
+(slot-based request admission), and temperature / top-k sampling; port of
+`repro/train/serve_step.py`."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.models.model import Model
+
+_TINY = float(np.finfo(np.float32).tiny)
 
 
 def make_serve_step(model: Model) -> Callable:
@@ -20,6 +25,21 @@ def make_serve_step(model: Model) -> Callable:
         return nxt[:, None].to(torch.int32), caches
 
     return serve_step
+
+
+def sample_token(logits: torch.Tensor, key: torch.Tensor,
+                 temperature: float = 1.0, top_k: int = 0) -> torch.Tensor:
+    """Temperature + top-k sampling in float32: one draw over the last axis
+    for every leading index, with `key` ((2,), the port's threefry key).
+    `jax.random.categorical` as jax 0.9 draws it: the argmax of logits plus
+    Gumbel noise -log(-log(u)), u uniform in [tiny, 1) from the key over
+    the logits' shape (its "low" mode).  int64 (...)."""
+    lg = logits.to(torch.float32) / max(temperature, 1e-5)
+    if top_k:
+        kth = torch.topk(lg, top_k, dim=-1).values[..., -1:]
+        lg = torch.where(lg < kth, torch.full_like(lg, -1e9), lg)
+    u = prng.uniform(key, tuple(lg.shape), _TINY, 1.0)
+    return torch.argmax(-torch.log(-torch.log(u)) + lg, dim=-1)
 
 
 @dataclasses.dataclass

@@ -22,7 +22,8 @@ def test_exact_kernels_keep_fmad_false(name):
 
 
 @pytest.mark.parametrize("name", ["dueling_qnet", "flash_attention",
-                                  "ssd_scan"])
+                                  "ssd_scan", "flash_attention_bwd",
+                                  "ssd_scan_bwd"])
 def test_zoo_kernels_may_contract(name):
     assert not any(f.startswith("-fmad") for f in build.nvcc_flags(name))
 

@@ -1033,3 +1033,176 @@ def test_full_width_encdec_block_card_matches_cpu(cuda, arch, S, S_mem):
     n = 3 if cfg.encoder is not None else 2
     assert ops.kernel_launches["wgmma_bf16"] == before + n
     hold_bf16(got, want, f"{arch} 'C' block")
+
+
+# ---------------------------------------------------------------------------
+# training: the backward kernels (flash_attention_bwd.cu, ssd_scan_bwd.cu)
+# against autograd through their plain versions (flash: GRAD_BARS of
+# flash_attention/ref.py; SSD: 1e-4 relative L2 per gradient), two runs
+# torch.equal, and the variants that are not ported raising
+# ---------------------------------------------------------------------------
+
+def _flash_train_inputs(dev, B, S, H, K, hd, dtype, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((B, S, n, hd), generator=gen, device=dev).to(dtype)
+            for n in (H, K, K, H)]
+
+
+def _flash_grads(q, k, v, do, **kw):
+    from repro_torch.kernels.flash_attention import ops
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    out = ops.gqa_flash_attention_kv(q, k, v, **kw)
+    return (out.detach(), *torch.autograd.grad(out, (q, k, v), do))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,K,hd", [(2, 100, 4, 2, 64),
+                                        (1, 384, 8, 2, 128),
+                                        (2, 1000, 4, 4, 64),
+                                        (1, 4096, 32, 8, 128)])
+def test_flash_backward_within_bars(cuda, B, S, H, K, hd, dtype):
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import (
+        GRAD_BARS, attention_grads_ref, compare_grad)
+    q, k, v, do = _flash_train_inputs(cuda, B, S, H, K, hd, dtype, S + hd)
+    before = dict(ops.launches)
+    out, *got = _flash_grads(q, k, v, do, causal=True)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention"] == before["flash_attention"] + 1
+    assert (ops.launches["flash_attention_bwd"]
+            == before["flash_attention_bwd"] + 1)
+    ref_out, *want = attention_grads_ref(q, k, v, do)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        cmp = compare_grad(g, w)
+        assert cmp["ok"], (name, cmp, GRAD_BARS[dtype])
+    # the forward with the LSE store gives the prefill forward's bits
+    with torch.no_grad():
+        plain_fwd = ops.gqa_flash_attention_kv(q, k, v, causal=True)
+    assert torch.equal(out, plain_fwd)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_lse_is_the_rows_logsumexp(cuda, dtype):
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import visible
+    B, S, H, K, hd = 1, 300, 4, 2, 128
+    q, k, v, _ = _flash_train_inputs(cuda, B, S, H, K, hd, dtype, 5)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=cuda)
+    ops._forward(q, k, v, hd ** -0.5, True, 0, lse)
+    kk = k.repeat_interleave(H // K, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk.float()) * hd ** -0.5
+    s = s.masked_fill(~visible(S, S, 0, cuda), float("-inf"))
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_backward_two_runs_equal(cuda, dtype):
+    q, k, v, do = _flash_train_inputs(cuda, 1, 1000, 8, 2, 128, dtype, 9)
+    first = _flash_grads(q, k, v, do, causal=True)
+    second = _flash_grads(q, k, v, do, causal=True)
+    _equal(first, second)
+
+
+@pytest.mark.parametrize("kw,hd,S_kv", [
+    (dict(causal=True, window=64), 128, None),
+    (dict(causal=False), 128, None), (dict(causal=False), 64, 300),
+    (dict(causal=True), 32, None), (dict(causal=True), 16, None),
+    (dict(causal=True), 256, None)],
+    ids=["window", "non-causal", "s_kv", "hd32", "hd16", "hd256"])
+def test_flash_backward_variants_not_ported_raise(cuda, kw, hd, S_kv):
+    from repro_torch.kernels.flash_attention import ops
+    q, k, v, do = _flash_train_inputs(cuda, 1, 200, 4, 2, hd,
+                                      torch.bfloat16, 1)
+    if S_kv is not None:
+        k, v = (t[:, :1].expand(-1, S_kv, -1, -1).contiguous()
+                for t in (k, v))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    out = ops.gqa_flash_attention_kv(q, k, v, **kw)   # the forward runs
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        out.backward(do)
+
+
+@pytest.mark.parametrize("B,L,H,P,N,chunk", [(2, 64, 4, 16, 8, 32),
+                                             (1, 256, 4, 64, 128, 64),
+                                             (2, 512, 3, 48, 100, 128),
+                                             (1, 1024, 8, 64, 128, 256),
+                                             (1, 256, 2, 16, 16, 256)])
+def test_ssd_backward_within_bar(cuda, B, L, H, P, N, chunk):
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_grads_ref
+    gen = torch.Generator(device=cuda).manual_seed(L + P + N)
+    rnd = lambda *s: 0.5 * torch.randn(s, generator=gen, device=cuda)
+    x, b, c, dy = rnd(B, L, H, P), rnd(B, L, N), rnd(B, L, N), rnd(B, L, H, P)
+    dt = rnd(B, L, H).abs() * 0.2
+    a = -rnd(H).abs() - 0.1
+    xs = [t.requires_grad_() for t in (x, b, c, dt, a)]
+    before = dict(ops.launches)
+    y = ops.ssd(*xs, chunk=chunk)
+    got = torch.autograd.grad(y, xs, dy)
+    torch.cuda.synchronize()
+    assert ops.launches["ssd_scan_bwd"] == before["ssd_scan_bwd"] + 1
+    want = ssd_grads_ref(*xs, dy, chunk=chunk)
+    for name, g, w in zip(("dx", "db", "dc", "ddt", "da"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        rel = float((g - w).norm() / w.norm())
+        assert rel <= 1e-4, (name, rel)
+
+
+@pytest.mark.parametrize("carry", [False, True])
+def test_ssd_backward_main_shape_and_repeat(cuda, carry):
+    """mamba2-370m's SSD shape, gradients within 1e-4 relative L2, and two
+    runs torch.equal."""
+    from chip_smoke import ssd_inputs
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_grads_ref
+    xs = [t.requires_grad_() for t in ssd_inputs(cuda, carry)]
+    dy = torch.randn(xs[0].shape, device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(3))
+    runs = [torch.autograd.grad(ops.ssd(*xs, chunk=256), xs, dy)
+            for _ in range(2)]
+    _equal(runs[0], runs[1])
+    want = ssd_grads_ref(*xs, dy, chunk=256)
+    for name, g, w in zip(("dx", "db", "dc", "ddt", "da"), runs[0], want):
+        rel = float((g - w).norm() / w.norm())
+        assert rel <= 1e-4, (name, rel)
+
+
+def test_ssd_backward_chunk_not_ported_raises(cuda):
+    from repro_torch.kernels.ssd_scan import ops
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((1, 96, 2, 16), generator=gen, device=cuda)
+    b, c = (torch.randn((1, 96, 8), generator=gen, device=cuda)
+            for _ in range(2))
+    dt = torch.rand((1, 96, 2), generator=gen, device=cuda) * 0.1
+    a = -torch.ones(2, device=cuda)
+    xs = [t.requires_grad_() for t in (x, b, c, dt, a)]
+    y = ops.ssd(*xs, chunk=48)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        y.sum().backward()
+
+
+def test_smoke_train_loop_on_card(cuda, tmp_path):
+    """mamba2-370m's smoke config trains 4 steps on the card through
+    `train_loop` with a restart at step 2: finite losses, the same losses as
+    an uninterrupted run, and one SSD forward and backward launch per layer
+    and microbatch a step."""
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.launch.train import train
+    ops.reset_launches()
+    res = train("mamba2-370m", smoke=True, steps=4, seq=64, global_batch=2,
+                microbatches=2, ckpt_dir=str(tmp_path / "a"), device="cuda",
+                fail_at=(2,), checkpoint_every=2, log=lambda m: None)
+    per_step = 2 * 2            # n_layers x microbatches
+    # the failure strikes before step 2 runs; the loop resumes at step 2
+    assert ops.launches["ssd_scan_bwd"] == per_step * 4
+    ref = train("mamba2-370m", smoke=True, steps=4, seq=64, global_batch=2,
+                microbatches=2, ckpt_dir=str(tmp_path / "b"), device="cuda",
+                log=lambda m: None)
+    assert res["restarts"] == 1
+    assert all(np.isfinite(res["losses"]))
+    assert res["losses"] == ref["losses"]

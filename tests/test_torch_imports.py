@@ -59,12 +59,16 @@ def test_port_has_files_to_scan():
                  "configs/mixtral_8x22b.py",
                  "configs/jamba_1_5_large_398b.py", "testing.py",
                  "configs/whisper_large_v3.py",
-                 "configs/llama_3_2_vision_11b.py"):
+                 "configs/llama_3_2_vision_11b.py", "train/data.py",
+                 "train/elastic.py", "train/compression.py",
+                 "train/optimizer.py", "train/train_step.py",
+                 "train/loop.py", "launch/train.py"):
         assert want in names
     assert (ROOT / "chip_smoke.py").exists()
     assert {p.name for p in (PORT / "csrc").glob("*.cu")} == {
         "epoch_fused.cu", "dueling_qnet.cu", "flash_attention.cu",
-        "ssd_scan.cu", "threefry.cu", "batched_linear.cu"}
+        "ssd_scan.cu", "threefry.cu", "batched_linear.cu",
+        "flash_attention_bwd.cu", "ssd_scan_bwd.cu"}
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -114,6 +118,36 @@ def test_model_zoo_entry_points_default_to_cuda():
                 main(["--arch", arch, "--smoke"])
 
 
+def test_training_entry_points_default_to_cuda():
+    from repro_torch.launch.train import main
+    from repro_torch.train.data import DataConfig, SyntheticDataset
+    if torch.cuda.is_available():
+        ds = SyntheticDataset(DataConfig(vocab=16, seq=4, global_batch=2))
+        assert next(ds)["tokens"].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            SyntheticDataset(DataConfig(vocab=16, seq=4, global_batch=2))
+        with pytest.raises(RuntimeError, match="cuda"):
+            main(["--arch", "mamba2-370m", "--smoke", "--steps", "1"])
+
+
+def test_zoo_backward_on_cpu_is_plain_autograd_and_counts_nothing():
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd_scan import ops as sops
+    fops.reset_launches()
+    sops.reset_launches()
+    q = torch.randn((1, 64, 4, 16), requires_grad=True)
+    fops.gqa_flash_attention(q, q[:, :, :2], q[:, :, :2]).sum().backward()
+    xs = [torch.randn((1, 64, 2, 8)), torch.randn((1, 64, 4)),
+          torch.randn((1, 64, 4)), torch.rand((1, 64, 2)) * 0.1,
+          -torch.rand(2) - 0.1]
+    xs = [t.requires_grad_() for t in xs]
+    sops.ssd(*xs, chunk=32).sum().backward()
+    assert q.grad is not None and all(t.grad is not None for t in xs)
+    assert fops.launches == {"flash_attention": 0, "flash_attention_bwd": 0}
+    assert sops.launches == {"ssd_scan": 0, "ssd_scan_bwd": 0}
+
+
 def test_zoo_wrappers_on_cpu_take_the_plain_version_and_count_nothing():
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.ssd_scan import ops as sops
@@ -126,8 +160,8 @@ def test_zoo_wrappers_on_cpu_take_the_plain_version_and_count_nothing():
                  torch.randn((1, 64, 4)), torch.rand((1, 64, 2)) * 0.1,
                  -torch.rand(2) - 0.1, chunk=32)
     assert y.shape == (1, 64, 2, 8) and torch.isfinite(y).all()
-    assert fops.launches == {"flash_attention": 0}
-    assert sops.launches == {"ssd_scan": 0}
+    assert fops.launches == {"flash_attention": 0, "flash_attention_bwd": 0}
+    assert sops.launches == {"ssd_scan": 0, "ssd_scan_bwd": 0}
 
 
 def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
