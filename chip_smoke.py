@@ -137,6 +137,7 @@ exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -2332,11 +2333,13 @@ def phase_zoo_profile(dev) -> None:
 # mamba2-370m at full width and depth; both at S 4096, global batch 2 in 2
 # microbatches, 4 steps with a checkpoint every 2 and a node failure
 # injected before step 3 (the loop resumes at the step-2 checkpoint, so step
-# 2 runs twice: the replay must give the first run's loss).  minitron-8b
-# keeps int8 moments (`--quantized-opt`): with f32 moments its checkpoint
-# is 29 GB, which took 74 s to write and 76 s to read back on the chip
-# machine's disk (my chip run, PR 20), over this run's time budget; int8
-# moments make it ~12 GB.  (arch, layers or None, quantized optimizer)
+# 2 runs twice: the replay must give the first run's loss, and the state
+# read back must be `torch.equal` to the state that was saved).
+# minitron-8b keeps int8 moments (`--quantized-opt`): with f32 moments its
+# checkpoint is 29 GB, whose writes and read take minutes on the local
+# disk of a one-H100 machine (`train_restart_probe.py` runs that restart
+# and times them), over this run's time budget; int8 moments make it
+# ~12 GB.  (arch, layers or None, quantized optimizer)
 TRAIN_RUNS = (("minitron-8b", 4, True), ("mamba2-370m", None, False))
 TRAIN_SEQ = 4096
 TRAIN_BATCH = 2
@@ -2567,13 +2570,48 @@ def phase_train_kernels(dev) -> list[dict]:
     return results
 
 
+@contextlib.contextmanager
+def restore_spy():
+    """Within the block, `train_loop`'s first checkpoint also keeps a host
+    copy of the params and optimizer state it saves, in the port's layout,
+    and each restore, once it has copied the checkpoint into the state's
+    tensors, appends whether they are `torch.equal` to that copy to the
+    list yielded (the check runs through both layout conversions, the disk
+    and the copy back onto the device)."""
+    import torch
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.train import loop
+    to_disk, load_into = loop._to_disk, loop._load_into
+    saved, results = [], []
+
+    def spy_to_disk(model_cfg, params, opt_state):
+        if not saved:
+            saved.append(tree_leaves(tree_map(
+                lambda t: t.detach().to("cpu", copy=True),
+                [params, opt_state])))
+        return to_disk(model_cfg, params, opt_state)
+
+    def spy_load_into(params, opt_state, tree):
+        load_into(params, opt_state, tree)
+        got = tree_leaves([params, opt_state])
+        results.append(bool(saved) and len(got) == len(saved[0]) and all(
+            torch.equal(g, w.to(g.device)) for g, w in zip(got, saved[0])))
+
+    loop._to_disk, loop._load_into = spy_to_disk, spy_load_into
+    try:
+        yield results
+    finally:
+        loop._to_disk, loop._load_into = to_disk, load_into
+
+
 def phase_train(dev) -> tuple[dict[str, int], dict]:
     """The training main path (TRAIN_RUNS) through launch/train.py's
     `train`: 4 steps with the restart drill, the kernels' counts set to 0
     just before each arch and read just after.  Each step must launch the
     arch's kernel exactly n_layers x microbatches times forward and as
-    often backward, the losses must be finite and the replayed step's loss
-    the first run's.  Then one more step under torch.profiler (busy share,
+    often backward, the losses must be finite, the params and optimizer
+    state read back at the restart `torch.equal` to those saved at step 2
+    (`restore_spy`) and the replayed step's loss the first run's.  Then one more step under torch.profiler (busy share,
     top kernels).  Returns the counts over the phase and the per-arch
     numbers."""
     import shutil
@@ -2598,14 +2636,20 @@ def phase_train(dev) -> tuple[dict[str, int], dict]:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        res = train(arch, steps=TRAIN_STEPS, seq=TRAIN_SEQ,
-                    global_batch=TRAIN_BATCH,
-                    microbatches=TRAIN_MICROBATCHES, device=str(dev),
-                    layers=layers, fail_at=(TRAIN_FAIL_AT,),
-                    checkpoint_every=2, keep=1, quantized_opt=quantized,
-                    ckpt_dir=str(ckpt_root / arch),
-                    log=lambda m, a=arch: log(f"[train] {a}: {m}"))
+        with restore_spy() as restored:
+            res = train(arch, steps=TRAIN_STEPS, seq=TRAIN_SEQ,
+                        global_batch=TRAIN_BATCH,
+                        microbatches=TRAIN_MICROBATCHES, device=str(dev),
+                        layers=layers, fail_at=(TRAIN_FAIL_AT,),
+                        checkpoint_every=2, keep=1, quantized_opt=quantized,
+                        ckpt_dir=str(ckpt_root / arch),
+                        log=lambda m, a=arch: log(f"[train] {a}: {m}"))
         wall = time.perf_counter() - t0
+        if restored != [True]:
+            raise AssertionError(f"{arch}: the restart read back a state "
+                                 f"that differs from the one saved at step "
+                                 f"2 (or restored {len(restored)} times): "
+                                 f"{restored}")
         peak = torch.cuda.max_memory_allocated()
         counts = zoo_launches()
         cfg = res["cfg"]
@@ -2654,7 +2698,8 @@ def phase_train(dev) -> tuple[dict[str, int], dict]:
             f"{depth}, d_model {cfg.d_model}; "
             f"{'int8' if quantized else 'f32'} moments); losses "
             f"{[round(x, 4) for x in L]} (step 2 replayed after the restart:"
-            f" {L[2]} == {L[3]}); step {step_s:.3f} s warm (steps "
+            f" {L[2]} == {L[3]}; the restored params and optimizer state "
+            f"torch.equal to those saved at step 2); step {step_s:.3f} s warm (steps "
             f"{[round(t, 3) for t in times]}), {tokens / step_s:.0f} "
             f"tokens/s, model_flops {mflops:.4g} = "
             f"{mflops / step_s / BF16_OPS_PER_S:.4f} of the bf16 peak; "

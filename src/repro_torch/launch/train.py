@@ -7,14 +7,15 @@ device.
         --device cpu
 
 The reference's flags, plus `--device` (default the card; `cpu` runs the
-plain-torch path, as `launch/serve.py`), `--layers` (cut the depth, for a
-full-width model whose training state would not fit the card),
-and `--fail-at` / `--checkpoint-every` (the restart drill).  The
-reference places the model on a mesh of `--data-parallel` x
-`--model-parallel` devices; the port runs on one, and either flag above 1
-raises NotImplementedError (ROADMAP.md queue 1 items 2 and 4).  Weights
-are drawn from seed 0 on the device, as the reference's PRNGKey(0); AdamW (lr 1e-3, weight decay 0.01,
-clip 1.0), or its int8-moment form with `--quantized-opt`.
+plain-torch path, as `launch/serve.py`) and `--layers` (cut the depth,
+for a full-width model whose training state would not fit the card).
+`train` also takes the restart drill (`fail_at`, `checkpoint_every`) as
+keyword arguments.  The reference places the model on a mesh of
+`--data-parallel` x `--model-parallel` devices; the port runs on one,
+and either flag above 1 raises NotImplementedError (ROADMAP.md queue 1
+items 2 and 4).  Weights are drawn from seed 0 on the device, as the
+reference's PRNGKey(0); AdamW (lr 1e-3, weight decay 0.01, clip 1.0), or
+its int8-moment form with `--quantized-opt`.
 """
 from __future__ import annotations
 
@@ -95,9 +96,6 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to this many layers")
-    ap.add_argument("--fail-at", type=int, nargs="*", default=(),
-                    help="inject a node failure before each of these steps")
-    ap.add_argument("--checkpoint-every", type=int, default=None)
     args = ap.parse_args(argv)
     res = train(args.arch, smoke=args.smoke, steps=args.steps, seq=args.seq,
                 global_batch=args.global_batch,
@@ -105,8 +103,7 @@ def main(argv=None) -> int:
                 data_parallel=args.data_parallel,
                 model_parallel=args.model_parallel, ckpt_dir=args.ckpt_dir,
                 quantized_opt=args.quantized_opt, device=args.device,
-                layers=args.layers, fail_at=args.fail_at,
-                checkpoint_every=args.checkpoint_every)
+                layers=args.layers)
     ok = all(torch.isfinite(torch.tensor(res["losses"])).tolist())
     return 0 if ok else 1
 

@@ -63,16 +63,25 @@ def _from_disk(model_cfg, tree: list) -> tuple:
             opt_state_from_reference(model_cfg, opt_state))
 
 
+def _load_into(params, opt_state, tree: list) -> None:
+    """Copies a restored state (`_from_disk`'s, on the host) into the
+    state's own tensors, leaf by leaf: the device never holds two copies
+    of the state, whoever else keeps a reference to it (the caller's
+    `params` and `opt_state` are these very tensors, since the optimizers
+    update in place)."""
+    tree_map(lambda dst, src: dst.copy_(src), [params, opt_state], tree)
+
+
 def train_loop(train_step: Callable, params, opt_state,
                dataset: SyntheticDataset, cfg: LoopConfig,
                failures: SimulatedFailures | None = None,
                log: Callable = print,
                model_cfg: ModelConfig | None = None) -> dict:
     """Runs to cfg.total_steps, surviving injected failures by a restart
-    from the last committed checkpoint.  Returns the final params and
-    opt_state, the step, the losses of every step run (a step replayed
-    after a restart appears twice), restarts, stragglers and each step's
-    wall seconds."""
+    from the last committed checkpoint, which is read into `params` and
+    `opt_state` in place.  Returns the final params and opt_state, the
+    step, the losses of every step run (a step replayed after a restart
+    appears twice), restarts, stragglers and each step's wall seconds."""
     ckpt = CheckpointManager(cfg.checkpoint_dir, keep=cfg.keep)
     watchdog = StragglerWatchdog()
     device = dataset.device
@@ -84,13 +93,14 @@ def train_loop(train_step: Callable, params, opt_state,
                  opt_state_to_reference(model_cfg, meta[1])])
     restarts, step, losses = 0, 0, []
 
-    def restore():
-        tree, extras = ckpt.restore(template, device=device)
+    def restore(params, opt_state) -> int:
+        tree, extras = ckpt.restore(template, device="cpu")
         dataset.restore({"step": extras.get("data_step", extras["step"])})
-        return (*_from_disk(model_cfg, tree), extras["step"])
+        _load_into(params, opt_state, list(_from_disk(model_cfg, tree)))
+        return extras["step"]
 
     if ckpt.latest_step() is not None:
-        params, opt_state, step = restore()
+        step = restore(params, opt_state)
         log(f"[loop] resumed from step {step}")
 
     while step < cfg.total_steps:
@@ -127,8 +137,7 @@ def train_loop(train_step: Callable, params, opt_state,
         batch = None
         ckpt.wait()
         if ckpt.latest_step() is not None:
-            params = opt_state = None     # the restored state replaces it
-            params, opt_state, step = restore()
+            step = restore(params, opt_state)
         else:       # as the reference: the data from 0, the state kept
             step = 0
             dataset.restore({"step": 0})

@@ -544,11 +544,12 @@ def test_optimizer_state_carried_across_both_ways():
 # the loop and the launcher
 # ---------------------------------------------------------------------------
 
-def _loop(tmp, fail_at=(), steps=4):
+def _loop(tmp, fail_at=(), steps=4, quantized_opt=False):
     res = launch_train.train("mamba2-370m", smoke=True, steps=steps, seq=32,
                              global_batch=2, microbatches=2, device="cpu",
                              ckpt_dir=str(tmp), fail_at=fail_at,
-                             checkpoint_every=2, log=lambda msg: None)
+                             checkpoint_every=2, quantized_opt=quantized_opt,
+                             log=lambda msg: None)
     return res
 
 
@@ -567,6 +568,24 @@ def test_train_loop_restart_replays_the_uninterrupted_losses(loop_runs):
     assert len(L) == 5 and L[2] == L[3]
     assert L[:3] + L[4:] == clean["losses"]
     assert np.isfinite(L).all()
+
+
+@pytest.mark.parametrize("quantized_opt", [False, True])
+def test_train_loop_restart_ends_in_the_uninterrupted_state(tmp_path,
+                                                            quantized_opt):
+    """The restart restores the optimizer state too: a loss depends on the
+    params alone, so only the state after the replayed steps shows a lost
+    or corrupted moment.  f32 moments, and the int8 ones, which go through
+    `opt_state_to/from_reference`."""
+    failed = _loop(tmp_path / "failed", fail_at=(3,),
+                   quantized_opt=quantized_opt)
+    clean = _loop(tmp_path / "clean", quantized_opt=quantized_opt)
+    assert failed["restarts"] == 1
+    got = leaf_paths([failed["params"], failed["opt_state"]])
+    want = leaf_paths([clean["params"], clean["opt_state"]])
+    assert [k for k, _ in got] == [k for k, _ in want]
+    for (k, g), (_, w) in zip(got, want):
+        assert torch.equal(g, w), k
 
 
 def test_train_loop_checkpoint_restores_in_the_reference(loop_runs):
