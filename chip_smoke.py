@@ -129,6 +129,26 @@ Phases (each prints its lines; the run exits 0 only if every phase passes):
  9. profile: torch.profiler over one warm prefill forward and one serving
     loop of minitron-8b, mamba2-370m, whisper-large-v3 and
     llama-3.2-vision-11b (busy share, top kernels by device time).
+9b. training: `[train-kernels]`, the flash and SSD backward kernels
+    against autograd through their plain versions at minitron-8b's and
+    mamba2-370m's shapes (flash in bf16 and f32 within GRAD_BARS, SSD
+    within 1e-4), then the flash backward's other variants at the zoo's
+    full shapes (TRAIN_FLASH_SHAPES: gemma3-12b's global and local hd-256
+    layers, whisper-large-v3's encoder and cross attention,
+    llama-3.2-vision-11b's cross attention, mixtral-8x22b's window at S
+    8192), each in f32 at a small shape, two runs torch.equal, timed
+    beside the bound and SDPA's backward, hd 32 and 16 raising;
+    `[train-cpu]`, one step's loss and every gradient leaf card vs CPU at
+    full width (TRAIN_CPU_RUNS; MoE on the card's routes); `[train]`,
+    the training main path: minitron-8b (4 layers, int8 moments) and
+    mamba2-370m through `launch/train.py` with a checkpoint every 2 steps
+    and a failure injected before step 3, the restored state torch.equal
+    to the saved one, then gemma3-12b (6 layers), whisper-large-v3 (full
+    depth), llama-3.2-vision-11b (5 layers) and deepseek-moe-16b (4
+    layers) for 3 steps each (TRAIN_FAMILY_RUNS; the depth cuts in the
+    phase's `reduced` line), each step launching the kernels per_forward
+    x 2 microbatches times forward and as often backward, and one
+    profiled step per cell.
 10. each phase's wall seconds (`[time]`), a JSON line with every
     kernel's numbers, then the result line {"ok": true, "device": {...}}.
 
@@ -1297,29 +1317,40 @@ def reset_zoo_launches() -> None:
     sops.reset_launches()
 
 
-def zoo_tokens(dev, cfg, seq: int, seed: int = 0):
+def zoo_tokens(dev, cfg, seq: int, seed: int = 0, batch: int = ZOO_BATCH):
     import torch
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return torch.randint(1, cfg.vocab, (ZOO_BATCH, seq), generator=gen,
+    return torch.randint(1, cfg.vocab, (batch, seq), generator=gen,
                          device=dev)
 
 
-def zoo_batch(dev, cfg, seq: int, seed: int = 0) -> dict:
+def zoo_batch(dev, cfg, seq: int, seed: int = 0,
+              batch: int = ZOO_BATCH) -> dict:
     """The prefill batch of `cfg` on `dev`: tokens (B, seq), plus the
     stubbed frontend's output in bf16 from the seed: whisper's enc_frames
     (B, 1500, D), llama-vision's img_embed (B, n_img_tokens, D)."""
     import torch
-    batch = {"tokens": zoo_tokens(dev, cfg, seq, seed)}
+    out = {"tokens": zoo_tokens(dev, cfg, seq, seed, batch)}
     n_mem = (WHISPER_FRAMES if cfg.encoder is not None else
              cfg.n_img_tokens)
     if n_mem:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed + 1)
         key = "enc_frames" if cfg.encoder is not None else "img_embed"
-        batch[key] = torch.randn((ZOO_BATCH, n_mem, cfg.d_model),
-                                 generator=gen, device=dev).bfloat16()
-    return batch
+        out[key] = torch.randn((batch, n_mem, cfg.d_model),
+                               generator=gen, device=dev).bfloat16()
+    return out
+
+
+def zoo_train_batch(dev, cfg, seq: int, seed: int,
+                    batch: int = ZOO_BATCH) -> dict:
+    """`zoo_batch` of seq + 1 tokens as a training batch: tokens and
+    labels (B, seq), the next token's."""
+    out = zoo_batch(dev, cfg, seq + 1, seed, batch)
+    tokens = out.pop("tokens")
+    out.update(tokens=tokens[:, :-1], labels=tokens[:, 1:])
+    return out
 
 
 def zoo_config(arch: str, layers: int | None):
@@ -2356,9 +2387,226 @@ TRAIN_BATCH = 2
 TRAIN_MICROBATCHES = 2
 TRAIN_STEPS = 4
 TRAIN_FAIL_AT = 3
-# card vs CPU, one step's loss and gradients (no optimizer step): the
-# [zoo-cpu] depth, B 1, S 256
-TRAIN_CPU_RUNS = (("minitron-8b", 2, 256), ("mamba2-370m", 2, 256))
+# The rest of the single-card zoo's training cells: 3 steps each, no
+# checkpoint and no restart drill, S 4096 (whisper-large-v3: 448 tokens over
+# 1500 frames; llama-3.2-vision-11b over its 1601 image tokens), global batch
+# 2 in 2 microbatches, AdamW with f32 moments.  At 16 B a parameter
+# (bf16 params 2, a microbatch's bf16 gradients 2 and their f32 sum 4, f32
+# moments 8) the full depth of
+# gemma3-12b (~188 GB), llama-3.2-vision-11b (~162 GB) and deepseek-moe-16b
+# (~262 GB) exceeds the card, so each keeps one period: gemma3 6 of 48
+# layers (5 local : 1 global), llama-vision 5 of 40 (one 'C', four 'A'),
+# deepseek 4 of 28 (the dense first layer and 3 MoE layers); whisper trains
+# at full depth (32 + 32 layers).  (arch, layers or None, entry):
+# "train" is launch/train.py's `train` (tokens and labels), "step"
+# `make_train_step` on batches with the stubbed frontend's output (the
+# reference's data pipeline yields none).
+TRAIN_FAMILY_RUNS = (("gemma3-12b", 6, "train"),
+                     ("whisper-large-v3", None, "step"),
+                     ("llama-3.2-vision-11b", 5, "step"),
+                     ("deepseek-moe-16b", 4, "train"))
+TRAIN_FAMILY_STEPS = 3
+# card vs CPU, one step's loss and gradients (no optimizer step), B 1:
+# (arch, layers, S); at full width, the depth of [zoo-cpu] (gemma3-12b's 6
+# layers hold its global hd-256 layer; whisper-large-v3 2 + 2 at 1500 frames
+# and 448 tokens; llama-3.2-vision-11b's 5 one 'C' and four 'A' over 1601
+# image tokens; deepseek-moe-16b's 2 the dense first layer and one MoE
+# layer, on the card's routes)
+TRAIN_CPU_RUNS = (("minitron-8b", 2, 256), ("mamba2-370m", 2, 256),
+                  ("gemma3-12b", 6, 256),
+                  ("whisper-large-v3", 2, WHISPER_TOKENS),
+                  ("llama-3.2-vision-11b", 5, 256),
+                  ("deepseek-moe-16b", 2, 256))
+
+
+# The flash backward's other variants at the zoo's full shapes, bf16, B 1:
+# (label, arch, S, S_kv or None for causal, windowed).  gemma3-12b's global
+# and local layers (hd 256, window 1024), whisper-large-v3's encoder (non-
+# causal, S 1500) and cross attention (448 x 1500), llama-3.2-vision-11b's
+# cross attention (4096 x 1601, GQA 32 / 8) and mixtral-8x22b's 'W' layer
+# (S 8192, window 4096, GQA 48 / 8).
+TRAIN_FLASH_SHAPES = (
+    ("gemma3-12b global", "gemma3-12b", ZOO_SEQ, None, False),
+    ("gemma3-12b local", "gemma3-12b", ZOO_SEQ, None, True),
+    ("whisper-large-v3 encoder", "whisper-large-v3", WHISPER_FRAMES,
+     WHISPER_FRAMES, False),
+    ("whisper-large-v3 cross", "whisper-large-v3", WHISPER_TOKENS,
+     WHISPER_FRAMES, False),
+    ("llama-3.2-vision-11b cross", "llama-3.2-vision-11b", ZOO_SEQ, 1601,
+     False),
+    ("mixtral-8x22b W", "mixtral-8x22b", MIXTRAL_SEQ, None, True))
+# each variant in f32 at one small shape: (label, B, S, S_kv, H, K, hd,
+# causal, window)
+TRAIN_FLASH_F32 = (("window", 1, 700, 700, 4, 2, 128, True, 100),
+                   ("non-causal", 1, 500, 500, 4, 4, 64, False, 0),
+                   ("S_kv != S", 2, 200, 700, 4, 2, 64, False, 0),
+                   ("hd 256", 1, 500, 500, 4, 2, 256, True, 0),
+                   ("hd 256 window", 1, 500, 500, 4, 2, 256, True, 128))
+
+
+def flash_grads_plain(q, k, v, do, causal: bool = True, window: int = 0):
+    """`attention_grads_ref` one KV head's query heads at a time, so the f32
+    scores and their gradients of S 8192 stay a few GB: dq, dk, dv."""
+    import torch
+    from repro_torch.kernels.flash_attention.ref import attention_grads_ref
+    H, K = q.shape[2], k.shape[2]
+    rep = H // K
+    parts = [attention_grads_ref(
+        q[:, :, j * rep:(j + 1) * rep], k[:, :, j:j + 1], v[:, :, j:j + 1],
+        do[:, :, j * rep:(j + 1) * rep], causal=causal, window=window)[1:]
+        for j in range(K)]
+    return [torch.cat([p[i] for p in parts], dim=2) for i in range(3)]
+
+
+def sdpa_backward_ms(q, k, v, do, causal: bool, window: int):
+    """Device ms of SDPA's backward (its forward plus backward, less its
+    forward, CUDA events over 10 calls each) on the same inputs: the flash
+    backend where it takes the variant, else the default backend with a
+    boolean band mask on K / V expanded to the query heads (as row 4 times
+    a windowed forward).  Returns (ms, which)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels.flash_attention.ref import visible
+    H, K = q.shape[2], k.shape[2]
+    qt = q.detach().transpose(1, 2).requires_grad_()
+    dot = do.transpose(1, 2)
+    if window:
+        kt, vt = (t.detach().repeat_interleave(H // K, dim=2).transpose(1, 2)
+                  .requires_grad_() for t in (k, v))
+        band = visible(q.shape[1], k.shape[1], window, q.device)
+        kw = dict(attn_mask=band)
+        backend, which = None, "SDPA backward, default backend, band mask"
+    else:
+        kt, vt = (t.detach().transpose(1, 2).requires_grad_() for t in (k, v))
+        kw = dict(is_causal=causal, enable_gqa=True)
+        backend, which = SDPBackend.FLASH_ATTENTION, (
+            "SDPA backward, flash backend")
+    ctx = (lambda: sdpa_kernel(backend)) if backend else contextlib.nullcontext
+
+    def fb():
+        with ctx():
+            out = F.scaled_dot_product_attention(qt, kt, vt, **kw)
+            torch.autograd.grad(out, (qt, kt, vt), dot)
+
+    def f():
+        with ctx(), torch.no_grad():
+            F.scaled_dot_product_attention(qt, kt, vt, **kw)
+    try:
+        ms = event_ms(fb, 10) - event_ms(f, 10)
+    except RuntimeError:
+        if backend is None:
+            raise
+        # the flash backend refuses the variant: the default backend
+        ctx, which = contextlib.nullcontext, "SDPA backward, default backend"
+        ms = event_ms(fb, 10) - event_ms(f, 10)
+    return ms, which
+
+
+def train_flash_shape(dev, label: str, arch: str, S: int, S_kv, windowed):
+    """One of TRAIN_FLASH_SHAPES: the backward kernels' gradients against
+    `flash_grads_plain` within GRAD_BARS, two runs torch.equal, a launch
+    timed from a CUDA graph beside its bound (2.5 x the forward's FLOP over
+    the visible pairs at the bf16 tensor-core rate, or the bytes) and SDPA's
+    backward."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import (GRAD_BARS,
+                                                         compare_grad)
+    a = get_config(arch).attn
+    H, K, hd = a.n_heads, a.n_kv, a.head_dim
+    window = a.window if windowed else 0
+    causal = S_kv is None
+    S_kv = S if causal else S_kv
+    scale = hd ** -0.5
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(S + S_kv + hd + window)
+    q, k, v, do = (torch.randn((1, n_s, n, hd), generator=gen,
+                               device=dev).bfloat16()
+                   for n_s, n in ((S, H), (S_kv, K), (S_kv, K), (S, H)))
+    flash = lambda q, k, v: fops.gqa_flash_attention_kv(
+        q, k, v, causal=causal, window=window)
+    before = fops.launches["flash_attention_bwd"]
+    runs = [_kernel_grads(flash, (q, k, v), do) for _ in range(2)]
+    torch.cuda.synchronize()
+    if fops.launches["flash_attention_bwd"] != before + 2:
+        raise AssertionError(f"flash backward {label}: launches "
+                             f"{fops.launches}")
+    if not all_equal(runs[0], runs[1]):
+        raise AssertionError(f"flash backward {label}: two card runs differ")
+    want = flash_grads_plain(q, k, v, do, causal, window)
+    cmps = {n: compare_grad(g, w) for n, g, w in
+            zip(("dq", "dk", "dv"), runs[0], want)}
+    if not all(c["ok"] for c in cmps.values()):
+        raise AssertionError(f"flash backward {label} beyond "
+                             f"{GRAD_BARS[torch.bfloat16]}: {cmps}")
+    del runs, want
+    lse = torch.empty((1, H, S), dtype=torch.float32, device=dev)
+    o = fops._forward(q, k, v, scale, causal, window, lse)
+    k_ms = graph_ms(lambda: fops.flash_backward(q, k, v, o, lse, do, scale,
+                                                causal, window), 5)
+    lib_ms, lib = sdpa_backward_ms(q, k, v, do, causal, window)
+    pairs = H * (visible_pairs(S, window) if causal else S * S_kv)
+    flops = 2.5 * 4 * hd * pairs
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (q, k, v, o, do, lse, q, k, v))   # + dq, dk, dv
+    b_ms, b_by = bound(nbytes, flops, BF16_OPS_PER_S)
+    mask = (f"causal, window {window}" if window else
+            "causal" if causal else "non-causal")
+    log(f"[train-kernels] flash_attention_bwd bf16 {label}: B=1 S={S} "
+        f"S_kv={S_kv} H={H} K={K} hd={hd} {mask}: "
+        + ", ".join(f"{n} max abs err {c['max_abs_err']:.3g} rel L2 "
+                    f"{c['rel_l2']:.3g}" for n, c in cmps.items())
+        + f"; two runs torch.equal; kernel {k_ms:.4f} ms/launch (graph), "
+        f"{lib} {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {flops:.4g} "
+        f"FLOP over {pairs} visible pairs; {flops / k_ms / 1e9:.1f} "
+        f"TFLOP/s, {k_ms / b_ms:.2f}x the bound)")
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    return dict(label=label, S=S, S_kv=S_kv, H=H, K=K, hd=hd, causal=causal,
+                window=window,
+                max_abs_err=max(c["max_abs_err"] for c in cmps.values()),
+                rel_l2={n: c["rel_l2"] for n, c in cmps.items()}, ms=k_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, library=lib)
+
+
+def train_flash_f32(dev) -> float:
+    """TRAIN_FLASH_F32: each variant's f32 backward (CUDA cores) against
+    the plain autograd within GRAD_BARS, two runs torch.equal; returns the
+    largest max abs error."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import (
+        GRAD_BARS, attention_grads_ref, compare_grad)
+    worst = 0.0
+    for label, B, S, S_kv, H, K, hd, causal, window in TRAIN_FLASH_F32:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(S + S_kv + hd)
+        q, k, v, do = (torch.randn((B, n_s, n, hd), generator=gen,
+                                   device=dev)
+                       for n_s, n in ((S, H), (S_kv, K), (S_kv, K), (S, H)))
+        flash = lambda q, k, v: fops.gqa_flash_attention_kv(
+            q, k, v, causal=causal, window=window)
+        runs = [_kernel_grads(flash, (q, k, v), do) for _ in range(2)]
+        if not all_equal(runs[0], runs[1]):
+            raise AssertionError(f"flash backward f32 {label}: two card "
+                                 f"runs differ")
+        _, *want = attention_grads_ref(q, k, v, do, causal=causal,
+                                       window=window)
+        cmps = {n: compare_grad(g, w) for n, g, w in
+                zip(("dq", "dk", "dv"), runs[0], want)}
+        if not all(c["ok"] for c in cmps.values()):
+            raise AssertionError(f"flash backward f32 {label} beyond "
+                                 f"{GRAD_BARS[torch.float32]}: {cmps}")
+        err = max(c["max_abs_err"] for c in cmps.values())
+        worst = max(worst, err)
+        log(f"[train-kernels] flash_attention_bwd f32 {label}: B={B} S={S} "
+            f"S_kv={S_kv} H={H} K={K} hd={hd} causal={causal} "
+            f"window={window}: max abs err {err:.3g}, rel L2 "
+            + ", ".join(f"{n} {c['rel_l2']:.3g}" for n, c in cmps.items())
+            + "; two runs torch.equal")
+    return worst
 
 
 def _flash_bwd_inputs(dev, dtype, seed: int = 0):
@@ -2388,7 +2636,12 @@ def phase_train_kernels(dev) -> list[dict]:
     per gradient; two runs torch.equal; device time per launch from a CUDA
     graph beside the bound, the plain version (autograd's forward plus
     backward less its forward, CUDA events) and, for flash, SDPA's backward
-    (flash backend, timed alike); the variants not ported raise."""
+    (flash backend, timed alike); then the flash backward's other
+    variants at the zoo's full shapes (TRAIN_FLASH_SHAPES: a window, non-
+    causal, S_kv != S, hd 256) within GRAD_BARS of the plain autograd one
+    KV-head group at a time, two runs torch.equal, timed beside the bound
+    and SDPA's backward, and each in f32 at a small shape; hd 32 and 16
+    raise."""
     from contextlib import nullcontext
     import torch
     import torch.nn.functional as F
@@ -2441,28 +2694,14 @@ def phase_train_kernels(dev) -> list[dict]:
             attention_ref(q.transpose(1, 2), kk.transpose(1, 2),
                           vv.transpose(1, 2))
         p_ms = event_ms(plain_fb, 2) - event_ms(plain_f, 2)
+        # SDPA's flash backend for bf16; torch's own choice for f32, which
+        # the flash backend does not take
+        lib_ms, lib = sdpa_backward_ms(q, k, v, do, True, 0)
         qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
                       for t in (q, k, v))
         dot = do.transpose(1, 2)
-        # SDPA's flash backend for bf16; torch's own choice for f32, which
-        # the flash backend does not take
         backend = lambda: (sdpa_kernel(SDPBackend.FLASH_ATTENTION)
                            if dtype == torch.bfloat16 else nullcontext())
-
-        def sdpa_fb():
-            with backend():
-                out = F.scaled_dot_product_attention(qt, kt, vt,
-                                                     is_causal=True,
-                                                     enable_gqa=True)
-                torch.autograd.grad(out, (qt, kt, vt), dot)
-
-        def sdpa_f():
-            with backend(), torch.no_grad():
-                F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                               enable_gqa=True)
-        lib_ms = event_ms(sdpa_fb, 5) - event_ms(sdpa_f, 5)
-        lib = ("SDPA backward, flash backend" if dtype == torch.bfloat16
-               else "SDPA backward, default backend")
         # the library's own gradients against the same bars: a yardstick of
         # the precision a design with P and dS in bf16 reaches
         with backend():
@@ -2499,34 +2738,35 @@ def phase_train_kernels(dev) -> list[dict]:
                            library=lib)
         del q, k, v, do, o, lse, qt, kt, vt
         torch.cuda.empty_cache()
-    # the variants not ported: the forward runs, the backward raises
+    # the other variants at the zoo's full shapes, then each in f32
+    variants = [train_flash_shape(dev, *shape) for shape in
+                TRAIN_FLASH_SHAPES]
+    f32_err = train_flash_f32(dev)
+    # the head dims not ported (the smoke widths): the forward runs, the
+    # backward raises
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
-    for what, kw, d, skv in (("window", dict(window=64), 128, 200),
-                             ("non-causal", dict(causal=False), 128, 200),
-                             ("S_kv != S", dict(causal=False), 64, 300),
-                             ("hd 32", {}, 32, 200), ("hd 16", {}, 16, 200),
-                             ("hd 256", {}, 256, 200)):
+    for d in (32, 16):
         q = torch.randn((1, 200, 4, d), generator=gen, device=dev).bfloat16()
-        kv = torch.randn((1, skv, 2, d), generator=gen, device=dev
+        kv = torch.randn((1, 200, 2, d), generator=gen, device=dev
                          ).bfloat16()
         q.requires_grad_()
-        out = fops.gqa_flash_attention_kv(q, kv, kv, **kw)
+        out = fops.gqa_flash_attention_kv(q, kv, kv)
         try:
             out.sum().backward()
         except NotImplementedError:
             continue
-        raise AssertionError(f"flash backward {what}: did not raise")
-    log("[train-kernels] flash backward of a window, non-causal, S_kv != S,"
-        " hd 32, 16 and 256: each forward ran, each backward raised "
-        "NotImplementedError")
+        raise AssertionError(f"flash backward hd {d}: did not raise")
+    log("[train-kernels] flash backward at hd 32 and 16: each forward ran, "
+        "each backward raised NotImplementedError")
     results.append(dict(
         name="flash_attention_bwd", route="cuda",
         source="src/repro_torch/csrc/flash_attention_bwd.cu",
         replaces="none: XLA's autodiff of src/repro/models/attention.py:83 "
                  "attend / :92 attend_chunked (jax.value_and_grad, "
                  "src/repro/train/train_step.py:541)",
-        **frec["bf16"], f32={k: v for k, v in frec["f32"].items()}))
+        **frec["bf16"], f32={k: v for k, v in frec["f32"].items()},
+        variants=variants, f32_variants_max_abs_err=f32_err))
 
     # ---- SSD scan backward ----
     cfg = get_config("mamba2-370m")
@@ -2630,16 +2870,135 @@ def restore_spy():
         loop._to_disk, loop._load_into = to_disk, load_into
 
 
+def step_launches(cfg, steps: int) -> dict[str, int]:
+    """Kernel launches of `steps` training steps of `cfg`: each microbatch
+    runs `per_forward(cfg)` forward launches, each with its backward."""
+    per = per_forward(cfg)
+    out = {}
+    for name in ("flash_attention", "ssd_scan"):
+        n = per[name] * TRAIN_MICROBATCHES * steps
+        out[name], out[f"{name}_bwd"] = n, n
+    return out
+
+
+def family_train_cell(dev, arch: str, layers, entry: str) -> dict:
+    """One of TRAIN_FAMILY_RUNS: TRAIN_FAMILY_STEPS steps through `entry`,
+    the kernels' counts set to 0 just before and read just after (each
+    step `step_launches`), finite losses, then one more step under
+    torch.profiler.  Returns the cell's numbers."""
+    import shutil
+    import torch
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch.train import train
+    from repro_torch.models.model import (build_model, count_params,
+                                          model_flops)
+    from repro_torch.train.data import DataConfig, SyntheticDataset
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.train_step import make_train_step
+    seq = WHISPER_TOKENS if arch == "whisper-large-v3" else TRAIN_SEQ
+    steps = TRAIN_FAMILY_STEPS
+    cfg = zoo_config(arch, layers)
+    opt = adamw(1e-3, weight_decay=0.01, grad_clip=1.0)
+    reset_zoo_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if entry == "train":
+        shutil.rmtree(ROOT / "build" / "train_ckpt" / arch,
+                      ignore_errors=True)
+        res = train(arch, steps=steps, seq=seq, global_batch=TRAIN_BATCH,
+                    microbatches=TRAIN_MICROBATCHES, device=str(dev),
+                    layers=layers, checkpoint_every=0,
+                    ckpt_dir=str(ROOT / "build" / "train_ckpt" / arch),
+                    log=lambda m, a=arch: log(f"[train] {a}: {m}"))
+        losses, times = res["losses"], res["step_times"]
+        params, opt_state = res["params"], res["opt_state"]
+        model = build_model(cfg, dev)
+        step_fn = make_train_step(model, opt,
+                                  microbatches=TRAIN_MICROBATCHES)
+        batch = next(SyntheticDataset(DataConfig(
+            vocab=cfg.vocab, seq=seq, global_batch=TRAIN_BATCH),
+            start_step=steps, device=dev))
+        del res
+    else:
+        model = build_model(cfg, dev)
+        params = model.init(0)
+        opt_state = opt.init(params)
+        step_fn = make_train_step(model, opt,
+                                  microbatches=TRAIN_MICROBATCHES)
+        losses, times = [], []
+        for i in range(steps):
+            batch = zoo_train_batch(dev, cfg, seq, i, TRAIN_BATCH)
+            t = time.perf_counter()
+            params, opt_state, met = step_fn(
+                params, opt_state, batch, torch.tensor(i, device=dev))
+            losses.append(float(met["loss"]))      # waits for the device
+            times.append(time.perf_counter() - t)
+            log(f"[train] {arch}: step {i} loss {losses[-1]:.4f} "
+                f"({times[-1] * 1e3:.0f} ms)")
+        batch = zoo_train_batch(dev, cfg, seq, steps, TRAIN_BATCH)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    counts = zoo_launches()
+    want = step_launches(cfg, steps)
+    if counts != want:
+        raise AssertionError(f"{arch} training launched {counts}, expected "
+                             f"{want}")
+    if len(losses) != steps or not all(
+            x == x and abs(x) < float("inf") for x in losses):
+        raise AssertionError(f"{arch}: losses {losses}")
+    step_s = sorted(times[1:])[len(times[1:]) // 2]     # median, warm
+    tokens = TRAIN_BATCH * seq
+    mflops = model_flops(cfg, ShapeCfg("train_cell", seq, TRAIN_BATCH,
+                                       "train"))
+    prof_wall, rows = profiled(lambda: step_fn(
+        params, opt_state, batch, torch.tensor(steps, device=dev)))
+    dev_us = sum(r[0] for r in rows)
+    busy = dev_us / 1e6 / prof_wall
+    n = count_params(cfg)
+    depth = ("" if layers is None else
+             f", depth cut from {get_config_layers(arch)} to {layers}")
+    if cfg.encoder is not None:
+        depth += (f" + {cfg.encoder.n_layers} encoder layers over "
+                  f"{WHISPER_FRAMES} frames")
+    elif cfg.n_img_tokens:
+        depth += f", over {cfg.n_img_tokens} image tokens"
+    per = want["flash_attention"] // steps
+    log(f"[train] {arch} via {'launch/train.py train' if entry == 'train' else 'make_train_step'}: "
+        f"{n / 1e9:.3f} B params ({cfg.n_layers} layers{depth}, d_model "
+        f"{cfg.d_model}; f32 moments); S {seq}, losses "
+        f"{[round(x, 4) for x in losses]}; step {step_s:.3f} s warm (steps "
+        f"{[round(t, 3) for t in times]}), {tokens / step_s:.0f} tokens/s, "
+        f"model_flops {mflops:.4g} = {mflops / step_s / BF16_OPS_PER_S:.4f} "
+        f"of the bf16 peak; peak device memory {peak / 2**30:.2f} GiB; wall "
+        f"{wall:.1f} s; launches {json.dumps(counts)} ({per} forward and "
+        f"{per} backward a step)")
+    log(f"[train] {arch} profile of one step: wall {prof_wall:.3f} s "
+        f"(profiler on), device kernels {dev_us / 1e3:.1f} ms in "
+        f"{sum(r[1] for r in rows)} launches, busy share {busy:.4f}")
+    for us, cnt, key in rows[:6]:
+        log(f"[train]   {us / 1e3:8.3f} ms {cnt:6d}x "
+            f"({100 * us / dev_us:4.1f}%)  {key[:80]}")
+    del params, opt_state, model, step_fn, batch
+    torch.cuda.empty_cache()
+    return dict(params=n, layers=cfg.n_layers, seq=seq, step_s=step_s,
+                quantized_opt=False, tokens_per_s=tokens / step_s,
+                mfu=mflops / step_s / BF16_OPS_PER_S, peak_gib=peak / 2**30,
+                busy_share=busy, losses=losses, launches=counts)
+
+
 def phase_train(dev) -> tuple[dict[str, int], dict]:
     """The training main path (TRAIN_RUNS) through launch/train.py's
     `train`: 4 steps with the restart drill, the kernels' counts set to 0
-    just before each arch and read just after.  Each step must launch the
-    arch's kernel exactly n_layers x microbatches times forward and as
-    often backward, the losses must be finite, the params and optimizer
+    just before each arch and read just after.  Each step must launch each
+    kernel `per_forward(cfg)` x microbatches times forward and as often
+    backward (`step_launches`), the losses must be finite, the params and optimizer
     state read back at the restart `torch.equal` to those saved at step 2
     (`restore_spy`) and the replayed step's loss the first run's.  Then one more step under torch.profiler (busy share,
-    top kernels).  Returns the counts over the phase and the per-arch
-    numbers."""
+    top kernels).  Then TRAIN_FAMILY_RUNS (`family_train_cell`: 3 steps
+    each, no checkpoint, no drill).  Returns the counts over the phase and
+    the per-arch numbers."""
     import shutil
     import torch
     from repro_torch.configs.base import ShapeCfg
@@ -2681,11 +3040,8 @@ def phase_train(dev) -> tuple[dict[str, int], dict]:
         cfg = res["cfg"]
         L = res["losses"]
         n_runs = len(L)                 # steps run, the replay included
-        mixer = "ssd_scan" if cfg.ssm is not None else "flash_attention"
-        per_step = cfg.n_layers * TRAIN_MICROBATCHES
-        want = {mixer: per_step * n_runs, f"{mixer}_bwd": per_step * n_runs}
-        other = "flash_attention" if mixer == "ssd_scan" else "ssd_scan"
-        want.update({other: 0, f"{other}_bwd": 0})
+        want = step_launches(cfg, n_runs)
+        per_step = sum(want.values()) // (2 * n_runs)
         if counts != want:
             raise AssertionError(f"{arch} training launched {counts}, "
                                  f"expected {want}")
@@ -2749,8 +3105,16 @@ def phase_train(dev) -> tuple[dict[str, int], dict]:
         del res, p, s, model, step_fn, batch
         shutil.rmtree(ckpt_root / arch, ignore_errors=True)
         torch.cuda.empty_cache()
+    log(f"[train] cells without the drill: {TRAIN_FAMILY_STEPS} steps, "
+        f"no checkpoint; AdamW (lr 1e-3, weight decay 0.01, clip 1.0), f32 "
+        f"moments")
+    for arch, layers, entry in TRAIN_FAMILY_RUNS:
+        by_arch[arch] = family_train_cell(dev, arch, layers, entry)
+        for k, v in by_arch[arch]["launches"].items():
+            total[k] = total.get(k, 0) + v
     reduced = {arch: f"n_layers {get_config_layers(arch)} -> {layers}"
-               for arch, layers, _ in TRAIN_RUNS if layers is not None}
+               for arch, layers, _ in TRAIN_RUNS + TRAIN_FAMILY_RUNS
+               if layers is not None}
     log(f"[train] reduced: {json.dumps(reduced)}")
     return total, by_arch
 
@@ -2778,12 +3142,14 @@ def phase_train_card_vs_cpu(dev) -> None:
     """TRAIN_CPU_RUNS at full width, B 1: one step's loss and every
     gradient leaf (no optimizer step) on the card (kernels forward and
     backward) against the port's CPU path (plain versions, autograd) on
-    the same weights and tokens, within the zoo's bf16 bar (the leaves
-    compared on the card)."""
+    the same weights, tokens and stubbed frontend output, within the zoo's
+    bf16 bar (the leaves compared on the card); MoE layers on the card's
+    routes (`RouteReplay`, at least 95% of the CPU's own top-k the same),
+    and an MoE model's card step twice, torch.equal."""
     import torch
     from repro_torch.core.tree import leaf_paths, tree_leaves, tree_unflatten
     from repro_torch.models import build_model
-    from repro_torch.testing import hold_bf16, tree_to
+    from repro_torch.testing import RouteReplay, hold_bf16, tree_to
     from repro_torch.train.train_step import make_loss_fn
 
     def value_and_grad(model, params, batch):
@@ -2796,29 +3162,44 @@ def phase_train_card_vs_cpu(dev) -> None:
         cfg = zoo_config(arch, layers)
         card, cpu = build_model(cfg, dev), build_model(cfg, "cpu")
         params = card.init(1)
-        tokens = zoo_tokens(dev, cfg, seq + 1, seed=1)
-        batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+        batch = zoo_train_batch(dev, cfg, seq, seed=1)
+        routes = RouteReplay()
         reset_zoo_launches()
-        loss_card, g_card = value_and_grad(card, params, batch)
+        with routes.record():
+            loss_card, g_card = value_and_grad(card, params, batch)
         torch.cuda.synchronize()
         counts = zoo_launches()
+        twice = ""
+        if cfg.moe is not None:
+            again = value_and_grad(card, params, batch)
+            if not all_equal((loss_card, *tree_leaves(g_card)),
+                             (again[0], *tree_leaves(again[1]))):
+                raise AssertionError(f"{arch}: two card steps differ")
+            twice = "; the card step twice torch.equal"
+            del again
         t0 = time.perf_counter()
-        loss_cpu, g_cpu = value_and_grad(cpu, tree_to(params, "cpu"),
-                                         tree_to(batch, "cpu"))
+        with routes.replay():
+            loss_cpu, g_cpu = value_and_grad(cpu, tree_to(params, "cpu"),
+                                             tree_to(batch, "cpu"))
         t_cpu = time.perf_counter() - t0
+        agree = routes.check(f"{arch} depth {layers}")
         verdict = hold_bf16(loss_card.detach(), loss_cpu.detach(),
                             f"{arch} loss")
         worst = max((hold_bf16_on_card(gc, gp, f"{arch} gradient {k}"), k)
                     for (k, gc), (_, gp) in zip(leaf_paths(g_card),
                                                 leaf_paths(g_cpu)))
-        log(f"[train-cpu] {arch} depth {layers}, B 1, S {seq}, full width: "
-            f"loss card {float(loss_card.detach()):.5f} vs CPU "
+        mem = {k: tuple(v.shape) for k, v in batch.items()
+               if k not in ("tokens", "labels")}
+        log(f"[train-cpu] {arch} depth {layers}"
+            f"{' (encoder too)' if cfg.encoder is not None else ''}, B 1, "
+            f"S {seq}{f', memory {mem}' if mem else ''}, full width: loss "
+            f"card {float(loss_card.detach()):.5f} vs CPU "
             f"{float(loss_cpu.detach()):.5f} "
             f"({verdict}); every one of {len(tree_leaves(g_cpu))} gradient "
             f"leaves within the bar (worst max abs / max |CPU| "
-            f"{worst[0]:.3g} at {worst[1]}); card launches "
+            f"{worst[0]:.3g} at {worst[1]}); {agree}{twice}; card launches "
             f"{json.dumps(counts)}; CPU step {t_cpu:.1f} s")
-        del params, g_card, g_cpu, card, cpu
+        del params, g_card, g_cpu, card, cpu, batch
         torch.cuda.empty_cache()
 
 

@@ -78,9 +78,10 @@
 //
 // Training (`flash_attention_lse_launch`): the wgmma and f32 kernels also
 // store each row's log-sum-exp m + log l (natural units, (B, H, S) f32),
-// from which the backward kernels (flash_attention_bwd.cu) recompute P.
-// The store is a compile-time flag (kLse), a separate instantiation as the
-// window is, so prefill, which passes no LSE, runs the code it ran before.
+// from which the backward kernels (flash_attention_bwd.cu) recompute P, at
+// hd 64, 128 and 256, causal or not, with or without a window.  The store
+// is a compile-time flag (kLse), a separate instantiation as the window is,
+// so prefill, which passes no LSE, runs the code it ran before.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -953,24 +954,41 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
 
 // The training forward: as flash_attention_launch, and also the row
 // log-sum-exp lse (B, H, S) float32 of the scaled scores, which the
-// backward (flash_attention_bwd.cu) recomputes P from.  Causal, no window,
-// S_kv == S, scale > 0; kernel 0 (f32) or 2 (wgmma), hd 64 or 128: the
-// variants the backward takes.  A separate instantiation (kLse), so the
-// prefill path above runs the code it ran before the store existed.
+// backward (flash_attention_bwd.cu) recomputes P from.  Every variant the
+// backward takes: causal or not, a window or none, S_kv of its own (non-
+// causal), scale > 0; kernel 0 (f32) or 2 (wgmma), hd 64, 128 or 256.  A
+// separate instantiation (kLse), so the prefill path above runs the code it
+// ran before the store existed.
 int flash_attention_lse_launch(const void* q, const void* k, const void* v,
-                               void* o, void* lse, int B, int S, int H,
-                               int K, int hd, float scale, int kernel,
-                               void* stream_ptr) {
+                               void* o, void* lse, int B, int S, int S_kv,
+                               int H, int K, int hd, float scale, int causal,
+                               int window, int kernel, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (!(scale > 0.f) || lse == nullptr) return (int)cudaErrorInvalidValue;
+  if (!(scale > 0.f) || lse == nullptr || window < 0 ||
+      (window > 0 && !causal) || S_kv < 1 || (causal && S_kv != S))
+    return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
   float* l = static_cast<float*>(lse);
-#define REPRO_LSE_ARGS q, k, v, o, B, S, S, H, K, scale, 1, 0, stream, l
+#define REPRO_LSE_ARGS q, k, v, o, B, S, S_kv, H, K, scale, causal, window, \
+                       stream, l
   switch (kernel * 1000 + hd) {
-    case 64: return launch_f32<64, false, true>(REPRO_LSE_ARGS);
-    case 128: return launch_f32<128, false, true>(REPRO_LSE_ARGS);
-    case 2064: return launch_wgmma<64, true, false, true>(REPRO_LSE_ARGS);
-    case 2128: return launch_wgmma<128, true, false, true>(REPRO_LSE_ARGS);
+    case 64: return launch_windowed<launch_f32<64, false, true>,
+                                    launch_f32<64, true, true>>(REPRO_LSE_ARGS);
+    case 128: return launch_windowed<launch_f32<128, false, true>,
+                                     launch_f32<128, true, true>>(
+        REPRO_LSE_ARGS);
+    case 256: return launch_windowed<launch_f32<256, false, true>,
+                                     launch_f32<256, true, true>>(
+        REPRO_LSE_ARGS);
+    case 2064: return launch_windowed<launch_wgmma<64, true, false, true>,
+                                      launch_wgmma<64, true, true, true>>(
+        REPRO_LSE_ARGS);
+    case 2128: return launch_windowed<launch_wgmma<128, true, false, true>,
+                                      launch_wgmma<128, true, true, true>>(
+        REPRO_LSE_ARGS);
+    case 2256: return launch_windowed<launch_wgmma<256, true, false, true>,
+                                      launch_wgmma<256, true, true, true>>(
+        REPRO_LSE_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef REPRO_LSE_ARGS

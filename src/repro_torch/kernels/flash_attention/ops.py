@@ -28,10 +28,12 @@ row log-sum-exp stored (`flash_attention_lse_launch`), its backward the
 kernels of csrc/flash_attention_bwd.cu (`launches["flash_attention_bwd"]`
 counts them, one per backward): for bf16 wgmma fed by TMA, for float32
 CUDA-core FMAs, chosen by dtype as the forward's kernel is.  The backward
-takes causal attention without a window, S_kv == S, hd 64 or 128
-(`BWD_HEAD_DIMS`), bf16 or f32; any other variant's forward runs as before
-and its backward raises NotImplementedError (ROADMAP queue 1): there is no
-plain fallback on the card.  On the CPU autograd runs through `attention_ref` for every variant.
+takes every variant the forward does (causal with or without a window,
+non-causal with a key length S_kv of its own) at hd 64, 128 and 256
+(`BWD_HEAD_DIMS`), bf16 or f32; at hd 16 and 32 (the smoke widths) the
+forward runs as before and the backward raises NotImplementedError
+(ROADMAP queue 1): there is no plain fallback on the card.  On the CPU
+autograd runs through `attention_ref` for every variant.
 Without grad (prefill, `inference_mode`) nothing changes: the kernel runs
 without the store.
 """
@@ -48,7 +50,7 @@ BLOCK_Q = 128           # the reference kernel's blocks: they set which
 BLOCK_KV = 256          # non-causal S it refuses (the CUDA kernels tile
                         # on their own)
 HEAD_DIMS = (16, 32, 64, 128, 256)
-BWD_HEAD_DIMS = (64, 128)       # what the backward kernels take
+BWD_HEAD_DIMS = (64, 128, 256)  # what the backward kernels take
 BWD_PAD_ROWS = 128              # the bf16 backward's lse / D row padding
 # the C launcher's kernel ids
 KERNELS = {"cuda_core_f32": 0, "mma_sync_bf16": 1, "wgmma_bf16": 2}
@@ -80,8 +82,9 @@ def _lib():
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lse = lib.flash_attention_lse_launch
-        lse.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        lse.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                        + [ctypes.c_float] + [ctypes.c_int] * 3
+                        + [ctypes.c_void_p])
         lse.restype = ctypes.c_int
     return lib
 
@@ -90,21 +93,16 @@ def _bwd_lib():
     lib = build.load("flash_attention_bwd")
     fn = lib.flash_attention_bwd_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                       + [ctypes.c_float] + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
 
-def backward_supported(S: int, S_kv: int, hd: int, causal: bool,
-                       window: int, scale: float) -> str | None:
-    """None if the backward kernels take this variant, else why not."""
-    if not causal:
-        return "non-causal attention"
-    if window:
-        return f"a causal window ({window})"
-    if S_kv != S:
-        return f"S_kv {S_kv} != S {S}"
+def backward_supported(hd: int, scale: float) -> str | None:
+    """None if the backward kernels take this variant (every mask and key
+    length the forward takes), else why not."""
     if hd not in BWD_HEAD_DIMS:
         return f"head dim {hd} (the backward takes {BWD_HEAD_DIMS})"
     if not scale > 0:
@@ -130,25 +128,27 @@ def _forward(q, k, v, scale, causal, window, lse=None):
     else:
         code = lib.flash_attention_lse_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), B, S, H, K, hd, float(scale), KERNELS[kernel],
-            stream)
+            lse.data_ptr(), B, S, S_kv, H, K, hd, float(scale), int(causal),
+            int(window), KERNELS[kernel], stream)
     build.check(lib, code, f"flash_attention ({kernel})")
     launches["flash_attention"] += 1
     kernel_launches[kernel] += 1
     return out
 
 
-def flash_backward(q, k, v, o, lse, do, scale):
-    """dq, dk, dv of causal attention on CUDA tensors: one launch of the
-    backward kernels (csrc/flash_attention_bwd.cu).  q, o, do (B, S, H, hd),
-    k, v (B, S, K, hd), lse (B, H, S) f32 from the forward's store."""
+def flash_backward(q, k, v, o, lse, do, scale, causal=True, window=0):
+    """dq, dk, dv of attention on CUDA tensors: one launch of the backward
+    kernels (csrc/flash_attention_bwd.cu).  q, o, do (B, S, H, hd), k, v
+    (B, S_kv, K, hd), lse (B, H, S) f32 from the forward's store, the mask
+    as the forward's (`causal`, `window`)."""
     B, S, H, hd = q.shape
-    K = k.shape[2]
+    S_kv, K = k.shape[1], k.shape[2]
     do = do.to(q.dtype).contiguous()
     if do.data_ptr() % 16:          # the bf16 kernels read dO through TMA
         do = do.clone()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # D = rowsum(dO o) and lse log2(e), rows padded to the kernels' tiles
+    # D = rowsum(dO o) and lse log2(e), rows padded to the query tiles of S
+    # (the key tiles follow S_kv)
     s_pad = -(-S // BWD_PAD_ROWS) * BWD_PAD_ROWS
     D = torch.empty(2 * B * H * s_pad, dtype=torch.float32, device=q.device)
     lib = _bwd_lib()
@@ -156,8 +156,8 @@ def flash_backward(q, k, v, o, lse, do, scale):
     code = lib.flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), D.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), B, S, H, K, hd, float(scale),
-        int(q.dtype == torch.bfloat16), stream)
+        dv.data_ptr(), B, S, S_kv, H, K, hd, float(scale), int(causal),
+        int(window), int(q.dtype == torch.bfloat16), stream)
     build.check(lib, code, "flash_attention_bwd")
     launches["flash_attention_bwd"] += 1
     return dq, dk, dv
@@ -166,18 +166,20 @@ def flash_backward(q, k, v, o, lse, do, scale):
 class FlashAttention(torch.autograd.Function):
     """The CUDA kernel with a gradient: forward with the log-sum-exp
     stored where the backward kernels take the variant, backward through
-    them; any other variant's backward raises NotImplementedError."""
+    them; any other variant's (hd 16, 32) backward raises
+    NotImplementedError."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, window):
-        S, S_kv, hd = q.shape[1], k.shape[1], q.shape[3]
-        why = backward_supported(S, S_kv, hd, causal, window, scale)
+        S, hd = q.shape[1], q.shape[3]
+        why = backward_supported(hd, scale)
         lse = None
         if why is None:
             lse = torch.empty((q.shape[0], q.shape[2], S),
                               dtype=torch.float32, device=q.device)
         out = _forward(q, k, v, scale, causal, window, lse)
         ctx.why, ctx.scale = why, scale
+        ctx.causal, ctx.window = causal, window
         if why is None:
             ctx.save_for_backward(q, k, v, out, lse)
         return out
@@ -187,10 +189,11 @@ class FlashAttention(torch.autograd.Function):
         if ctx.why is not None:
             raise NotImplementedError(
                 f"gqa_flash_attention backward on the card: {ctx.why} is not"
-                f" ported (causal without a window, S_kv == S, head dim in "
-                f"{BWD_HEAD_DIMS} is; ROADMAP.md queue 1)")
+                f" ported (head dims {BWD_HEAD_DIMS} are, with every mask; "
+                f"ROADMAP.md queue 1)")
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_backward(q, k, v, out, lse, do, ctx.scale)
+        dq, dk, dv = flash_backward(q, k, v, out, lse, do, ctx.scale,
+                                    ctx.causal, ctx.window)
         return dq, dk, dv, None, None, None
 
 

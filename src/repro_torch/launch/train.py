@@ -10,8 +10,9 @@ The reference's flags, plus `--device` (default the card; `cpu` runs the
 plain-torch path, as `launch/serve.py`) and `--layers` (cut the depth,
 for a full-width model whose training state would not fit the card).
 `train` also takes the restart drill (`fail_at`, `checkpoint_every`) as
-keyword arguments.  The reference places the model on a mesh of
-`--data-parallel` x `--model-parallel` devices; the port runs on one,
+keyword arguments; `checkpoint_every=0` writes no checkpoint at all.
+The reference places the model on a mesh of `--data-parallel` x
+`--model-parallel` devices; the port runs on one,
 and either flag above 1 raises NotImplementedError (ROADMAP.md queue 1
 items 2 and 4).  Weights are drawn from seed 0 on the device, as the
 reference's PRNGKey(0); AdamW (lr 1e-3, weight decay 0.01, clip 1.0), or
@@ -67,7 +68,8 @@ def train(arch: str, *, smoke: bool = False, steps: int = 50, seq: int = 128,
                             device=model.device)
     loop = LoopConfig(
         total_steps=steps,
-        checkpoint_every=checkpoint_every or max(steps // 2, 10),
+        checkpoint_every=(max(steps // 2, 10) if checkpoint_every is None
+                          else checkpoint_every),
         checkpoint_dir=ckpt_dir or os.path.join(tempfile.gettempdir(),
                                                 "repro_torch_launch_train"),
         keep=keep, log_every=10)

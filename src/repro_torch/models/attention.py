@@ -17,6 +17,10 @@ Paths:
                    `attend` at or below it (decode), as the reference
                    computes it outside any Pallas kernel.  No RoPE, no
                    qk-norm, as in the reference.
+Training: every kind and the cross attention take their gradient from the
+same entry (on the card its `FlashAttention` autograd function, whose
+backward kernels take every mask and key length above); dense `attend`
+(Sq <= DECODE_MAX_Q) is differentiated by autograd.
   attend()         dense einsum with mask,
   attend_chunked() the online-softmax chunked loop (for 'window', a KV span
                    per query chunk; `kv_valid` masks padded keys): plain

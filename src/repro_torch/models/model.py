@@ -12,8 +12,10 @@ abstract_init(model) beside it.
 Batch layout: {"tokens": (B, S) int}, plus per family the stubbed
 frontend's output, as the reference's: encdec `enc_frames` (B, S_enc, D)
 frame embeddings (the encoder's input), vlm `img_embed` (B, n_img, D)
-patch embeddings (the cross attention's memory as they are).  The
-reference's `input_specs` (a dry-run helper) has no counterpart.  `device`
+patch embeddings (the cross attention's memory as they are), read from
+whatever batch `apply` is given (in training, each microbatch's rows), and
+differentiated with the rest of the model.  The reference's `input_specs`
+(a dry-run helper) has no counterpart.  `device`
 is where init and init_caches allocate; it defaults to the card and does
 not drop to the CPU.
 """

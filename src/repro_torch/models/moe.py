@@ -19,7 +19,13 @@ XLA, outside any Pallas kernel).  The combine is deterministic on the card:
 each token sums its kept slots in the reference's scatter order (ascending
 expert, then rank), gathered from the slot outputs, instead of an
 `index_add_` whose CUDA atomics land a bf16 sum in a different order from
-run to run.
+run to run.  Training differentiates the same ops: the backward of each
+gather is an accumulating `index_put_`, which PyTorch runs on the card by
+sorting the indices and summing each row's contributions in that fixed
+order (no atomics), and the router's `gather`s pick distinct experts per
+token, so no two of their scattered gradients meet; two card steps are
+`torch.equal` (chip_smoke.py `[train-cpu]`).  The load-balancing term
+reaches the loss through `train_step.make_loss_fn`.
 """
 from __future__ import annotations
 

@@ -37,6 +37,9 @@ from repro_torch.train.elastic import SimulatedFailures, StragglerWatchdog
 
 @dataclasses.dataclass
 class LoopConfig:
+    """`checkpoint_every` 0: no checkpoint at all, periodic or final (a
+    failure then restarts from step 0 with the state kept, as without a
+    committed checkpoint)."""
     total_steps: int
     checkpoint_every: int = 50
     checkpoint_dir: str = os.path.join(tempfile.gettempdir(), "repro_ckpt")
@@ -121,7 +124,7 @@ def train_loop(train_step: Callable, params, opt_state,
             if step % cfg.log_every == 0:
                 log(f"[loop] step {step} loss {loss:.4f} ({dt * 1e3:.0f} ms)")
             step += 1
-            if step % cfg.checkpoint_every == 0:
+            if cfg.checkpoint_every and step % cfg.checkpoint_every == 0:
                 ckpt.save(step, _to_disk(model_cfg, params, opt_state),
                           extras={"data_step": dataset.state()["step"]})
             continue
@@ -143,7 +146,7 @@ def train_loop(train_step: Callable, params, opt_state,
             dataset.restore({"step": 0})
 
     ckpt.wait()
-    if ckpt.latest_step() != step:
+    if cfg.checkpoint_every and ckpt.latest_step() != step:
         # the final commit; the reference writes it again even when the
         # last periodic save was this very step, which would only rewrite
         # the same state

@@ -32,7 +32,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.flash_attention.ref import (GRAD_BARS,
                                                      attention_grads_ref,
-                                                     compare_grad)
+                                                     compare_grad, visible)
 from repro_torch.kernels.ssd_scan import ops as sops
 from repro_torch.models import mamba
 
@@ -99,21 +99,25 @@ def test_attention_grads_match_jax_grad_of_attend_chunked(kind, window):
         _close(g, np.asarray(w), f"chunked {kind} {n}")
 
 
-def _emulated_kernel_grads(q, k, v, do, scale, bf16_operands=False):
+def _emulated_kernel_grads(q, k, v, do, scale, bf16_operands=False,
+                           causal=True, window=0):
     """The backward kernels' arithmetic in float32 torch ops: P from the
     row log-sum-exp, D = rowsum(dO o) from the forward's output in q's
     dtype, every product in float32, gradients rounded to q's dtype.
     `bf16_operands`: the bf16 kernels' tensor-core products instead (S
     and dP accumulate in float32 from the bf16 inputs, as above; P and dS
-    are rounded to bf16 before the dV, dK and dQ products)."""
+    are rounded to bf16 before the dV, dK and dQ products).  The mask as
+    the kernels' (`causal`, `window`; non-causal: k, v of their own
+    length)."""
     H, K = q.shape[2], k.shape[2]
     rep = H // K
-    out, *_ = attention_grads_ref(q, k, v, do, scale=scale)
+    out, *_ = attention_grads_ref(q, k, v, do, scale=scale, causal=causal,
+                                  window=window)
     qf, kf, vf, df = (t.float() for t in (q, k, v, do))
     kk, vv = (t.repeat_interleave(rep, dim=2) for t in (kf, vf))
-    S = q.shape[1]
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kk) * scale
-    s = s.masked_fill(~torch.ones(S, S, dtype=torch.bool).tril(), -1e30)
+    if causal:
+        s = s.masked_fill(~visible(q.shape[1], k.shape[1], window), -1e30)
     p = torch.exp(s - torch.logsumexp(s, -1, keepdim=True))
     D = (df * out.float()).sum(-1).transpose(1, 2)[..., None]
     ds = p * (torch.einsum("bqhd,bkhd->bhqk", df, vv) - D)
@@ -142,18 +146,33 @@ def test_flash_grad_bars_hold_for_the_kernels_arithmetic(dtype):
             assert cmp["rel_l2"] > 1e-4      # the bar is not idle
 
 
-@pytest.mark.parametrize("hd", [64, 128])
-def test_flash_grad_bars_hold_for_the_wgmma_kernels_arithmetic(hd):
-    """GRAD_BARS against the plain autograd at S 1024 for the bf16 wgmma
-    kernels' arithmetic (P and dS rounded to bf16 for their products): it
-    passes each bar, and the rounding moves it off the f32-product
-    emulation (the bar is not idle)."""
+# (id, S, S_kv, hd, causal, window): causal at S 1024 (hd 64 and 128, the
+# first variants), a window, non-causal with S_kv < S and S_kv > S off the
+# tile multiples, hd 256 causal and windowed
+WGMMA_ARITH_CASES = [("64", 1024, 1024, 64, True, 0),
+                     ("128", 1024, 1024, 128, True, 0),
+                     ("window", 1024, 1024, 128, True, 200),
+                     ("cross-skv-lt-s", 1000, 300, 64, False, 0),
+                     ("cross-skv-gt-s", 300, 1000, 128, False, 0),
+                     ("hd256", 1024, 1024, 256, True, 0),
+                     ("hd256-window", 1024, 1024, 256, True, 256)]
+
+
+@pytest.mark.parametrize("case", WGMMA_ARITH_CASES,
+                         ids=[c[0] for c in WGMMA_ARITH_CASES])
+def test_flash_grad_bars_hold_for_the_wgmma_kernels_arithmetic(case):
+    """GRAD_BARS against the plain autograd for the bf16 wgmma kernels'
+    arithmetic (P and dS rounded to bf16 for their products), for each
+    mask and key length: it passes each bar, and the rounding moves it off
+    the f32-product emulation (the bar is not idle)."""
+    _, S, S_kv, hd, causal, window = case
     q, k, v, do = (torch.from_numpy(t).to(torch.bfloat16) for t in
-                   _attn_inputs(hd, 1, 1024, 1024, 4, 2, hd))
-    _, *want = attention_grads_ref(q, k, v, do)
+                   _attn_inputs(hd, 1, S, S_kv, 4, 2, hd))
+    kw = dict(causal=causal, window=window)
+    _, *want = attention_grads_ref(q, k, v, do, **kw)
     got = _emulated_kernel_grads(q, k, v, do, hd ** -0.5,
-                                 bf16_operands=True)
-    f32_products = _emulated_kernel_grads(q, k, v, do, hd ** -0.5)
+                                 bf16_operands=True, **kw)
+    f32_products = _emulated_kernel_grads(q, k, v, do, hd ** -0.5, **kw)
     for n, g, w, f in zip(("dq", "dk", "dv"), got, want, f32_products):
         cmp = compare_grad(g, w)
         assert cmp["ok"], (n, cmp, GRAD_BARS[torch.bfloat16])

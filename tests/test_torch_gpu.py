@@ -935,6 +935,34 @@ def test_moe_layer_repeat_runs_equal_on_card(cuda):
         assert routes.seen == T
 
 
+def test_moe_layer_backward_repeat_runs_equal_on_card(cuda):
+    """deepseek-moe-16b's MoE layer at full width, T 4096: the gradients
+    of the input and of every weight (through the gathers, the batched
+    expert products, the gathered combine and the lb_loss term) twice
+    torch.equal, finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config("deepseek-moe-16b")
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    params = moe.init_moe(gen, cfg.d_model, cfg.moe)
+    x = torch.randn((1, 4096, cfg.d_model), generator=gen,
+                    device=cuda).bfloat16()
+    dy = torch.randn(x.shape, generator=gen, device=cuda).bfloat16()
+    keys = sorted(params)
+
+    def grads():
+        leaves = [params[k].detach().requires_grad_() for k in keys]
+        xg = x.detach().requires_grad_()
+        y, aux = moe.moe_ffn(dict(zip(keys, leaves)), xg, cfg.moe)
+        loss = (y.float() * dy.float()).sum() + 1e-2 * aux["lb_loss"]
+        return torch.autograd.grad(loss, leaves + [xg])
+
+    first, second = grads(), grads()
+    for k, a, b in zip(keys + ["x"], first, second):
+        assert torch.equal(a, b), k
+        assert bool(torch.isfinite(a.float()).all()), k
+
+
 # ---------------------------------------------------------------------------
 # non-causal flash with S_kv != S (the encoder's 'B' layers and cross
 # attention), each CUDA kernel; whole 'B' and 'C' blocks at full width
@@ -1118,21 +1146,93 @@ def test_flash_backward_two_runs_equal(cuda, dtype):
     _equal(first, second)
 
 
-@pytest.mark.parametrize("kw,hd,S_kv", [
-    (dict(causal=True, window=64), 128, None),
-    (dict(causal=False), 128, None), (dict(causal=False), 64, 300),
-    (dict(causal=True), 32, None), (dict(causal=True), 16, None),
-    (dict(causal=True), 256, None)],
-    ids=["window", "non-causal", "s_kv", "hd32", "hd16", "hd256"])
-def test_flash_backward_variants_not_ported_raise(cuda, kw, hd, S_kv):
+# (B, S, S_kv, H, K, hd, causal, window): S and S_kv off every tile
+# multiple, S_kv < S and S_kv > S, a window below one 64-row tile and one
+# >= S, GQA ratios 1, 2, 4 and 6, B 2
+BWD_VARIANTS = [
+    ("window-sub-tile", 1, 200, 200, 4, 2, 128, True, 48),
+    ("window-hd64-b2", 2, 1500, 1500, 4, 1, 64, True, 100),
+    ("window-ge-s", 1, 448, 448, 6, 1, 128, True, 1000),
+    ("window-hd256", 2, 448, 448, 6, 1, 256, True, 100),
+    ("window-hd256-long", 1, 1500, 1500, 4, 2, 256, True, 300),
+    ("encoder", 1, 1500, 1500, 4, 4, 64, False, 0),
+    ("cross-skv-gt-s-b2", 2, 448, 1500, 4, 2, 64, False, 0),
+    ("cross-skv-lt-s", 1, 1500, 200, 8, 2, 128, False, 0),
+    ("cross-ratio6", 1, 200, 1601, 6, 1, 128, False, 0),
+    ("cross-hd256", 1, 200, 1601, 4, 4, 256, False, 0),
+    ("cross-hd256-skv-lt-s", 1, 1601, 448, 4, 2, 256, False, 0),
+    ("causal-hd256", 1, 1500, 1500, 4, 2, 256, True, 0),
+    ("causal-hd256-b2", 2, 129, 129, 8, 2, 256, True, 0),
+]
+
+
+def _flash_variant_inputs(dev, B, S, S_kv, H, K, hd, dtype, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((B, n_s, n, hd), generator=gen, device=dev).to(dtype)
+            for n_s, n in ((S, H), (S_kv, K), (S_kv, K), (S, H))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", BWD_VARIANTS, ids=[c[0] for c in BWD_VARIANTS])
+def test_flash_backward_variants_within_bars(cuda, case, dtype):
+    """Each mask and key length the forward takes, at hd 64, 128 and 256:
+    within GRAD_BARS of the plain autograd, one forward and one backward
+    launch, two runs torch.equal, and the forward with the LSE store gives
+    the prefill forward's bits."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import (
+        GRAD_BARS, attention_grads_ref, compare_grad)
+    _, B, S, S_kv, H, K, hd, causal, window = case
+    q, k, v, do = _flash_variant_inputs(cuda, B, S, S_kv, H, K, hd, dtype,
+                                        S + S_kv + hd + window)
+    kw = dict(causal=causal, window=window)
+    before = dict(ops.launches)
+    out, *got = _flash_grads(q, k, v, do, **kw)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention"] == before["flash_attention"] + 1
+    assert (ops.launches["flash_attention_bwd"]
+            == before["flash_attention_bwd"] + 1)
+    _equal((out, *got), _flash_grads(q, k, v, do, **kw))
+    _, *want = attention_grads_ref(q, k, v, do, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert bool(torch.isfinite(g).all()), name
+        cmp = compare_grad(g, w)
+        assert cmp["ok"], (name, cmp, GRAD_BARS[dtype])
+    with torch.no_grad():
+        plain_fwd = ops.gqa_flash_attention_kv(q, k, v, **kw)
+    assert torch.equal(out, plain_fwd)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("S,S_kv,hd,causal,window", [
+    (300, 300, 256, True, 0), (300, 300, 128, True, 50),
+    (300, 700, 64, False, 0), (700, 300, 256, False, 0)])
+def test_flash_lse_variants_are_the_rows_logsumexp(cuda, dtype, S, S_kv, hd,
+                                                   causal, window):
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import visible
+    B, H, K = 1, 4, 2
+    q, k, v, _ = _flash_variant_inputs(cuda, B, S, S_kv, H, K, hd, dtype, 6)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=cuda)
+    ops._forward(q, k, v, hd ** -0.5, causal, window, lse)
+    kk = k.repeat_interleave(H // K, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk.float()) * hd ** -0.5
+    if causal:
+        s = s.masked_fill(~visible(S, S, window, cuda), float("-inf"))
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("hd", [32, 16], ids=["hd32", "hd16"])
+def test_flash_backward_variants_not_ported_raise(cuda, hd):
     from repro_torch.kernels.flash_attention import ops
     q, k, v, do = _flash_train_inputs(cuda, 1, 200, 4, 2, hd,
                                       torch.bfloat16, 1)
-    if S_kv is not None:
-        k, v = (t[:, :1].expand(-1, S_kv, -1, -1).contiguous()
-                for t in (k, v))
     q, k, v = (t.requires_grad_() for t in (q, k, v))
-    out = ops.gqa_flash_attention_kv(q, k, v, **kw)   # the forward runs
+    out = ops.gqa_flash_attention_kv(q, k, v, causal=True)   # the forward runs
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         out.backward(do)
 

@@ -588,6 +588,18 @@ def test_train_loop_restart_ends_in_the_uninterrupted_state(tmp_path,
         assert torch.equal(g, w), k
 
 
+def test_train_without_checkpoints_writes_none(loop_runs, tmp_path):
+    """`checkpoint_every=0`: the same losses as the run with checkpoints,
+    and nothing written to the checkpoint directory."""
+    _, _, clean = loop_runs
+    res = launch_train.train("mamba2-370m", smoke=True, steps=4, seq=32,
+                             global_batch=2, microbatches=2, device="cpu",
+                             ckpt_dir=str(tmp_path / "none"),
+                             checkpoint_every=0, log=lambda msg: None)
+    assert res["losses"] == clean["losses"] and res["step"] == 4
+    assert not any(p.is_file() for p in (tmp_path / "none").rglob("*"))
+
+
 def test_train_loop_checkpoint_restores_in_the_reference(loop_runs):
     root, failed, _ = loop_runs
     cfg = failed["cfg"]

@@ -1,0 +1,242 @@
+"""Training the later families on the CPU against the live JAX reference:
+gemma3-12b (local windows and a global layer), whisper-large-v3 (the
+encoder and cross attention), llama-3.2-vision-11b (cross attention to the
+image embeddings) and deepseek-moe-16b (the MoE FFN and its load-balancing
+term), each at its smoke config.
+
+One step's loss and every gradient leaf of the port's `make_loss_fn`
+against the reference's `make_loss_fn` under `jax.value_and_grad`, on the
+same seeded numpy batch (`enc_frames` / `img_embed` built as
+tests/test_models_smoke.py builds them) and the reference's weights carried
+across bit-equal (`models.convert`).  The bars are those of
+tests/test_torch_train.py: the zoo's bf16 bar as shipped (rtol 2e-2, atol
+2e-2 x max |reference|), and in float32 (each package's
+`models.model.DTYPE` patched for the test) the loss within 1e-5 relative
+and every leaf within 1e-4 relative L2.  At S 128 the gemma3 smoke window
+(32) bites.  deepseek-moe's MoE layers run on the reference's own expert
+choice (`RouteReplay`): the reference remats each block, so its router
+runs twice a layer under `value_and_grad`; the forward's choices are the
+first of them and the re-forward's repeat them.  Last, one `make_train_step`
+step of whisper in float32 at 2 microbatches, which cut `enc_frames` on
+axis 0 with the tokens.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.models import moe as jax_moe
+from repro.models.model import build_model as jax_build_model
+from repro.train import checkpoint as j_ckpt
+from repro.train import optimizer as j_opt
+from repro.train.train_step import make_loss_fn as j_make_loss_fn
+from repro.train.train_step import make_train_step as j_make_train_step
+from repro_torch.configs import get_config
+from repro_torch.core.tree import leaf_paths, tree_leaves, tree_unflatten
+from repro_torch.models.convert import params_from_numpy, to_reference_layout
+from repro_torch.models.model import build_model
+from repro_torch.testing import BF16_RTOL, RouteReplay
+from repro_torch.train import optimizer
+from repro_torch.train.train_step import make_loss_fn, make_train_step
+
+FAMILIES = ("gemma3-12b", "whisper-large-v3", "llama-3.2-vision-11b",
+            "deepseek-moe-16b")
+SEQ = 128
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _rel_l2(got, want) -> float:
+    got, want = _np(got).astype(np.float64), _np(want).astype(np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def _bf16_bar(got, want, what):
+    got, want = _np(got), _np(want)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    atol = BF16_RTOL * float(np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=BF16_RTOL, atol=atol,
+                               err_msg=what)
+
+
+def _batch(cfg, B=2, S=SEQ, seed=0):
+    """tests/test_models_smoke.py's `_batch` for both packages: tokens,
+    labels = tokens, and the stubbed frontend's output in bf16."""
+    rng = np.random.default_rng(seed)
+    nb = {"tokens": rng.integers(0, cfg.vocab, (B, S))}
+    if cfg.encoder is not None:
+        nb["enc_frames"] = rng.standard_normal((B, S, cfg.d_model)) * 0.1
+        nb["tokens"] = rng.integers(0, cfg.vocab, (B, cfg.encoder.dec_seq))
+    if cfg.n_img_tokens:
+        nb["img_embed"] = rng.standard_normal(
+            (B, cfg.n_img_tokens, cfg.d_model)) * 0.1
+    jb, tb = {}, {}
+    for k, v in nb.items():
+        if k == "tokens":
+            jb[k] = jnp.asarray(v, jnp.int32)
+            tb[k] = torch.from_numpy(v).long()
+        else:
+            jb[k] = jnp.asarray(v, jnp.bfloat16)
+            tb[k] = torch.from_numpy(np.array(jb[k].astype(jnp.float32))
+                                     ).to(torch.bfloat16)
+    jb["labels"], tb["labels"] = jb["tokens"], tb["tokens"]
+    return jb, tb
+
+
+def _n_moe_layers(cfg) -> int:
+    return cfg.n_super * sum(ff == "E" for _, ff in cfg.pattern)
+
+
+def _reference(arch, f32, seed=0):
+    """The reference's (model, params) of `arch`'s smoke config, float32
+    weights if `f32`, and the port's on the same weights."""
+    jm = jax_build_model(jax_get_config(arch, smoke=True))
+    jp, _ = jm.init(jax.random.PRNGKey(seed))
+    if f32:
+        jp = jax.tree.map(lambda a: np.asarray(a, np.float32), jp)
+    m = build_model(get_config(arch, smoke=True), "cpu")
+    p = params_from_numpy(m.cfg, jax.tree.map(np.asarray, jp), "cpu")
+    return jm, jp, m, p
+
+
+def _reference_value_and_grad(jm, jp, jb, monkeypatch):
+    """jax.value_and_grad of the reference's loss, and its MoE layers'
+    expert choices in forward order (`RouteReplay`, empty without MoE)."""
+    routes = RouteReplay()
+    seen = []
+    if jm.cfg.moe is not None:
+        dispatch = jax_moe._moe_dispatch
+
+        def recording(params, x, cfg, swiglu=True):
+            logits = (x.reshape(-1, x.shape[-1]).astype(jnp.float32)
+                      @ params["router"])
+            score = (jax.nn.softmax(logits, axis=-1)
+                     if cfg.router_pre_softmax else logits)
+            _, idx = jax.lax.top_k(score, cfg.top_k)
+            jax.debug.callback(lambda e: seen.append(np.array(e)), idx,
+                               ordered=True)
+            return dispatch(params, x, cfg, swiglu)
+        monkeypatch.setattr(jax_moe, "_moe_dispatch", recording)
+    (jloss, _), jgrads = jax.jit(jax.value_and_grad(
+        j_make_loss_fn(jm), has_aux=True))(jp, jb)
+    n = _n_moe_layers(jm.cfg) if jm.cfg.moe is not None else 0
+    # the forward's choices, then the remat'd re-forward's (backward order)
+    assert len(seen) in (n, 2 * n), (len(seen), n)
+    for fwd, again in zip(seen[:n], reversed(seen[n:])):
+        assert np.array_equal(fwd, again)
+    for idx in seen[:n]:
+        routes.push(idx)
+    return jloss, jgrads, routes
+
+
+def _port_value_and_grad(m, p, tb, routes):
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(p)]
+    with routes.replay():
+        loss, _ = make_loss_fn(m)(tree_unflatten(p, leaves), tb)
+    if m.cfg.moe is not None:
+        routes.check(f"{m.cfg.name} smoke")
+    grads = torch.autograd.grad(loss, leaves)
+    return loss, tree_unflatten(p, list(grads))
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_loss_and_every_gradient_within_bf16_bar(arch, monkeypatch):
+    """As shipped (bf16 weights and activations): the loss within the zoo's
+    bar, every gradient leaf within the zoo's elementwise bar, gemma3's
+    within 5e-2 relative L2, as mamba2-370m's in tests/test_torch_train.py.
+    With labels = tokens, gemma3's tied embedding scaled by sqrt(D) all but
+    predicts its input (loss 0.40 against ~6.8 for the other three), so its
+    gradients are small and bf16 rounding at the two packages' different
+    places moves its leaves by 1.8-2.4% relative L2: a single element of
+    8192 in one leaf crosses the elementwise bar by 1.08x.  The float32
+    test below holds the same gradients to 1e-4."""
+    jm, jp, m, p = _reference(arch, f32=False)
+    jb, tb = _batch(m.cfg)
+    jloss, jgrads, routes = _reference_value_and_grad(jm, jp, jb,
+                                                      monkeypatch)
+    loss, grads = _port_value_and_grad(m, p, tb, routes)
+    _bf16_bar(loss, jloss, f"{arch} loss")
+    want = dict(j_ckpt._leaf_paths(jgrads))
+    got = dict(leaf_paths(to_reference_layout(m.cfg, grads)))
+    assert list(got) == list(want)
+    for k, g in got.items():
+        if arch == "gemma3-12b":
+            assert _rel_l2(g, want[k]) <= 5e-2, k
+        else:
+            _bf16_bar(g, want[k], f"{arch} {k}")
+
+
+def _patch_f32(monkeypatch):
+    import repro.models.model as j_model_mod
+    import repro_torch.models.model as t_model_mod
+    monkeypatch.setattr(j_model_mod, "DTYPE", jnp.float32)
+    monkeypatch.setattr(t_model_mod, "DTYPE", torch.float32)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_loss_and_every_gradient_in_float32(arch, monkeypatch):
+    """Both models in float32: the loss within 1e-5 relative, every
+    gradient leaf within 1e-4 relative L2."""
+    _patch_f32(monkeypatch)
+    jm, jp, m, p = _reference(arch, f32=True)
+    jb, tb = _batch(m.cfg)
+    jloss, jgrads, routes = _reference_value_and_grad(jm, jp, jb,
+                                                      monkeypatch)
+    loss, grads = _port_value_and_grad(m, p, tb, routes)
+    assert abs(float(loss.detach()) - float(jloss)) <= 1e-5 * abs(
+        float(jloss))
+    want = dict(j_ckpt._leaf_paths(jgrads))
+    for k, g in leaf_paths(to_reference_layout(m.cfg, grads)):
+        assert g.dtype == torch.float32
+        assert _rel_l2(g, want[k]) <= 1e-4, k
+
+
+def test_whisper_train_step_two_microbatches_in_float32(monkeypatch):
+    """One adamw step (clip 1.0, weight decay 0.01) at 2 microbatches:
+    loss and grad_norm within 1e-5 relative, every new parameter within
+    1e-4 relative L2 of the reference's step."""
+    _patch_f32(monkeypatch)
+    jm, jp, m, p = _reference("whisper-large-v3", f32=True, seed=1)
+    jb, tb = _batch(m.cfg, B=4)
+    jo = j_opt.adamw(1e-2, weight_decay=0.01, grad_clip=1.0)
+    to = optimizer.adamw(1e-2, weight_decay=0.01, grad_clip=1.0)
+    jstep = jax.jit(j_make_train_step(jm, jo, microbatches=2))
+    jnew, _, jmet = jstep(jp, jo.init(jp), jb, jnp.asarray(0, jnp.int32))
+    new, _, met = make_train_step(m, to, microbatches=2)(
+        p, to.init(p), tb, torch.tensor(0, dtype=torch.int32))
+    for key in ("loss", "grad_norm"):
+        assert abs(float(met[key]) - float(jmet[key])) <= 1e-5 * abs(
+            float(jmet[key])), key
+    want = dict(j_ckpt._leaf_paths(jnew))
+    for k, t in leaf_paths(to_reference_layout(m.cfg, new)):
+        assert _rel_l2(t, want[k]) <= 1e-4, k
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "llama-3.2-vision-11b"])
+def test_microbatches_cut_every_batch_key_on_axis_0(arch):
+    """Each microbatch the model sees holds its own rows of every key of
+    the batch: tokens, labels and `enc_frames` / `img_embed`."""
+    cfg = get_config(arch, smoke=True)
+    m = build_model(cfg, "cpu")
+    _, tb = _batch(cfg, B=4)
+    seen = []
+
+    def spy_apply(params, batch):
+        seen.append({k: v.clone() for k, v in batch.items()})
+        return m.apply(params, batch)
+    spied = m._replace(apply=spy_apply)
+    opt = optimizer.sgd(0.0)
+    p = m.init(0)
+    make_train_step(spied, opt, microbatches=2)(
+        p, opt.init(p), tb, torch.tensor(0, dtype=torch.int32))
+    assert len(seen) == 2
+    for i, mb in enumerate(seen):
+        assert set(mb) == set(tb)
+        for k, v in tb.items():
+            assert torch.equal(mb[k], v[2 * i:2 * i + 2]), (i, k)
