@@ -76,6 +76,19 @@ Phases (each prints its lines; the run exits 0 only if every phase passes):
     failures up to quarantine, the store poison with rollback and a stall
     over the deadline, every healthy tenant `==` to the fault-free run on
     the same shapes.
+ 5d. the planning layer (`[plan]`): shape_applicable, model_flops,
+    memory_bytes and the card's Roofline for every arch x shape; the
+    mapper's dueling_qnet at state 24 (N 1 and 64) within 1e-4 and its TD
+    step's batched_linear products at K 24 within 1e-5 of their plain
+    versions; then its main path, `core/sharding_mapper.search` for every
+    arch at train_4k on a (16, 16) mesh of H100s (300 steps, seed 0)
+    beside `exhaustive_best`, and jamba-1.5-large-398b's OOM escape on
+    (8, 8), the AIMM kernels' counts set to 0 just before and read just
+    after: qwen3-32b within 1.3x of its optimum, jamba leaving the OOM
+    plateau with FSDP and int8 moments; wall and launches a search step,
+    a profile of one search; jamba and qwen3-32b searched again on the
+    CPU, `==` to the card or parting once at a greedy near-tie below 1e-4
+    relative.
  6. model-zoo kernels vs their plain-torch versions on the card, at the
     main-path shapes (B 1, S 4096): flash attention at minitron-8b's
     (H 32, K 8, hd 128) in bf16 (the wgmma kernel) and f32 within the bars
@@ -148,7 +161,18 @@ Phases (each prints its lines; the run exits 0 only if every phase passes):
     layers) for 3 steps each (TRAIN_FAMILY_RUNS; the depth cuts in the
     phase's `reduced` line), each step launching the kernels per_forward
     x 2 microbatches times forward and as often backward, and one
-    profiled step per cell.
+    profiled step per cell; also qwen3-32b (4 of 64 layers) and
+    phi3-medium-14b (8 of 40) through `launch/train.py`, and the flash
+    backward at their shapes, whisper-large-v3's decoder and
+    deepseek-moe-16b's.
+9c. `[roofline]`: every training cell's and prefill's measured warm step
+    against the card's Roofline bound of its own cut config and shape
+    (fails below it), the training cells' model_flops share (`==`
+    [train]'s) and the cost model's hbm_per_chip beside the measured
+    peak; full-depth minitron-8b's memory by the same model.
+9d. `[examples]`: the four `examples/torch_*.py` on the card at reduced
+    arguments (2 AIMM episodes, one arch, 40 training steps with a
+    failure injected).
 10. each phase's wall seconds (`[time]`), a JSON line with every
     kernel's numbers, then the result line {"ok": true, "device": {...}}.
 
@@ -1463,7 +1487,7 @@ def phase_zoo_model(dev) -> tuple[dict[str, int], dict]:
             f"steps/s, batch 4), peak device memory "
             f"{serve_peak / 2**30:.2f} GiB; launches over the arch's two "
             f"forwards and serve loop {json.dumps(measured)}")
-        by_arch[arch] = dict(params=n, active_params=n_act,
+        by_arch[arch] = dict(params=n, active_params=n_act, cfg=cfg,
                              layers=cfg.n_layers, seq=seq,
                              prefill_s=walls[1],
                              tokens_per_s=ZOO_BATCH * seq / walls[1],
@@ -2397,14 +2421,21 @@ TRAIN_FAIL_AT = 3
 # (~262 GB) exceeds the card, so each keeps one period: gemma3 6 of 48
 # layers (5 local : 1 global), llama-vision 5 of 40 (one 'C', four 'A'),
 # deepseek 4 of 28 (the dense first layer and 3 MoE layers); whisper trains
-# at full depth (32 + 32 layers).  (arch, layers or None, entry):
+# at full depth (32 + 32 layers).  qwen3-32b (~524 GB at full depth) and
+# phi3-medium-14b (~235 GB) are causal with no window at hd 128, GQA 64 / 8
+# and 40 / 10: each keeps the deepest cut whose state fits at the ~19 B a
+# parameter the cells above peaked at, 4 of 64 layers (3.506 B
+# parameters, ~62 GiB) and 8 of 40 (3.754 B, ~67 GiB).
+# (arch, layers or None, entry):
 # "train" is launch/train.py's `train` (tokens and labels), "step"
 # `make_train_step` on batches with the stubbed frontend's output (the
 # reference's data pipeline yields none).
 TRAIN_FAMILY_RUNS = (("gemma3-12b", 6, "train"),
                      ("whisper-large-v3", None, "step"),
                      ("llama-3.2-vision-11b", 5, "step"),
-                     ("deepseek-moe-16b", 4, "train"))
+                     ("deepseek-moe-16b", 4, "train"),
+                     ("qwen3-32b", 4, "train"),
+                     ("phi3-medium-14b", 8, "train"))
 TRAIN_FAMILY_STEPS = 3
 # card vs CPU, one step's loss and gradients (no optimizer step), B 1:
 # (arch, layers, S); at full width, the depth of [zoo-cpu] (gemma3-12b's 6
@@ -2423,8 +2454,10 @@ TRAIN_CPU_RUNS = (("minitron-8b", 2, 256), ("mamba2-370m", 2, 256),
 # (label, arch, S, S_kv or None for causal, windowed).  gemma3-12b's global
 # and local layers (hd 256, window 1024), whisper-large-v3's encoder (non-
 # causal, S 1500) and cross attention (448 x 1500), llama-3.2-vision-11b's
-# cross attention (4096 x 1601, GQA 32 / 8) and mixtral-8x22b's 'W' layer
-# (S 8192, window 4096, GQA 48 / 8).
+# cross attention (4096 x 1601, GQA 32 / 8), mixtral-8x22b's 'W' layer
+# (S 8192, window 4096, GQA 48 / 8), and the causal layers of qwen3-32b (H
+# 64, K 8) and phi3-medium-14b (H 40, K 10) at S 4096, whisper-large-v3's
+# decoder (S 448, H = K = 20, hd 64) and deepseek-moe-16b (H = K = 16).
 TRAIN_FLASH_SHAPES = (
     ("gemma3-12b global", "gemma3-12b", ZOO_SEQ, None, False),
     ("gemma3-12b local", "gemma3-12b", ZOO_SEQ, None, True),
@@ -2434,7 +2467,12 @@ TRAIN_FLASH_SHAPES = (
      WHISPER_FRAMES, False),
     ("llama-3.2-vision-11b cross", "llama-3.2-vision-11b", ZOO_SEQ, 1601,
      False),
-    ("mixtral-8x22b W", "mixtral-8x22b", MIXTRAL_SEQ, None, True))
+    ("mixtral-8x22b W", "mixtral-8x22b", MIXTRAL_SEQ, None, True),
+    ("qwen3-32b", "qwen3-32b", ZOO_SEQ, None, False),
+    ("phi3-medium-14b", "phi3-medium-14b", ZOO_SEQ, None, False),
+    ("whisper-large-v3 decoder", "whisper-large-v3", WHISPER_TOKENS, None,
+     False),
+    ("deepseek-moe-16b", "deepseek-moe-16b", ZOO_SEQ, None, False))
 # each variant in f32 at one small shape: (label, B, S, S_kv, H, K, hd,
 # causal, window)
 TRAIN_FLASH_F32 = (("window", 1, 700, 700, 4, 2, 128, True, 100),
@@ -2888,10 +2926,8 @@ def family_train_cell(dev, arch: str, layers, entry: str) -> dict:
     torch.profiler.  Returns the cell's numbers."""
     import shutil
     import torch
-    from repro_torch.configs.base import ShapeCfg
     from repro_torch.launch.train import train
-    from repro_torch.models.model import (build_model, count_params,
-                                          model_flops)
+    from repro_torch.models.model import build_model, count_params
     from repro_torch.train.data import DataConfig, SyntheticDataset
     from repro_torch.train.optimizer import adamw
     from repro_torch.train.train_step import make_train_step
@@ -2950,8 +2986,8 @@ def family_train_cell(dev, arch: str, layers, entry: str) -> dict:
         raise AssertionError(f"{arch}: losses {losses}")
     step_s = sorted(times[1:])[len(times[1:]) // 2]     # median, warm
     tokens = TRAIN_BATCH * seq
-    mflops = model_flops(cfg, ShapeCfg("train_cell", seq, TRAIN_BATCH,
-                                       "train"))
+    rf = cell_roofline(cfg, seq, TRAIN_BATCH, "train", TRAIN_MICROBATCHES)
+    mflops, mfu = rf.model_flops, rf.fraction_at(step_s)
     prof_wall, rows = profiled(lambda: step_fn(
         params, opt_state, batch, torch.tensor(steps, device=dev)))
     dev_us = sum(r[0] for r in rows)
@@ -2970,7 +3006,7 @@ def family_train_cell(dev, arch: str, layers, entry: str) -> dict:
         f"{cfg.d_model}; f32 moments); S {seq}, losses "
         f"{[round(x, 4) for x in losses]}; step {step_s:.3f} s warm (steps "
         f"{[round(t, 3) for t in times]}), {tokens / step_s:.0f} tokens/s, "
-        f"model_flops {mflops:.4g} = {mflops / step_s / BF16_OPS_PER_S:.4f} "
+        f"model_flops {mflops:.4g} = {mfu:.4f} "
         f"of the bf16 peak; peak device memory {peak / 2**30:.2f} GiB; wall "
         f"{wall:.1f} s; launches {json.dumps(counts)} ({per} forward and "
         f"{per} backward a step)")
@@ -2983,8 +3019,8 @@ def family_train_cell(dev, arch: str, layers, entry: str) -> dict:
     del params, opt_state, model, step_fn, batch
     torch.cuda.empty_cache()
     return dict(params=n, layers=cfg.n_layers, seq=seq, step_s=step_s,
-                quantized_opt=False, tokens_per_s=tokens / step_s,
-                mfu=mflops / step_s / BF16_OPS_PER_S, peak_gib=peak / 2**30,
+                quantized_opt=False, tokens_per_s=tokens / step_s, cfg=cfg,
+                mfu=mfu, peak_gib=peak / 2**30,
                 busy_share=busy, losses=losses, launches=counts)
 
 
@@ -3001,10 +3037,8 @@ def phase_train(dev) -> tuple[dict[str, int], dict]:
     the per-arch numbers."""
     import shutil
     import torch
-    from repro_torch.configs.base import ShapeCfg
     from repro_torch.launch.train import train
-    from repro_torch.models.model import (build_model, count_params,
-                                          model_flops)
+    from repro_torch.models.model import build_model, count_params
     from repro_torch.train.optimizer import adamw, quantized_adamw
     from repro_torch.train.train_step import make_train_step
     ckpt_root = ROOT / "build" / "train_ckpt"
@@ -3056,8 +3090,9 @@ def phase_train(dev) -> tuple[dict[str, int], dict]:
         times = res["step_times"]
         step_s = sorted(times[1:])[len(times[1:]) // 2]     # median, warm
         tokens = res["tokens_per_step"]
-        mflops = model_flops(cfg, ShapeCfg("train_cell", TRAIN_SEQ,
-                                           TRAIN_BATCH, "train"))
+        rf = cell_roofline(cfg, TRAIN_SEQ, TRAIN_BATCH, "train",
+                           TRAIN_MICROBATCHES, quantized)
+        mflops, mfu = rf.model_flops, rf.fraction_at(step_s)
         # one more step under the profiler, on the trained state
         model = build_model(cfg, dev)
         opt = (quantized_adamw if quantized else adamw)(
@@ -3084,7 +3119,7 @@ def phase_train(dev) -> tuple[dict[str, int], dict]:
             f"torch.equal to those saved at step 2); step {step_s:.3f} s warm (steps "
             f"{[round(t, 3) for t in times]}), {tokens / step_s:.0f} "
             f"tokens/s, model_flops {mflops:.4g} = "
-            f"{mflops / step_s / BF16_OPS_PER_S:.4f} of the bf16 peak; "
+            f"{mfu:.4f} of the bf16 peak; "
             f"peak device memory {peak / 2**30:.2f} GiB; wall {wall:.1f} s "
             f"with the checkpoints; launches {json.dumps(counts)} "
             f"({per_step} forward and {per_step} backward a step)")
@@ -3097,9 +3132,8 @@ def phase_train(dev) -> tuple[dict[str, int], dict]:
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
         by_arch[arch] = dict(params=n, layers=cfg.n_layers, step_s=step_s,
-                             quantized_opt=quantized,
-                             tokens_per_s=tokens / step_s,
-                             mfu=mflops / step_s / BF16_OPS_PER_S,
+                             quantized_opt=quantized, cfg=cfg, seq=TRAIN_SEQ,
+                             tokens_per_s=tokens / step_s, mfu=mfu,
                              peak_gib=peak / 2**30, busy_share=busy,
                              losses=L, launches=counts)
         del res, p, s, model, step_fn, batch
@@ -3112,7 +3146,8 @@ def phase_train(dev) -> tuple[dict[str, int], dict]:
         by_arch[arch] = family_train_cell(dev, arch, layers, entry)
         for k, v in by_arch[arch]["launches"].items():
             total[k] = total.get(k, 0) + v
-    reduced = {arch: f"n_layers {get_config_layers(arch)} -> {layers}"
+    reduced = {arch: f"n_layers {get_config_layers(arch)} -> {layers} (the "
+                     f"full depth's training state exceeds the card's 80 GB)"
                for arch, layers, _ in TRAIN_RUNS + TRAIN_FAMILY_RUNS
                if layers is not None}
     log(f"[train] reduced: {json.dumps(reduced)}")
@@ -3203,6 +3238,376 @@ def phase_train_card_vs_cpu(dev) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# The planning layer: the AIMM sharding mapper and its cost models
+# ---------------------------------------------------------------------------
+
+PLAN_STEPS = 300
+PLAN_MESH = (16, 16)
+# At 80 GB a card jamba-1.5-large-398b's starting mapping fits on (16, 16),
+# so the OOM escape of the reference's test is held on (8, 8), 64 cards,
+# where it needs ~179 GB a card.
+PLAN_OOM_MESH = (8, 8)
+PLAN_CPU_ARCHS = ("jamba-1.5-large-398b", "qwen3-32b")
+PLAN_PROFILE_STEPS = 60
+
+
+@contextlib.contextmanager
+def recording_acts():
+    """Within the block, every `agent.act` the mapper's search makes also
+    appends (action, explored, q) to the list yielded: the action taken,
+    whether the epsilon draw explored, and the online network's Q values
+    (float64) its greedy choice is made from.  The extra draws and the Q
+    forward are kernel launches of their own."""
+    from repro_torch.core import agent as agent_mod
+    from repro_torch.core import dqn, prng
+    act, rec = agent_mod.act, []
+
+    def spy(agent, cfg, state_vec, explore=True):
+        keys = prng.split(agent.rng, 3)
+        u = prng.uniform(keys[:, 1], ())
+        eps = agent_mod.epsilon(cfg, agent.global_step)
+        q = dqn.q_values_infer(agent.params, state_vec, cfg.dqn)[0]
+        a, out = act(agent, cfg, state_vec, explore)
+        rec.append((int(a[0]), bool(explore and u[0] < eps[0]),
+                    q.double().cpu().numpy()))
+        return a, out
+
+    agent_mod.act = spy
+    try:
+        yield rec
+    finally:
+        agent_mod.act = act
+
+
+def hold_search(arch: str, card, card_rec, cpu, cpu_rec) -> str:
+    """The card's search against the CPU's: every action, knob setting and
+    step time `==`.  At the first step where the actions part, the rule of
+    a float-order near-tie applies: both must be greedy there and the
+    card's top-two Q gap below 1e-4 relative; anything else fails.  After
+    such a flip the two searches walk other mappings, and are not
+    compared further."""
+    for t, ((a, ex, q), (b, ex_b, _)) in enumerate(zip(card_rec, cpu_rec)):
+        if card.trajectory[t] != cpu.trajectory[t]:
+            raise AssertionError(f"{arch}: card and CPU searches part at "
+                                 f"step {t} with equal actions before it")
+        if a == b:
+            continue
+        top = sorted(q)[-2:]
+        gap = (top[1] - top[0]) / max(abs(top[1]), 1e-12)
+        if ex or ex_b or not gap < 1e-4:
+            raise AssertionError(
+                f"{arch}: card and CPU searches take actions {a} / {b} at "
+                f"step {t} (explored {ex} / {ex_b}, top-two Q gap {gap!r} "
+                f"relative, bar 1e-4)")
+        return (f"== up to step {t}; the actions part there at a near-tie "
+                f"(top-two Q gap {gap:.3g} relative, below 1e-4)")
+    if card.trajectory != cpu.trajectory or card.best != cpu.best or \
+            card.best_step_s != cpu.best_step_s:
+        raise AssertionError(f"{arch}: card and CPU searches differ with "
+                             f"equal actions")
+    return (f"every step's action, knobs and step time ==, best "
+            f"{card.best_step_s!r} s ==")
+
+
+def plan_kernels(dev) -> None:
+    """The mapper's kernels at its own widths: the dueling_qnet at state
+    24 (G 1, N 1 and 64) within 1e-4 of its plain version, and the TD
+    step's batched_linear products at K 24 (G 1, 64 replay rows, hidden
+    128) within 1e-5 of theirs."""
+    import torch
+    from repro_torch.core import dqn, prng
+    from repro_torch.core.sharding_mapper import STATE_DIM, search_agent_cfg
+    from repro_torch.kernels.batched_linear import ops as lops
+    from repro_torch.kernels.batched_linear import ref as lref
+    from repro_torch.kernels.dueling_qnet import ops as qops
+    from repro_torch.kernels.dueling_qnet.ref import dueling_qnet_ref
+    acfg = search_agent_cfg()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(24)
+    params = dqn.init_params(prng.PRNGKey(0, dev), acfg.dqn, 1, dev)
+    for k in params:
+        if k.startswith("b"):
+            params[k] = 0.1 * torch.randn(params[k].shape, generator=gen,
+                                          device=dev)
+    keys = ("w0", "b0", "w1", "b1", "w_v", "b_v", "w_a", "b_a")
+    errs = {}
+    for n in (1, 64):
+        xs = torch.rand((1, n, STATE_DIM), generator=gen, device=dev) * 2
+        got = qops.qnet_forward(params, xs)
+        want = dueling_qnet_ref(xs, *[params[k] for k in keys])
+        errs[n] = max_abs_err(got, want)
+        if not torch.allclose(got, want, rtol=1e-4, atol=1e-4):
+            raise AssertionError(f"dueling_qnet S={STATE_DIM} N={n} beyond "
+                                 f"1e-4 of its plain version: {errs[n]}")
+    N, K, H = acfg.dqn.batch_size, STATE_DIM, acfg.dqn.hidden[0]
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+    x, w, dy, bias = rnd(1, N, K), rnd(1, K, H) * 0.1, rnd(1, N, H), rnd(1, H)
+    lerrs = {}
+    for name, kern, plain, args in (
+            ("fwd", lops.bgemm, lref.bgemm, (x, w, bias)),
+            ("dx", lambda a, b: lops.bgemm(a, b.transpose(1, 2)),
+             lambda a, b: lref.bgemm(a, b.transpose(1, 2)), (dy, w)),
+            ("dw_db", lambda a, b: lops.bgemm_colsum(a.transpose(1, 2), b),
+             lambda a, b: lref.bgemm_colsum(a.transpose(1, 2), b), (x, dy))):
+        got, want = kern(*args), plain(*args)
+        lerrs[name] = max_abs_err(got, want)
+        if not all(torch.allclose(g, v, rtol=1e-5, atol=1e-5)
+                   for g, v in zip(_tensors(got), _tensors(want))):
+            raise AssertionError(f"batched_linear {name} at K {K} beyond "
+                                 f"1e-5 of its plain version: {lerrs[name]}")
+    log(f"[plan] the mapper's widths: dueling_qnet S={STATE_DIM} hidden "
+        f"{acfg.dqn.hidden} A={acfg.dqn.n_actions} within 1e-4 of plain "
+        f"(max abs err N=1 {errs[1]:.3g}, N=64 {errs[64]:.3g}); "
+        f"batched_linear at K {K}, {N} rows, hidden {H} within 1e-5 ("
+        + ", ".join(f"{n} {e:.3g}" for n, e in lerrs.items()) + ")")
+
+
+def phase_plan(dev) -> dict[str, int]:
+    """The planning layer on the card: the cost models over every arch x
+    shape, then the sharding mapper's main path, `search` for every arch
+    at train_4k on (16, 16) with the H100 record (PLAN_STEPS steps, seed
+    0) beside `exhaustive_best`, and jamba-1.5-large-398b's OOM escape on
+    (8, 8), with the AIMM kernels' counts set to 0 just before and read
+    just after; the reference tests' bars (qwen3-32b within 1.3x of its
+    optimum; jamba leaves the OOM plateau with FSDP and int8 moments).
+    Then a profile of one search, and PLAN_CPU_ARCHS searched again on the
+    CPU: `==` to the card's, or parting at a near-tie (`hold_search`).
+    Returns the counted launches."""
+    import torch
+    from repro_torch.configs import ARCHS, SHAPES, get_config, \
+        shape_applicable
+    from repro_torch.core.sharding_mapper import (CostModel, Knobs,
+                                                  exhaustive_best, search)
+    from repro_torch.launch.memory_model import memory_bytes
+    from repro_torch.launch.roofline import H100, Roofline
+    from repro_torch.models.model import model_flops
+    log(f"[plan] chip record: {H100}")
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        cells = []
+        for shape in SHAPES.values():
+            ok, why = shape_applicable(cfg, shape)
+            mf = model_flops(cfg, shape)
+            mb = memory_bytes(cfg, shape)
+            r = Roofline(flops=mf, bytes_hbm=mb, bytes_collective=0.0,
+                         chips=1, model_flops=mf)
+            cells.append(f"{shape.name} {'runs' if ok else 'skipped: ' + why}"
+                         f", model_flops {mf:.4g}, memory_bytes {mb:.4g}, "
+                         f"one card's bound {r.step_s:.4g} s ({r.dominant})")
+        log(f"[plan] {arch}: " + "; ".join(cells))
+    plan_kernels(dev)
+    shape = SHAPES["train_4k"]
+    reset_aimm_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results, steps = {}, 0
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        res = search(cfg, shape, PLAN_MESH, PLAN_STEPS, 0, device=dev)
+        gt, gt_t = exhaustive_best(cfg, shape, PLAN_MESH)
+        results[arch] = (res, gt, gt_t)
+        steps += PLAN_STEPS
+    jamba = get_config("jamba-1.5-large-398b")
+    oom = search(jamba, shape, PLAN_OOM_MESH, PLAN_STEPS, 0, device=dev)
+    steps += PLAN_STEPS
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = aimm_launches()
+    for arch, (res, gt, gt_t) in results.items():
+        gap = res.best_step_s / gt_t - 1
+        visited = len({k for k, _ in res.trajectory})
+        log(f"[plan] search {arch} train_4k mesh {PLAN_MESH}: start "
+            f"{res.baseline_step_s:.6g} s, RL best {res.best} "
+            f"{res.best_step_s:.6g} s, exhaustive {gt} {gt_t:.6g} s, RL vs "
+            f"optimum {100 * gap:+.2f}% ({visited} mappings visited of 144)")
+    res, gt, gt_t = results["qwen3-32b"]
+    if not res.best_step_s <= gt_t * 1.3:
+        raise AssertionError(f"qwen3-32b: search best {res.best_step_s} "
+                             f"beyond 1.3 x the optimum {gt_t}")
+    oom_gt, oom_t = exhaustive_best(jamba, shape, PLAN_OOM_MESH)
+    start_gb = CostModel(jamba, shape, PLAN_OOM_MESH).hbm_per_chip(Knobs())
+    if not (oom.baseline_step_s == float("inf")
+            and oom.best_step_s < float("inf") and oom.best.fsdp
+            and oom.best.quant_opt):
+        raise AssertionError(f"jamba on {PLAN_OOM_MESH}: start "
+                             f"{oom.baseline_step_s}, best {oom.best} "
+                             f"{oom.best_step_s}")
+    log(f"[plan] jamba-1.5-large-398b on {PLAN_OOM_MESH}: the start needs "
+        f"{start_gb / 1e9:.1f} GB a card (OOM at {H100.hbm_bytes / 1e9:.0f} "
+        f"GB); RL best {oom.best} {oom.best_step_s:.6g} s (left the OOM "
+        f"plateau with FSDP and int8 moments), exhaustive {oom_gt} "
+        f"{oom_t:.6g} s")
+    n_launch = sum(counts.values())
+    log(f"[plan] {len(results) + 1} searches, {steps} steps on the card in "
+        f"{wall:.2f} s: {wall / steps * 1e3:.3f} ms a step, launches "
+        f"{json.dumps(counts)} ({n_launch / steps:.1f} counted a step)")
+    cfg = get_config("qwen3-32b")
+    pwall, rows = profiled(lambda: search(cfg, shape, PLAN_MESH,
+                                          PLAN_PROFILE_STEPS, 0, device=dev))
+    dev_us = sum(r[0] for r in rows)
+    n_kern = sum(r[1] for r in rows)
+    log(f"[plan] profile of a {PLAN_PROFILE_STEPS}-step search (qwen3-32b): "
+        f"wall {pwall * 1e3:.1f} ms (profiler on), device kernels "
+        f"{dev_us / 1e3:.2f} ms in {n_kern} launches, "
+        f"{n_kern / PLAN_PROFILE_STEPS:.1f} launches a step, busy share "
+        f"{dev_us / 1e6 / pwall:.4f}")
+    for us, cnt, key in rows[:8]:
+        log(f"[plan]   {us / 1e3:8.3f} ms {cnt:6d}x "
+            f"({cnt / PLAN_PROFILE_STEPS:5.1f} a step)  {key[:80]}")
+    for arch in PLAN_CPU_ARCHS:
+        cfg = get_config(arch)
+        card = results[arch][0]
+        t = time.perf_counter()
+        cpu = search(cfg, shape, PLAN_MESH, PLAN_STEPS, 0, device="cpu")
+        cpu_s = time.perf_counter() - t
+        if cpu == card:
+            verdict = (f"every step's knobs and step time ==, best "
+                       f"{card.best_step_s!r} s ==")
+        else:       # again with every act's Q recorded, to find the tie
+            runs = {}
+            for d in (dev, "cpu"):
+                with recording_acts() as rec:
+                    runs[d] = (search(cfg, shape, PLAN_MESH, PLAN_STEPS, 0,
+                                      device=d), rec)
+            verdict = hold_search(arch, *runs[dev], *runs["cpu"])
+        log(f"[plan] {arch} card vs CPU, {PLAN_STEPS} steps (the CPU's "
+            f"{cpu_s:.2f} s against the counted card run): {verdict}")
+    return counts
+
+
+def cell_roofline(cfg, seq: int, batch: int, kind: str, mb: int = 8,
+                  quantized: bool = False):
+    """The card's Roofline of one cell: model_flops and memory_bytes of
+    the cell's own config and shape, one card, no collectives."""
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch.memory_model import memory_bytes
+    from repro_torch.launch.roofline import Roofline
+    from repro_torch.models.model import model_flops
+    shape = ShapeCfg(f"{kind}_cell", seq, batch, kind)
+    mf = model_flops(cfg, shape)
+    return Roofline(flops=mf, bytes_hbm=memory_bytes(
+        cfg, shape, mb=mb, quantized_opt=quantized), bytes_collective=0.0,
+        chips=1, model_flops=mf)
+
+
+def phase_roofline(train_archs: dict, zoo_archs: dict) -> None:
+    """Every training cell's and every prefill's measured warm step against
+    the card's Roofline bound (`cell_roofline`): a step shorter than the
+    bound means a count is wrong, and fails.  For the training cells the
+    measured step's model_flops share (`Roofline.fraction_at`) must be the
+    one [train] printed, and the cost model's `hbm_per_chip` on one card
+    (its knobs: no remat, the cell's microbatches and moments) stands
+    beside the measured peak (reported only).  Then the full-depth
+    minitron-8b with int8 moments by the same arithmetic, beside the
+    deepest cut that ran."""
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.core.sharding_mapper import CostModel, Knobs
+    from repro_torch.launch.roofline import H100
+    for arch, r in train_archs.items():
+        cfg = r["cfg"]
+        rf = cell_roofline(cfg, r["seq"], TRAIN_BATCH, "train",
+                           TRAIN_MICROBATCHES, r["quantized_opt"])
+        if r["step_s"] < rf.step_s:
+            raise AssertionError(f"[roofline] {arch}: measured step "
+                                 f"{r['step_s']} s below its bound "
+                                 f"{rf.step_s} s")
+        share = rf.fraction_at(r["step_s"])
+        if share != r["mfu"]:
+            raise AssertionError(f"[roofline] {arch}: share {share!r} != "
+                                 f"[train]'s {r['mfu']!r}")
+        knobs = Knobs(microbatches=TRAIN_MICROBATCHES, remat="none",
+                      quant_opt=r["quantized_opt"])
+        est = CostModel(cfg, ShapeCfg("train_cell", r["seq"], TRAIN_BATCH,
+                                      "train"), (1, 1)).hbm_per_chip(knobs)
+        peak = r["peak_gib"] * 2**30
+        log(f"[roofline] train {arch} ({cfg.n_layers} layers, S "
+            f"{r['seq']}, batch {TRAIN_BATCH} in {TRAIN_MICROBATCHES}): "
+            f"model_flops {rf.model_flops:.4g}, memory_bytes "
+            f"{rf.bytes_hbm:.4g}; bound {rf.step_s:.4f} s ({rf.dominant}; "
+            f"compute {rf.compute_s:.4f}, memory {rf.memory_s:.4f}), "
+            f"measured {r['step_s']:.4f} s = {r['step_s'] / rf.step_s:.2f}x "
+            f"the bound; model_flops share of the bf16 peak {share:.4f} "
+            f"(== [train]'s); bound's roofline_fraction "
+            f"{rf.roofline_fraction:.4f}; CostModel.hbm_per_chip (1, 1) "
+            f"{est / 1e9:.2f} GB against the measured peak "
+            f"{peak / 1e9:.2f} GB: {est / peak:.3f}")
+    for arch, r in zoo_archs.items():
+        rf = cell_roofline(r["cfg"], r["seq"], ZOO_BATCH, "prefill")
+        if r["prefill_s"] < rf.step_s:
+            raise AssertionError(f"[roofline] prefill {arch}: measured "
+                                 f"{r['prefill_s']} s below its bound "
+                                 f"{rf.step_s} s")
+        log(f"[roofline] prefill {arch} (S {r['seq']}, batch {ZOO_BATCH}): "
+            f"model_flops {rf.model_flops:.4g}, memory_bytes "
+            f"{rf.bytes_hbm:.4g}; bound {rf.step_s:.4f} s ({rf.dominant}), "
+            f"measured {r['prefill_s']:.4f} s = "
+            f"{r['prefill_s'] / rf.step_s:.2f}x the bound, model_flops share "
+            f"{rf.fraction_at(r['prefill_s']):.4f}")
+    # full-depth minitron-8b with int8 moments, by the cost model
+    full = zoo_config("minitron-8b", None)
+    shape = ShapeCfg("train_cell", TRAIN_SEQ, TRAIN_BATCH, "train")
+    knobs = Knobs(microbatches=TRAIN_MICROBATCHES, remat="none",
+                  quant_opt=True)
+    need = CostModel(full, shape, (1, 1)).hbm_per_chip(knobs)
+    fits = max(n for n in range(1, full.n_layers + 1) if CostModel(
+        zoo_config("minitron-8b", n), shape, (1, 1)).hbm_per_chip(knobs)
+        <= H100.hbm_bytes)
+    ran = train_archs["minitron-8b"]
+    est = CostModel(ran["cfg"], shape, (1, 1)).hbm_per_chip(knobs)
+    log(f"[roofline] minitron-8b full depth ({full.n_layers} layers), int8 "
+        f"moments, S {TRAIN_SEQ} batch {TRAIN_BATCH} in "
+        f"{TRAIN_MICROBATCHES}: CostModel.hbm_per_chip (1, 1) "
+        f"{need / 1e9:.2f} GB against the card's {H100.hbm_bytes / 1e9:.0f} "
+        f"GB; the deepest cut within it by the same model {fits} layers; "
+        f"the cut that ran, {ran['cfg'].n_layers} layers: {est / 1e9:.2f} GB "
+        f"by the model, {ran['peak_gib'] * 2**30 / 1e9:.2f} GB measured")
+
+
+def phase_examples(dev) -> None:
+    """The four examples of the port (`examples/torch_*.py`) on the card,
+    each through its `main` at reduced arguments and published widths:
+    quickstart (PR at 16384 ops, 2 AIMM episodes), the Fig. 6 demo (PR,
+    9 lanes at 16384 ops, 2 AIMM episodes), the sharding search (qwen3-32b,
+    300 steps), LM training (the small preset, 40 steps with a failure
+    injected at step 20).  Each one's output is printed under its name,
+    then the kernels' launches over the phase; the training run's loss
+    must fall and it must restart once."""
+    import importlib.util
+    import io
+    import shutil
+    ckpt = ROOT / "build" / "train_lm_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    runs = (("torch_quickstart", ["--episodes", "2"]),
+            ("torch_nmp_aimm_demo", ["--episodes", "2"]),
+            ("torch_sharding_search", ["--arch", "qwen3-32b"]),
+            ("torch_train_lm", ["--steps", "40", "--inject-failure",
+                                "--ckpt-dir", str(ckpt)]))
+    reset_aimm_launches()
+    reset_zoo_launches()
+    for name, argv in runs:
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            res = mod.main(argv + ["--device", str(dev)])
+        wall = time.perf_counter() - t0
+        for line in out.getvalue().splitlines():
+            log(f"[examples] {name}: {line}")
+        if name == "torch_train_lm":
+            L = res["losses"]
+            if not (L[-1] < L[0] and res["restarts"] == 1):
+                raise AssertionError(f"{name}: losses {L[0]} -> {L[-1]}, "
+                                     f"restarts {res['restarts']}")
+        log(f"[examples] {name} {' '.join(argv)}: done in {wall:.1f} s")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    log(f"[examples] launches over the phase: "
+        f"{json.dumps({**aimm_launches(), **zoo_launches()})}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3250,6 +3655,7 @@ def main() -> int:
     lifecycle = {"continual": timed(phase_continual, dev),
                  "serving": timed(phase_serving, dev),
                  "faults": timed(phase_faults, dev)}
+    plan_counts = timed(phase_plan, dev)
     kernels += timed(phase_zoo_kernels, dev)
     timed(phase_zoo_card_vs_cpu, dev)
     zoo_counts, zoo_archs = timed(phase_zoo_model, dev)
@@ -3260,12 +3666,15 @@ def main() -> int:
     train_counts, train_archs = timed(phase_train, dev)
     for name, n in train_counts.items():
         launches[name] = launches.get(name, 0) + n
+    timed(phase_roofline, train_archs, zoo_archs)
+    timed(phase_examples, dev)
     log(f"[time] wall seconds by phase: {json.dumps(walls)}")
     for k in kernels:
         name = k["name"]
         # each main path's own run: the episodes, the grid, the zoo
         k["launches"] = (launches[name] + grid_launches.get(name, 0)
-                         + sum(ph.get(name, 0) for ph in lifecycle.values()))
+                         + sum(ph.get(name, 0) for ph in lifecycle.values())
+                         + plan_counts.get(name, 0))
         k.update(split.get(name, {}))
         k.update(widths.get(name, {}))
         if name in grid_launches:
@@ -3275,6 +3684,9 @@ def main() -> int:
         for phase, counts in lifecycle.items():
             if name in counts:
                 k[f"launches_{phase}"] = counts[name]
+        if plan_counts.get(name):
+            # the sharding mapper's searches
+            k["launches_plan"] = plan_counts[name]
         if name == "flash_attention":
             k["launches_by_arch"] = {a: r["launches"][name]
                                      for a, r in zoo_archs.items()

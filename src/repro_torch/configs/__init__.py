@@ -1,8 +1,9 @@
 """Architecture registry of the port: every model-zoo arch of the reference.
 Select with --arch <id>."""
-from repro_torch.configs.base import (SHAPES, AttnCfg,  # noqa: F401
-                                      EncoderCfg, ModelConfig, MoECfg,
-                                      ShapeCfg, SSMCfg)
+from repro_torch.configs.base import (SHAPES, SMOKE_SHAPE,  # noqa: F401
+                                      AttnCfg, EncoderCfg, ModelConfig,
+                                      MoECfg, ShapeCfg, SSMCfg,
+                                      shape_applicable)
 
 from repro_torch.configs import (deepseek_moe_16b, gemma3_12b,
                                  jamba_1_5_large_398b,
@@ -32,3 +33,7 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
                        f"{', '.join(ARCHS)})")
     mod = _MODULES[name]
     return mod.SMOKE if smoke else mod.CONFIG
+
+
+def all_configs(smoke: bool = False):
+    return {n: get_config(n, smoke) for n in ARCHS}

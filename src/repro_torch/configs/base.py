@@ -129,3 +129,15 @@ SHAPES = {
     "decode_32k": ShapeCfg("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeCfg("long_500k", 524288, 1, "decode"),
 }
+
+# smoke-test shapes (reduced)
+SMOKE_SHAPE = ShapeCfg("smoke", 128, 2, "train")
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeCfg) -> tuple[bool, str]:
+    """Whether a (arch, shape) cell runs; reason recorded when skipped."""
+    if shape.name == "long_500k" and not cfg.long_context_ok:
+        return False, "pure full attention: 500k decode needs sub-quadratic attention"
+    if shape.kind == "decode" and cfg.skip_decode:
+        return False, "encoder-only: no decode step"
+    return True, ""

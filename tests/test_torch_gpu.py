@@ -1318,3 +1318,56 @@ def test_smoke_train_loop_on_card(cuda, tmp_path):
     assert res["restarts"] == 1
     assert all(np.isfinite(res["losses"]))
     assert res["losses"] == ref["losses"]
+
+
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "qwen3-32b"])
+def test_sharding_search_on_card_equals_cpu(cuda, arch):
+    """The mapper's 60-step search on the card against the CPU's: every
+    action, knob setting and step time `==`, or parting once at a greedy
+    near-tie below 1e-4 relative (chip_smoke.hold_search); the search's
+    Q network, TD step and draws launch their kernels."""
+    from chip_smoke import hold_search, recording_acts
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core.sharding_mapper import search
+    from repro_torch.kernels.batched_linear import ops as lops
+    from repro_torch.kernels.dueling_qnet import ops as qops
+    from repro_torch.kernels.threefry import ops as tops
+    for ops in (lops, qops, tops):
+        ops.reset_launches()
+    cfg = get_config(arch)
+    card = search(cfg, SHAPES["train_4k"], steps=60, seed=0, device="cuda")
+    assert qops.launches["dueling_qnet"] > 0
+    assert lops.launches["batched_linear"] > 0
+    assert tops.launches["threefry"] > 0
+    runs = {}
+    for d in ("cuda", "cpu"):
+        with recording_acts() as rec:
+            runs[d] = (search(cfg, SHAPES["train_4k"], steps=60, seed=0,
+                              device=d), rec)
+    assert runs["cuda"][0] == card
+    hold_search(arch, *runs["cuda"], *runs["cpu"])
+
+
+def test_cost_models_unchanged_by_the_card(cuda):
+    """memory_bytes, the Roofline and the cost model are host arithmetic:
+    the same numbers with the card initialised and a kernel run."""
+    from repro_torch.configs import ARCHS, SHAPES, get_config
+    from repro_torch.core.sharding_mapper import CostModel, Knobs
+    from repro_torch.launch.memory_model import memory_bytes
+    from repro_torch.launch.roofline import Roofline
+    from repro_torch.models.model import model_flops
+
+    def numbers():
+        out = []
+        for arch in ARCHS:
+            cfg = get_config(arch)
+            for shape in SHAPES.values():
+                mf, mb = model_flops(cfg, shape), memory_bytes(cfg, shape)
+                out.append(Roofline(mf, mb, 0.0, 1, mf).as_dict())
+            cm = CostModel(cfg, SHAPES["train_4k"])
+            out.append([cm.hbm_per_chip(Knobs()), cm.objective(Knobs())])
+        return out
+
+    before = numbers()
+    torch.ones(4, device="cuda").sum().item()
+    assert numbers() == before

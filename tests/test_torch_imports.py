@@ -19,7 +19,10 @@ PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / n for n in ("chip_smoke.py", "same_call_baseline.py",
                        "episode_in_turns.py", "grid_in_turns.py",
-                       "flash_in_turns.py")]
+                       "flash_in_turns.py", "examples/torch_quickstart.py",
+                       "examples/torch_nmp_aimm_demo.py",
+                       "examples/torch_sharding_search.py",
+                       "examples/torch_train_lm.py")]
 OPS_FILES = sorted(PORT.rglob("ops.py"))
 
 
@@ -62,7 +65,9 @@ def test_port_has_files_to_scan():
                  "configs/llama_3_2_vision_11b.py", "train/data.py",
                  "train/elastic.py", "train/compression.py",
                  "train/optimizer.py", "train/train_step.py",
-                 "train/loop.py", "launch/train.py"):
+                 "train/loop.py", "launch/train.py",
+                 "launch/memory_model.py", "launch/roofline.py",
+                 "core/sharding_mapper.py"):
         assert want in names
     assert (ROOT / "chip_smoke.py").exists()
     assert {p.name for p in (PORT / "csrc").glob("*.cu")} == {
