@@ -1434,7 +1434,7 @@ def phase_zoo_model(dev) -> tuple[dict[str, int], dict]:
         torch.cuda.reset_peak_memory_stats()
         model = build_model(cfg, dev)
         t0 = time.perf_counter()
-        params = model.init(0)
+        params, _ = model.init(0)
         torch.cuda.synchronize()
         t_init = time.perf_counter() - t0
         batch = zoo_batch(dev, cfg, seq)
@@ -1548,7 +1548,7 @@ def phase_zoo_card_vs_cpu(dev) -> None:
     for arch, layers, seq in ZOO_CPU_RUNS:
         cfg = zoo_config(arch, layers)
         card, cpu = build_model(cfg, dev), build_model(cfg, "cpu")
-        params = card.init(1)
+        params, _ = card.init(1)
         on_cpu = tree_to(params, "cpu")
         batch = zoo_batch(dev, cfg, seq, seed=1)
         routes = RouteReplay()
@@ -1572,7 +1572,7 @@ def phase_zoo_card_vs_cpu(dev) -> None:
     for arch in ZOO_CPU_DECODES:
         cfg = get_config(arch, smoke=True)
         card, cpu = build_model(cfg, dev), build_model(cfg, "cpu")
-        params = card.init(2)
+        params, _ = card.init(2)
         on_cpu = tree_to(params, "cpu")
         B, seq, n_prompt, steps = 2, 64, 8, 48
         prompt = torch.randint(1, cfg.vocab, (B, n_prompt),
@@ -1604,7 +1604,7 @@ def phase_zoo_card_vs_cpu(dev) -> None:
     cfg = get_config("deepseek-moe-16b")
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
-    mp = moe.init_moe(gen, cfg.d_model, cfg.moe)
+    mp, _ = moe.init_moe(gen, cfg.d_model, cfg.moe)
     x = torch.randn((ZOO_BATCH, ZOO_SEQ, cfg.d_model), generator=gen,
                     device=dev).bfloat16()
     with torch.inference_mode():
@@ -2366,7 +2366,7 @@ def phase_zoo_profile(dev) -> None:
     for arch in ZOO_ARCHS:
         cfg = get_config(arch)
         model = build_model(cfg, dev)
-        params = model.init(0)
+        params, _ = model.init(0)
         batch = zoo_batch(dev, cfg, WHISPER_TOKENS if cfg.encoder is not None
                           else ZOO_SEQ)
         prefill = lambda: model.logits(params, model.apply(params, batch)[0])
@@ -2411,6 +2411,10 @@ TRAIN_BATCH = 2
 TRAIN_MICROBATCHES = 2
 TRAIN_STEPS = 4
 TRAIN_FAIL_AT = 3
+# The first cell once more with remat "none" (the configs' default is
+# "block"), 3 steps without checkpoints: comparable with runs made before
+# the training step honoured the configs' remat.
+TRAIN_NO_REMAT = ("minitron-8b", 4)
 # The rest of the single-card zoo's training cells: 3 steps each, no
 # checkpoint and no restart drill, S 4096 (whisper-large-v3: 448 tokens over
 # 1500 frames; llama-3.2-vision-11b over its 1601 image tokens), global batch
@@ -2910,13 +2914,30 @@ def restore_spy():
 
 def step_launches(cfg, steps: int) -> dict[str, int]:
     """Kernel launches of `steps` training steps of `cfg`: each microbatch
-    runs `per_forward(cfg)` forward launches, each with its backward."""
+    runs `per_forward(cfg)` forward launches, each with its backward, and
+    with remat (`cfg.remat` not "none") each super-block's forward
+    launches (the encoder's too) once more in the backward's re-forward
+    (the leading dense blocks are outside the super-blocks)."""
     per = per_forward(cfg)
     out = {}
     for name in ("flash_attention", "ssd_scan"):
         n = per[name] * TRAIN_MICROBATCHES * steps
-        out[name], out[f"{name}_bwd"] = n, n
+        again = 0
+        if cfg.remat != "none":
+            lead = cfg.first_k_dense if name == "flash_attention" else 0
+            again = (per[name] - lead) * TRAIN_MICROBATCHES * steps
+        out[name], out[f"{name}_bwd"] = n + again, n
     return out
+
+
+def launch_words(want: dict, steps: int) -> str:
+    """'F forward (R of them the remat's re-forward) and B backward a
+    step' of `step_launches`' counts."""
+    fwd = (want["flash_attention"] + want["ssd_scan"]) // steps
+    bwd = (want["flash_attention_bwd"] + want["ssd_scan_bwd"]) // steps
+    again = f" ({fwd - bwd} of them the remat's re-forward)" \
+        if fwd != bwd else ""
+    return f"{fwd} forward{again} and {bwd} backward a step"
 
 
 def family_train_cell(dev, arch: str, layers, entry: str) -> dict:
@@ -2958,7 +2979,7 @@ def family_train_cell(dev, arch: str, layers, entry: str) -> dict:
         del res
     else:
         model = build_model(cfg, dev)
-        params = model.init(0)
+        params, _ = model.init(0)
         opt_state = opt.init(params)
         step_fn = make_train_step(model, opt,
                                   microbatches=TRAIN_MICROBATCHES)
@@ -3000,16 +3021,15 @@ def family_train_cell(dev, arch: str, layers, entry: str) -> dict:
                   f"{WHISPER_FRAMES} frames")
     elif cfg.n_img_tokens:
         depth += f", over {cfg.n_img_tokens} image tokens"
-    per = want["flash_attention"] // steps
     log(f"[train] {arch} via {'launch/train.py train' if entry == 'train' else 'make_train_step'}: "
         f"{n / 1e9:.3f} B params ({cfg.n_layers} layers{depth}, d_model "
-        f"{cfg.d_model}; f32 moments); S {seq}, losses "
+        f"{cfg.d_model}; f32 moments; remat {cfg.remat}); S {seq}, losses "
         f"{[round(x, 4) for x in losses]}; step {step_s:.3f} s warm (steps "
         f"{[round(t, 3) for t in times]}), {tokens / step_s:.0f} tokens/s, "
         f"model_flops {mflops:.4g} = {mfu:.4f} "
         f"of the bf16 peak; peak device memory {peak / 2**30:.2f} GiB; wall "
-        f"{wall:.1f} s; launches {json.dumps(counts)} ({per} forward and "
-        f"{per} backward a step)")
+        f"{wall:.1f} s; launches {json.dumps(counts)} "
+        f"({launch_words(want, steps)})")
     log(f"[train] {arch} profile of one step: wall {prof_wall:.3f} s "
         f"(profiler on), device kernels {dev_us / 1e3:.1f} ms in "
         f"{sum(r[1] for r in rows)} launches, busy share {busy:.4f}")
@@ -3022,6 +3042,52 @@ def family_train_cell(dev, arch: str, layers, entry: str) -> dict:
                 quantized_opt=False, tokens_per_s=tokens / step_s, cfg=cfg,
                 mfu=mfu, peak_gib=peak / 2**30,
                 busy_share=busy, losses=losses, launches=counts)
+
+
+def no_remat_cell(dev) -> dict:
+    """TRAIN_NO_REMAT: the first TRAIN_RUNS cell (int8 moments) once more
+    with remat "none", TRAIN_FAMILY_STEPS steps through `train`, no
+    checkpoint: its warm step and peak beside the remat'd cell's (and
+    runs made before the training step honoured remat)."""
+    import torch
+    from repro_torch.launch.train import train
+    arch, layers = TRAIN_NO_REMAT
+    reset_zoo_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = train(arch, steps=TRAIN_FAMILY_STEPS, seq=TRAIN_SEQ,
+                global_batch=TRAIN_BATCH, microbatches=TRAIN_MICROBATCHES,
+                device=str(dev), layers=layers, checkpoint_every=0,
+                quantized_opt=True, remat="none",
+                ckpt_dir=str(ROOT / "build" / "train_ckpt" / "no_remat"),
+                log=lambda m: log(f"[train] {arch} remat none: {m}"))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    cfg, L, times = res["cfg"], res["losses"], res["step_times"]
+    counts = zoo_launches()
+    want = step_launches(cfg, TRAIN_FAMILY_STEPS)
+    if counts != want:
+        raise AssertionError(f"{arch} remat none launched {counts}, "
+                             f"expected {want}")
+    if not all(x == x and abs(x) < float("inf") for x in L):
+        raise AssertionError(f"{arch} remat none: losses {L}")
+    step_s = sorted(times[1:])[len(times[1:]) // 2]
+    rf = cell_roofline(cfg, TRAIN_SEQ, TRAIN_BATCH, "train",
+                       TRAIN_MICROBATCHES, True)
+    log(f"[train] {arch} ({cfg.n_layers} layers, int8 moments) remat none: "
+        f"losses {[round(x, 4) for x in L]}; step {step_s:.4f} s warm "
+        f"(steps {[round(t, 3) for t in times]}), "
+        f"{res['tokens_per_step'] / step_s:.0f} tokens/s, model_flops "
+        f"share {rf.fraction_at(step_s):.4f}; peak device memory "
+        f"{peak / 2**30:.2f} GiB; launches {json.dumps(counts)} "
+        f"({launch_words(want, TRAIN_FAMILY_STEPS)})")
+    del res
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.n_layers, step_s=step_s, quantized_opt=True,
+                cfg=cfg, seq=TRAIN_SEQ, mfu=rf.fraction_at(step_s),
+                tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s,
+                peak_gib=peak / 2**30, losses=L, launches=counts,
+                busy_share=None)
 
 
 def phase_train(dev) -> tuple[dict[str, int], dict]:
@@ -3075,7 +3141,6 @@ def phase_train(dev) -> tuple[dict[str, int], dict]:
         L = res["losses"]
         n_runs = len(L)                 # steps run, the replay included
         want = step_launches(cfg, n_runs)
-        per_step = sum(want.values()) // (2 * n_runs)
         if counts != want:
             raise AssertionError(f"{arch} training launched {counts}, "
                                  f"expected {want}")
@@ -3113,7 +3178,8 @@ def phase_train(dev) -> tuple[dict[str, int], dict]:
                  f", depth cut from {get_config_layers(arch)} to {layers}")
         log(f"[train] {arch}: {n / 1e9:.3f} B params ({cfg.n_layers} layers"
             f"{depth}, d_model {cfg.d_model}; "
-            f"{'int8' if quantized else 'f32'} moments); losses "
+            f"{'int8' if quantized else 'f32'} moments; remat "
+            f"{cfg.remat}); losses "
             f"{[round(x, 4) for x in L]} (step 2 replayed after the restart:"
             f" {L[2]} == {L[3]}; the restored params and optimizer state "
             f"torch.equal to those saved at step 2); step {step_s:.3f} s warm (steps "
@@ -3122,7 +3188,7 @@ def phase_train(dev) -> tuple[dict[str, int], dict]:
             f"{mfu:.4f} of the bf16 peak; "
             f"peak device memory {peak / 2**30:.2f} GiB; wall {wall:.1f} s "
             f"with the checkpoints; launches {json.dumps(counts)} "
-            f"({per_step} forward and {per_step} backward a step)")
+            f"({launch_words(want, n_runs)})")
         log(f"[train] {arch} profile of one step: wall {prof_wall:.3f} s "
             f"(profiler on), device kernels {dev_us / 1e3:.1f} ms in "
             f"{sum(r[1] for r in rows)} launches, busy share {busy:.4f}")
@@ -3139,6 +3205,10 @@ def phase_train(dev) -> tuple[dict[str, int], dict]:
         del res, p, s, model, step_fn, batch
         shutil.rmtree(ckpt_root / arch, ignore_errors=True)
         torch.cuda.empty_cache()
+    by_arch[TRAIN_NO_REMAT[0] + " remat none"] = no_remat_cell(dev)
+    for k, v in by_arch[TRAIN_NO_REMAT[0] + " remat none"][
+            "launches"].items():
+        total[k] = total.get(k, 0) + v
     log(f"[train] cells without the drill: {TRAIN_FAMILY_STEPS} steps, "
         f"no checkpoint; AdamW (lr 1e-3, weight decay 0.01, clip 1.0), f32 "
         f"moments")
@@ -3152,6 +3222,336 @@ def phase_train(dev) -> tuple[dict[str, int], dict]:
                if layers is not None}
     log(f"[train] reduced: {json.dumps(reduced)}")
     return total, by_arch
+
+
+# ---------------------------------------------------------------------------
+# The sharding layer: sharded steps on a one-card mesh, the dry run
+# ---------------------------------------------------------------------------
+
+# [shard]: one training step of each (arch, layers, int8 moments) through
+# the sharded path on a (1, 1) mesh against the unsharded path.
+SHARD_TRAIN = (("minitron-8b", 4, True), ("deepseek-moe-16b", 4, False),
+               ("mamba2-370m", None, False))
+SHARD_PREFILL = "minitron-8b"          # full depth, B 1, S 4096
+SHARD_DECODE_STEPS = 8
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def placed(tree, shardings, mesh):
+    """tree's tensors as DTensors of their shardings' placements on a
+    one-card mesh: each local shard is the whole tensor (no copy)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.sharding.policies import _walk
+    return _walk(lambda _, t, sh: DTensor.from_local(
+        t, mesh, sh.placements, run_check=False), tree, shardings)
+
+
+def local_tree(tree):
+    from repro_torch.sharding.context import is_dtensor
+    from repro_torch.sharding.policies import _walk
+    return _walk(lambda _, t: t.to_local() if is_dtensor(t) else t, tree)
+
+
+def held_equal(got, want, what: str) -> str:
+    """Leaf by leaf: torch.equal, or within the bf16 bar and named."""
+    from repro_torch.core.tree import leaf_paths
+    off = []
+    n = 0
+    for (k, g), (_, w) in zip(leaf_paths(local_tree(got)),
+                              leaf_paths(local_tree(want))):
+        n += 1
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{what} {k}: {g.shape} {g.dtype} against "
+                                 f"{w.shape} {w.dtype}")
+        if not torch_equal(g, w):
+            off.append((k, hold_bf16_on_card(g, w, f"{what} {k}")))
+    if not off:
+        return f"all {n} torch.equal"
+    return (f"{n - len(off)} of {n} torch.equal, within the bf16 bar: "
+            + ", ".join(f"{k} ({e:.3g})" for k, e in off))
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+    return bool(torch.equal(a, b))
+
+
+def phase_shard(dev) -> dict[str, int]:
+    """[shard]: the sharded steps (DTensor params, optimizer state, batch
+    and caches placed by `sharding.policies` on a (1, 1) mesh over the
+    card, a world-1 nccl group) against the unsharded path on the same
+    inputs: SHARD_TRAIN's loss and every gradient of the batch, then one
+    training step (2 microbatches, ZeRO placements for the accumulator)
+    and its updated params; SHARD_PREFILL's prefill (B 1, S TRAIN_SEQ)
+    and SHARD_DECODE_STEPS greedy decode steps on placed caches.  Each
+    result torch.equal (or, where an op decomposes differently under a
+    DTensor, within the bf16 bar, the leaves named), and the flash and
+    SSD kernels' launches of each sharded call `==` the unsharded call's.
+    Returns the sharded calls' launches."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.core.tree import tree_leaves, tree_unflatten
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import abstract_init, build_model
+    from repro_torch.sharding import policies as P
+    from repro_torch.train.optimizer import adamw, quantized_adamw
+    from repro_torch.train.train_step import make_loss_fn, make_train_step
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    total = {}
+
+    def launched(fn):
+        """fn()'s result and the kernels' launches in it."""
+        reset_zoo_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, zoo_launches()
+
+    def same_launches(a, b, what):
+        if a != b or not any(a.values()):
+            raise AssertionError(f"[shard] {what}: sharded launches {a} "
+                                 f"against unsharded {b}")
+        for k, v in a.items():
+            total[k] = total.get(k, 0) + v
+
+    try:
+        mesh = make_host_mesh(1, 1)
+        for arch, layers, quant in SHARD_TRAIN:
+            cfg = zoo_config(arch, layers)
+            model = build_model(cfg, dev)
+            shape = ShapeCfg("shard", TRAIN_SEQ, TRAIN_BATCH, "train")
+            one = ShapeCfg("shard_mb", TRAIN_SEQ,
+                           TRAIN_BATCH // TRAIN_MICROBATCHES, "train")
+            shapes, roles = abstract_init(model)
+            pspecs = P.param_specs(roles, shapes, cfg, mesh)
+            gspecs = P.zero_shard_specs(pspecs, shapes, mesh, cfg)
+            ospecs = P.opt_state_specs(pspecs, shapes, mesh, cfg,
+                                       quantized=quant)
+            batch = zoo_train_batch(dev, cfg, TRAIN_SEQ, 0, TRAIN_BATCH)
+            bspecs = P.batch_specs(cfg, shape, mesh, model.input_specs(shape))
+            mbspecs = P.batch_specs(cfg, one, mesh, model.input_specs(one))
+            bspecs = {k: bspecs[k] for k in batch}
+            loss_fn = make_loss_fn(model)
+
+            def value_and_grad(p, b):
+                leaves = [t.detach().requires_grad_() for t in tree_leaves(p)]
+                loss, _ = loss_fn(tree_unflatten(p, leaves), b)
+                return loss.detach(), tree_unflatten(p, list(
+                    torch.autograd.grad(loss, leaves)))
+
+            params, _ = model.init(0)
+            (l0, g0), c0 = launched(lambda: value_and_grad(params, batch))
+            (l1, g1), c1 = launched(lambda: value_and_grad(
+                placed(params, pspecs, mesh), placed(batch, bspecs, mesh)))
+            same_launches(c1, c0, f"{arch} loss and gradients")
+            v_loss = held_equal({"loss": l1}, {"loss": l0}, f"{arch} loss")
+            v_grad = held_equal(g1, g0, f"{arch} gradient")
+            del g0, g1
+            opt = (quantized_adamw if quant else adamw)(
+                1e-3, weight_decay=0.01, grad_clip=1.0)
+            step = torch.tensor(0, device=dev)
+            plain = make_train_step(model, opt,
+                                    microbatches=TRAIN_MICROBATCHES)
+            (p0, s0, m0), c2 = launched(lambda: plain(
+                params, opt.init(params), batch, step))
+            del s0
+            params1, _ = model.init(0)
+            sharded = make_train_step(
+                model, opt, microbatches=TRAIN_MICROBATCHES,
+                grad_shardings=gspecs,
+                batch_shardings={k: mbspecs[k] for k in batch})
+            (p1, s1, m1), c3 = launched(lambda: sharded(
+                placed(params1, pspecs, mesh),
+                placed(opt.init(params1), ospecs, mesh),
+                placed(batch, bspecs, mesh), step))
+            same_launches(c3, c2, f"{arch} training step")
+            v_step = held_equal({"loss": m1["loss"]}, {"loss": m0["loss"]},
+                                f"{arch} step loss")
+            v_par = held_equal(p1, p0, f"{arch} updated param")
+            log(f"[shard] {arch} ({cfg.n_layers} layers, "
+                f"{'int8' if quant else 'f32'} moments, remat {cfg.remat}, "
+                f"MoE {'EP' if P.resolve_policy(cfg, mesh).moe_ep else 'TP'}"
+                f" where MoE), B {TRAIN_BATCH}, S {TRAIN_SEQ}, (1, 1) mesh: "
+                f"loss {float(l0):.5f}: {v_loss}; gradients: {v_grad}; "
+                f"launches {json.dumps(c1)} == unsharded; one step of "
+                f"{TRAIN_MICROBATCHES} microbatches, ZeRO accumulator: loss "
+                f"{v_step}; updated params: {v_par}; launches "
+                f"{json.dumps(c3)} == unsharded")
+            del params, params1, p0, p1, s1, model, batch
+            torch.cuda.empty_cache()
+        cfg = zoo_config(SHARD_PREFILL, None)
+        model = build_model(cfg, dev)
+        params, roles = model.init(0)
+        shapes, _ = abstract_init(model)
+        pspecs = P.param_specs(roles, shapes, cfg, mesh)
+        dparams = placed(params, pspecs, mesh)
+        tokens = zoo_tokens(dev, cfg, TRAIN_SEQ, seed=3)
+        pshape = ShapeCfg("shard_prefill", TRAIN_SEQ, 1, "prefill")
+        tspec = P.batch_specs(cfg, pshape, mesh,
+                              model.input_specs(pshape))["tokens"]
+        with torch.no_grad():
+            (h0, c0) = launched(lambda: model.apply(params,
+                                                    {"tokens": tokens})[0])
+            (h1, c1) = launched(lambda: model.apply(dparams, {
+                "tokens": placed({"t": tokens}, {"t": tspec}, mesh)["t"]})[0])
+            same_launches(c1, c0, f"{SHARD_PREFILL} prefill")
+            v_pre = held_equal({"hidden": h1, "logits": model.logits(
+                dparams, h1[:, -1:])}, {"hidden": h0, "logits": model.logits(
+                    params, h0[:, -1:])}, f"{SHARD_PREFILL} prefill")
+            del h0, h1
+            dshape = ShapeCfg("shard_decode", TRAIN_SEQ, 1, "decode")
+            cspecs = P.batch_specs(cfg, dshape, mesh,
+                                   model.input_specs(dshape))
+            c_plain = model.init_caches(1, TRAIN_SEQ)
+            c_shard = placed(model.init_caches(1, TRAIN_SEQ),
+                             cspecs["caches"], mesh)
+            tok, worst = tokens[:, :1], []
+            for t in range(SHARD_DECODE_STEPS):
+                l0, c_plain = model.decode_step(params, tok, c_plain, t)
+                l1, c_shard = model.decode_step(
+                    dparams, placed({"t": tok}, {"t": cspecs["token"]},
+                                    mesh)["t"], c_shard, t)
+                worst.append(held_equal({"logits": l1}, {"logits": l0},
+                                        f"decode step {t}"))
+                nxt0 = l0[:, -1].float().argmax(-1)[:, None]
+                nxt1 = local_tree({"l": l1})["l"][:, -1].float().argmax(
+                    -1)[:, None]
+                if not torch.equal(nxt0, nxt1):
+                    raise AssertionError(f"[shard] decode step {t}: token "
+                                         f"{nxt1.tolist()} against "
+                                         f"{nxt0.tolist()}")
+                tok = nxt0.to(torch.long)
+            v_cache = held_equal(c_shard, c_plain, "decode caches")
+        log(f"[shard] {SHARD_PREFILL} full depth ({cfg.n_layers} layers), "
+            f"prefill B 1 S {TRAIN_SEQ} on the (1, 1) mesh: {v_pre}; "
+            f"launches {json.dumps(c1)} == unsharded; "
+            f"{SHARD_DECODE_STEPS} greedy decode steps on placed caches: "
+            f"logits {sorted(set(worst))}, tokens ==, caches {v_cache}")
+        del params, dparams, c_plain, c_shard, model
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return total
+
+
+# [dryrun]: the production cells, and the [train] cells' own cuts on (1, 1)
+DRYRUN_CELLS = tuple(("train_4k", arch, False) for arch in (
+    "jamba-1.5-large-398b", "mixtral-8x22b", "deepseek-moe-16b",
+    "qwen3-32b", "llama-3.2-vision-11b", "whisper-large-v3", "gemma3-12b",
+    "phi3-medium-14b", "minitron-8b", "mamba2-370m")) + (
+    ("train_4k", "jamba-1.5-large-398b", True),
+    ("train_4k", "mixtral-8x22b", True))
+DRYRUN_WORKERS = 8
+
+
+def dryrun_job(job):
+    """One [dryrun] cell in a worker process (a `fake` group of its own):
+    ("cell", shape, arch, multi_pod) through `dryrun.lower_cell`, or
+    ("cut", arch, layers, remat, int8, seq) a [train] cell's own cut on a
+    (1, 1) mesh through `dryrun.count_cell`."""
+    import dataclasses
+    import time as _time
+    t0 = _time.perf_counter()
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import (fake_world, make_host_mesh,
+                                         make_production_mesh)
+    if job[0] == "cell":
+        _, shape_name, arch, multi = job
+        fake_world(dryrun.WORLD)
+        res = dryrun.lower_cell(arch, shape_name, make_production_mesh(
+            multi_pod=multi, flat_pods=True), multi)
+    else:
+        from repro_torch.configs.base import ShapeCfg
+        _, arch, layers, remat, quant, seq = job
+        fake_world(1)
+        mesh = make_host_mesh(1, 1, device_type="cpu")
+        cfg = dataclasses.replace(zoo_config(arch, layers), remat=remat)
+        shape = ShapeCfg("train_cell", seq, TRAIN_BATCH, "train")
+        arg, stats = dryrun.count_cell(cfg, shape, mesh, quant,
+                                       TRAIN_MICROBATCHES)
+        res = {"argument_bytes": arg, "temp_bytes": stats.peak_bytes,
+               "flops": stats.flops}
+    res["worker_s"] = _time.perf_counter() - t0
+    return job, res
+
+
+def phase_dryrun(train_archs: dict) -> None:
+    """[dryrun]: `dryrun.lower_cell` for DRYRUN_CELLS (the ten archs at
+    train_4k on (16, 16), mixtral-8x22b and jamba also on (2, 16, 16)):
+    per-card argument, temp and total GB and fits_hbm at the card's
+    80 GB, counted FLOPs / model_flops, collective bytes by kind and the
+    Roofline terms at the H100's peaks; then each [train] cell's own cut
+    counted on a (1, 1) mesh beside the peak [train] measured.  Cells run
+    in DRYRUN_WORKERS processes (CPU only: meta shards, no card)."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    jobs = [("cell",) + c for c in DRYRUN_CELLS]
+    for name, r in train_archs.items():
+        cfg = r["cfg"]
+        arch = name.split(" ")[0]
+        # an encoder's cell: its frames are the shape's S
+        jobs.append(("cut", arch, cfg.n_layers if cfg.encoder is None
+                     else None, cfg.remat, r["quantized_opt"],
+                     WHISPER_FRAMES if cfg.encoder is not None
+                     else r["seq"]))
+    errors = []
+    with cf.ProcessPoolExecutor(DRYRUN_WORKERS,
+                                mp_context=mp.get_context("spawn")) as ex:
+        for job, res in ex.map(dryrun_job, jobs):
+            if job[0] == "cell":
+                _, shape_name, arch, multi = job
+                key = f"{arch}|{shape_name}|{'multi' if multi else 'single'}"
+                if res["status"] != "ok":
+                    errors.append((key, res))
+                    continue
+                m, r = res["memory"], res["roofline"]
+                log(f"[dryrun] {key}: {res['chips']} cards, per card "
+                    f"arguments {m['argument_bytes_per_device'] / 1e9:.2f} "
+                    f"GB, temp {m['temp_bytes_per_device'] / 1e9:.2f} GB, "
+                    f"total {m['total_bytes_per_device'] / 1e9:.2f} GB, "
+                    f"fits_hbm (80 GB) {m['fits_hbm']}; counted FLOPs / "
+                    f"model_flops {res['counted_over_model_flops']:.4f}; "
+                    f"collective bytes per card "
+                    + json.dumps({k: f"{v / 1e9:.3f} GB" for k, v in
+                                  res['collective_ops_bytes_raw'].items()})
+                    + f"; roofline at the H100's peaks: compute "
+                    f"{r['compute_s'] * 1e3:.1f} ms, memory "
+                    f"{r['memory_s'] * 1e3:.1f} ms, collective "
+                    f"{r['collective_s'] * 1e3:.1f} ms at NVLink "
+                    f"({r['collective_net_s'] * 1e3:.1f} ms at 50 GB/s a "
+                    f"card between hosts), dominant {r['dominant']}, "
+                    f"roofline_fraction {r['roofline_fraction']:.4f}; "
+                    f"traced in {res['lower_s']} s ({res['worker_s']:.1f} s "
+                    f"in its worker)")
+            else:
+                _, arch, layers, remat, quant, seq = job
+                name = next(n for n, r in train_archs.items()
+                            if n.split(" ")[0] == arch
+                            and r["cfg"].remat == remat)
+                r = train_archs[name]
+                est = res["argument_bytes"] + res["temp_bytes"]
+                log(f"[dryrun] [train] cut {name} ({r['cfg'].n_layers} "
+                    f"layers, S {seq}, batch {TRAIN_BATCH} in "
+                    f"{TRAIN_MICROBATCHES}, {'int8' if quant else 'f32'} "
+                    f"moments, remat {remat}) on (1, 1): arguments "
+                    f"{res['argument_bytes'] / 1e9:.2f} GB + temp "
+                    f"{res['temp_bytes'] / 1e9:.2f} GB = {est / 1e9:.2f} GB "
+                    f"against the measured peak {r['peak_gib'] * 2**30 / 1e9:.2f}"
+                    f" GB ({est / (r['peak_gib'] * 2**30):.3f}); counted "
+                    f"{res['flops']:.4g} FLOP a step = "
+                    f"{res['flops'] / r['step_s'] / 989e12:.4f} of the bf16 "
+                    f"peak at the measured step {r['step_s']:.4f} s "
+                    f"({res['worker_s']:.1f} s in its worker)")
+    if errors:
+        raise AssertionError(f"[dryrun] cells failed: {errors}")
 
 
 def hold_bf16_on_card(got, want, what: str) -> float:
@@ -3180,7 +3580,8 @@ def phase_train_card_vs_cpu(dev) -> None:
     the same weights, tokens and stubbed frontend output, within the zoo's
     bf16 bar (the leaves compared on the card); MoE layers on the card's
     routes (`RouteReplay`, at least 95% of the CPU's own top-k the same),
-    and an MoE model's card step twice, torch.equal."""
+    and an MoE model's card step twice, torch.equal.  Without remat (the
+    `[train]` cells run the configs' "block")."""
     import torch
     from repro_torch.core.tree import leaf_paths, tree_leaves, tree_unflatten
     from repro_torch.models import build_model
@@ -3193,10 +3594,14 @@ def phase_train_card_vs_cpu(dev) -> None:
         return loss, tree_unflatten(params, list(torch.autograd.grad(
             loss, leaves)))
 
+    import dataclasses
     for arch, layers, seq in TRAIN_CPU_RUNS:
-        cfg = zoo_config(arch, layers)
+        # remat "none": remat changes no value (tests/test_torch_distributed
+        # holds the modes ==), and the CPU side's re-forward would cost
+        # ~30% more of this phase's wall
+        cfg = dataclasses.replace(zoo_config(arch, layers), remat="none")
         card, cpu = build_model(cfg, dev), build_model(cfg, "cpu")
-        params = card.init(1)
+        params, _ = card.init(1)
         batch = zoo_train_batch(dev, cfg, seq, seed=1)
         routes = RouteReplay()
         reset_zoo_launches()
@@ -3666,6 +4071,10 @@ def main() -> int:
     train_counts, train_archs = timed(phase_train, dev)
     for name, n in train_counts.items():
         launches[name] = launches.get(name, 0) + n
+    shard_counts = timed(phase_shard, dev)
+    for name, n in shard_counts.items():
+        launches[name] = launches.get(name, 0) + n
+    timed(phase_dryrun, train_archs)
     timed(phase_roofline, train_archs, zoo_archs)
     timed(phase_examples, dev)
     log(f"[time] wall seconds by phase: {json.dumps(walls)}")
@@ -3691,6 +4100,9 @@ def main() -> int:
             k["launches_by_arch"] = {a: r["launches"][name]
                                      for a, r in zoo_archs.items()
                                      if r["launches"][name]}
+        if shard_counts.get(name):
+            # the sharded steps on the (1, 1) mesh
+            k["launches_shard"] = shard_counts[name]
         if train_counts.get(name):
             # the training cells' run (forward with the LSE store, and the
             # backward kernels)

@@ -53,7 +53,7 @@ def main(argv=None):
         vocab_pad_to=128, remat="none",
     )
     model = build_model(cfg, args.device)
-    params = model.init(0)
+    params, _ = model.init(0)
     print(f"model: {count_params(cfg)/1e6:.1f}M params")
 
     opt = adamw(cosine_schedule(3e-3, warmup=20, total=args.steps),

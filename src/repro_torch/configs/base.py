@@ -86,11 +86,13 @@ class ModelConfig:
     vocab_pad_to: int = 128
     tie_embeddings: bool = False
     swiglu: bool = True
-    seq_shard: bool = False     # a sharding hint of the reference; unused here
+    seq_shard: bool = False     # constrain the residual stream to
+                                # ("data", "model", None) on a mesh
     source: str = ""
     long_context_ok: bool = False
     skip_decode: bool = False
-    remat: str = "block"        # a training hint of the reference; unused here
+    remat: str = "block"        # none | full | block | collectives
+                                # (models/transformer.py)
 
     @property
     def padded_vocab(self) -> int:

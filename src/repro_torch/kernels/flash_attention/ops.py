@@ -36,6 +36,13 @@ forward runs as before and the backward raises NotImplementedError
 autograd runs through `attention_ref` for every variant.
 Without grad (prefill, `inference_mode`) nothing changes: the kernel runs
 without the store.
+
+Counted.  On `meta` tensors, and on any device while the step-cost
+counter runs (`kernels.costs.counting`), the call goes through the custom
+op `repro_torch::flash_attention` (the same computation; on `meta` an
+empty output), whose gradient is the op `repro_torch::flash_attention_bwd`:
+`FlopCounterMode` counts each by its formula (`kernels/costs.py`), not by
+whatever implements it.
 """
 from __future__ import annotations
 
@@ -43,7 +50,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, costs
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 BLOCK_Q = 128           # the reference kernel's blocks: they set which
@@ -241,6 +248,17 @@ def gqa_flash_attention_kv(q, k, v, *, causal: bool = True,
     if k.device != dev or v.device != dev:
         raise ValueError(f"gqa_flash_attention: tensors on {dev}, {k.device}"
                          f", {v.device}")
+    if dev.type == "meta" or costs.active():
+        return torch.ops.repro_torch.flash_attention(
+            q, k, v, float(scale), bool(causal), int(window), costs.split())
+    return _attention(q, k, v, scale, causal, window)
+
+
+def _attention(q, k, v, scale, causal, window):
+    """The plain version on the CPU, the kernel on the card."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    dev = q.device
     if dev.type == "cpu":
         rep = H // K
         if rep > 1:
@@ -265,3 +283,87 @@ def gqa_flash_attention_kv(q, k, v, *, causal: bool = True,
         return FlashAttention.apply(q, k, v, float(scale), bool(causal),
                                     int(window))
     return _forward(q, k, v, scale, causal, window)
+
+
+# ---------------------------------------------------------------------------
+# The counted ops
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              scale: float, causal: bool, window: int,
+              split: int) -> torch.Tensor:
+    """`split`: the ranks this local shard's work is split over (its
+    FLOPs count that many times; `kernels/costs.py`)."""
+    return _attention(q, k, v, scale, causal, window)
+
+
+@_flash_op.register_fake
+def _(q, k, v, scale, causal, window, split):
+    return torch.empty_like(q)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  do: torch.Tensor, dq: torch.Tensor, dk: torch.Tensor,
+                  dv: torch.Tensor, scale: float, causal: bool,
+                  window: int, split: int) -> tuple[torch.Tensor,
+                                                    torch.Tensor,
+                                                    torch.Tensor]:
+    """The gradient, computed before the op (the op carries it to be
+    counted as one backward)."""
+    return dq.clone(), dk.clone(), dv.clone()
+
+
+@_flash_bwd_op.register_fake
+def _(q, k, v, do, dq, dk, dv, scale, causal, window, split):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, scale, causal, window, split = inputs
+    ctx.save_for_backward(q, k, v)
+    ctx.args = (scale, causal, window)
+    ctx.split = split
+
+
+def _flash_grad(ctx, do):
+    """The same call's gradient, recomputed out of sight of the counters
+    (the wrapper's own autograd: the backward kernels on the card,
+    autograd through the plain version on the CPU; nothing on meta)."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    q, k, v = ctx.saved_tensors
+    if q.device.type == "meta":
+        grads = tuple(torch.empty_like(t) for t in (q, k, v))
+    else:
+        with _disable_current_modes(), torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = _attention(*leaves, *ctx.args)
+            grads = torch.autograd.grad(out, leaves, do)
+    dq, dk, dv = torch.ops.repro_torch.flash_attention_bwd(
+        q, k, v, do, *grads, *ctx.args, ctx.split)
+    return dq, dk, dv, None, None, None, None
+
+
+_flash_op.register_autograd(_flash_grad, setup_context=_flash_setup)
+
+
+def _register_flops():
+    from torch.utils.flop_counter import register_flop_formula
+
+    def fwd(q, k, v, causal, window, split):
+        B, S, H, hd = q
+        return split * costs.flash_flops(B, S, k[1], H, hd, causal, window)
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attention)
+    def _(q, k, v, scale, causal, window, split, out_shape=None, **kw):
+        return fwd(q, k, v, causal, window, split)
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+    def _(q, k, v, do, dq, dk, dv, scale, causal, window, split,
+          out_shape=None, **kw):
+        return int(costs.FLASH_BWD_FACTOR * fwd(q, k, v, causal, window,
+                                                split))
+
+
+_register_flops()

@@ -23,6 +23,12 @@ ddt and da in the inputs' dtypes.  The backward takes chunks that are
 a multiple of 32 up to 256 (`BWD_MAX_CHUNK`) and raises
 NotImplementedError for others.  On the CPU autograd runs through
 `ssd_chunked`.
+
+Counted.  On `meta` tensors, and on any device while the step-cost
+counter runs (`kernels.costs.counting`), the call goes through the custom
+op `repro_torch::ssd_scan` (the same computation; on `meta` an empty
+output), whose gradient is the op `repro_torch::ssd_scan_bwd`:
+`FlopCounterMode` counts each by its formula (`kernels/costs.py`).
 """
 from __future__ import annotations
 
@@ -30,7 +36,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, costs
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 
 MAX_HEAD_DIM = 64       # P: one 64-column tile
@@ -157,6 +163,16 @@ def ssd(x, b, c, dt, a, *, chunk: int = 128):
     dev = x.device
     if any(t.device != dev for t in (b, c, dt, a)):
         raise ValueError("ssd: tensors on more than one device")
+    if dev.type == "meta" or costs.active():
+        return torch.ops.repro_torch.ssd_scan(x, b, c, dt, a, int(chunk),
+                                              costs.split())
+    return _scan(x, b, c, dt, a, chunk)
+
+
+def _scan(x, b, c, dt, a, chunk):
+    """The plain version on the CPU, the kernel on the card."""
+    P, N = x.shape[-1], b.shape[-1]
+    dev = x.device
     if dev.type == "cpu":
         return ssd_chunked(x, b, c, dt, a, chunk=chunk).to(x.dtype)
     if dev.type != "cuda":
@@ -169,3 +185,84 @@ def ssd(x, b, c, dt, a, *, chunk: int = 128):
         return SSDScan.apply(x, b, c, dt, a, chunk)
     xs = [t.to(torch.float32).contiguous() for t in (x, b, c, dt, a)]
     return _forward(xs, chunk)[0].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The counted ops
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=())
+def _ssd_op(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+            dt: torch.Tensor, a: torch.Tensor, chunk: int,
+            split: int) -> torch.Tensor:
+    """`split`: the ranks this local shard's work is split over (its
+    FLOPs count that many times; `kernels/costs.py`)."""
+    return _scan(x, b, c, dt, a, chunk)
+
+
+@_ssd_op.register_fake
+def _(x, b, c, dt, a, chunk, split):
+    return torch.empty_like(x)
+
+
+@torch.library.custom_op("repro_torch::ssd_scan_bwd", mutates_args=())
+def _ssd_bwd_op(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                dt: torch.Tensor, a: torch.Tensor, dy: torch.Tensor,
+                dx: torch.Tensor, db: torch.Tensor, dc: torch.Tensor,
+                ddt: torch.Tensor, da: torch.Tensor, chunk: int, split: int
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor, torch.Tensor]:
+    """The gradient, computed before the op (the op carries it to be
+    counted as one backward)."""
+    return tuple(t.clone() for t in (dx, db, dc, ddt, da))
+
+
+@_ssd_bwd_op.register_fake
+def _(x, b, c, dt, a, dy, dx, db, dc, ddt, da, chunk, split):
+    return tuple(torch.empty_like(t) for t in (x, b, c, dt, a))
+
+
+def _ssd_setup(ctx, inputs, output):
+    *xs, chunk, split = inputs
+    ctx.save_for_backward(*xs)
+    ctx.chunk, ctx.split = chunk, split
+
+
+def _ssd_grad(ctx, dy):
+    """The same call's gradient, recomputed out of sight of the counters
+    (the wrapper's own autograd; nothing on meta)."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    xs = ctx.saved_tensors
+    if xs[0].device.type == "meta":
+        grads = tuple(torch.empty_like(t) for t in xs)
+    else:
+        with _disable_current_modes(), torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in xs]
+            grads = torch.autograd.grad(_scan(*leaves, ctx.chunk), leaves,
+                                        dy)
+    out = torch.ops.repro_torch.ssd_scan_bwd(*xs, dy, *grads, ctx.chunk,
+                                             ctx.split)
+    return (*out, None, None)
+
+
+_ssd_op.register_autograd(_ssd_grad, setup_context=_ssd_setup)
+
+
+def _register_flops():
+    from torch.utils.flop_counter import register_flop_formula
+
+    def dims(x, b, chunk):
+        B, L, H, P = x
+        return B, L, H, P, b[-1], chunk
+
+    @register_flop_formula(torch.ops.repro_torch.ssd_scan)
+    def _(x, b, c, dt, a, chunk, split, out_shape=None, **kw):
+        return split * costs.ssd_flops(*dims(x, b, chunk))
+
+    @register_flop_formula(torch.ops.repro_torch.ssd_scan_bwd)
+    def _(x, b, c, dt, a, dy, dx, db, dc, ddt, da, chunk, split,
+          out_shape=None, **kw):
+        return split * costs.ssd_bwd_flops(*dims(x, b, chunk))
+
+
+_register_flops()

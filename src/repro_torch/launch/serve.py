@@ -29,7 +29,7 @@ def serve(cfg, *, requests: int = 4, batch: int = 4, max_seq: int = 128,
 
     model = build_model(cfg, device)
     if params is None:
-        params = model.init(seed)
+        params, _ = model.init(seed)
     server = BatchServer(model, params, batch=batch, max_seq=max_seq)
 
     rng = np.random.default_rng(0)

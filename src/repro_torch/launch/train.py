@@ -35,9 +35,11 @@ def train(arch: str, *, smoke: bool = False, steps: int = 50, seq: int = 128,
           ckpt_dir: str | None = None, quantized_opt: bool = False,
           device: str = "cuda", layers: int | None = None,
           fail_at: tuple[int, ...] = (), checkpoint_every: int | None = None,
-          keep: int = 3, log: Callable = print) -> dict:
+          keep: int = 3, remat: str | None = None,
+          log: Callable = print) -> dict:
     """Train `arch` for `steps` steps; returns `train_loop`'s result plus
-    the config (`cfg`) and the tokens a step takes (`tokens_per_step`)."""
+    the config (`cfg`) and the tokens a step takes (`tokens_per_step`).
+    `remat` overrides the config's ("block" by default; models/transformer.py)."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model, count_params
     from repro_torch.train.data import DataConfig, SyntheticDataset
@@ -49,16 +51,20 @@ def train(arch: str, *, smoke: bool = False, steps: int = 50, seq: int = 128,
     if data_parallel > 1 or model_parallel > 1:
         raise NotImplementedError(
             f"launch.train: data_parallel {data_parallel} x model_parallel "
-            f"{model_parallel} needs the sharding and multi-device slices, "
-            f"not ported yet (ROADMAP.md queue 1 items 2 and 4); the port "
-            f"trains on one device")
+            f"{model_parallel} needs a multi-card trainer, not ported yet "
+            f"(ROADMAP.md queue 1 item 8; the sharded step itself is "
+            f"`make_train_step(grad_shardings=, batch_shardings=)`); this "
+            f"entry trains on one device")
     cfg = get_config(arch, smoke=smoke)
     if layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=layers)
+    if remat is not None:
+        cfg = dataclasses.replace(cfg, remat=remat)
     log(f"[train] arch={cfg.name} layers={cfg.n_layers} "
-        f"params={count_params(cfg) / 1e6:.1f}M device={device}")
+        f"params={count_params(cfg) / 1e6:.1f}M remat={cfg.remat} "
+        f"device={device}")
     model = build_model(cfg, device)
-    params = model.init(0)
+    params, _ = model.init(0)
     opt = (quantized_adamw if quantized_opt else adamw)(
         1e-3, weight_decay=0.01, grad_clip=1.0)
     opt_state = opt.init(params)
@@ -98,6 +104,9 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to this many layers")
+    ap.add_argument("--remat", default=None,
+                    choices=("none", "full", "block", "collectives"),
+                    help="override the config's remat mode")
     args = ap.parse_args(argv)
     res = train(args.arch, smoke=args.smoke, steps=args.steps, seq=args.seq,
                 global_batch=args.global_batch,
@@ -105,7 +114,7 @@ def main(argv=None) -> int:
                 data_parallel=args.data_parallel,
                 model_parallel=args.model_parallel, ckpt_dir=args.ckpt_dir,
                 quantized_opt=args.quantized_opt, device=args.device,
-                layers=args.layers)
+                layers=args.layers, remat=args.remat)
     ok = all(torch.isfinite(torch.tensor(res["losses"])).tolist())
     return 0 if ok else 1
 

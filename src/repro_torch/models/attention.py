@@ -31,6 +31,8 @@ backward kernels take every mask and key length above); dense `attend`
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -38,6 +40,9 @@ from repro_torch.configs.base import AttnCfg
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import layers
 from repro_torch.models.layers import DTYPE, _normal
+from repro_torch.sharding.context import (batch_heads_placements, is_dtensor,
+                                          merge_heads, on_local_shards,
+                                          replicate_like, split_heads)
 
 NEG_INF = -1e9
 CHUNK_Q = 512
@@ -47,7 +52,7 @@ DECODE_MAX_Q = 16       # cross attention at or below it: dense `attend`
 KINDS = ("causal", "window", "bidir")
 
 
-def init_attention(gen, d_model: int, cfg: AttnCfg) -> dict:
+def init_attention(gen, d_model: int, cfg: AttnCfg):
     s = d_model ** -0.5
     H, K, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     params = {
@@ -56,18 +61,22 @@ def init_attention(gen, d_model: int, cfg: AttnCfg) -> dict:
         "wv": _normal(gen, (d_model, K * hd), s),
         "wo": _normal(gen, (H * hd, d_model), (H * hd) ** -0.5),
     }
+    roles = {"wq": ("embed", "qheads"), "wk": ("embed", "kvheads"),
+             "wv": ("embed", "kvheads"), "wo": ("qheads", "embed")}
     if cfg.qk_norm:
         params["q_norm"] = torch.ones((hd,), dtype=DTYPE, device=gen.device)
         params["k_norm"] = torch.ones((hd,), dtype=DTYPE, device=gen.device)
-    return params
+        roles["q_norm"] = (None,)
+        roles["k_norm"] = (None,)
+    return params, roles
 
 
 def _qkv(params, x, cfg: AttnCfg, positions, rope: bool = True):
     B, S, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
-    q = (x @ params["wq"]).reshape(B, S, H, hd)
-    k = (x @ params["wk"]).reshape(B, S, K, hd)
-    v = (x @ params["wv"]).reshape(B, S, K, hd)
+    q = split_heads(layers.linear(x, params["wq"]), (B, S, H, hd))
+    k = split_heads(layers.linear(x, params["wk"]), (B, S, K, hd))
+    v = split_heads(layers.linear(x, params["wv"]), (B, S, K, hd))
     if cfg.qk_norm:
         q = layers.l2norm(q) * params["q_norm"]
         k = layers.l2norm(k) * params["k_norm"]
@@ -98,7 +107,8 @@ def attend(q, k, v, kind: str, window: int, scale: float, q_off=0):
     """Dense attention. q: (B,Sq,H,hd), k/v: (B,Skv,H,hd)."""
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
     m = _mask(q.shape[1], k.shape[1], q_off, kind, window, q.device)
-    logits = logits.masked_fill(~m[None, None], NEG_INF)
+    logits = logits.masked_fill(replicate_like(logits, ~m[None, None]),
+                                NEG_INF)
     p = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
 
@@ -195,10 +205,43 @@ def self_attention(params, x, cfg: AttnCfg, kind: str, positions=None,
         positions = torch.arange(S, device=x.device)
     q, k, v = _qkv(params, x, cfg, positions, rope)
     scale = cfg.softmax_scale or cfg.head_dim ** -0.5
-    o = flash_ops.gqa_flash_attention_kv(
-        q, k, v, causal=kind != "bidir", scale=scale,
-        window=cfg.window if kind == "window" else 0)
-    return o.reshape(B, S, cfg.n_heads * cfg.head_dim) @ params["wo"]
+    o = flash(q, k, v, causal=kind != "bidir", scale=scale,
+              window=cfg.window if kind == "window" else 0)
+    return layers.linear(merge_heads(o, (B, S, cfg.n_heads * cfg.head_dim)),
+                         params["wo"])
+
+
+def flash(q, k, v, *, causal: bool, scale: float, window: int = 0):
+    """`gqa_flash_attention_kv` on plain tensors; on DTensors the same
+    call on each rank's local shards (`on_local_shards`), so the kernel
+    runs on the card under a DTensor as without one.  The batch goes over
+    the data axes; the heads over 'model' in whole heads and whole GQA
+    groups: q and k/v sharded as they are where K divides by the model
+    axis, else K/V first repeated to lcm(K, model) heads (each q head
+    keeps its K/V head) where that divides H, else every head stays on
+    every rank of the model axis (the reference's merged head dims shard
+    mid-head, and GSPMD regathers them; here the heads are made whole
+    first)."""
+    if not is_dtensor(q):
+        return flash_ops.gqa_flash_attention_kv(q, k, v, causal=causal,
+                                                scale=scale, window=window)
+    from repro_torch.launch.mesh import axis_sizes
+    B, H, K = q.shape[0], q.shape[2], k.shape[2]
+    m = axis_sizes(q.device_mesh).get("model", 1)
+    heads = H % m == 0 and m > 1
+    if heads and K % m:
+        kk = math.lcm(K, m)
+        if H % kk:
+            heads = False
+        else:
+            k = k.repeat_interleave(kk // K, dim=2)
+            v = v.repeat_interleave(kk // K, dim=2)
+    pl = batch_heads_placements(q.device_mesh, B, 2 if heads else None)
+
+    def local(ql, kl, vl):
+        return flash_ops.gqa_flash_attention_kv(ql, kl, vl, causal=causal,
+                                                scale=scale, window=window)
+    return on_local_shards(local, (q, k, v), (pl, pl, pl), pl)
 
 
 # ---------------------------------------------------------------------------
@@ -210,20 +253,25 @@ def cross_attention(params, x, memory, cfg: AttnCfg):
     (B,Skv,K,hd). Returns (B,Sq,D)."""
     B, Sq, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
-    q = (x @ params["wq"]).reshape(B, Sq, H, hd)
+    q = split_heads(layers.linear(x, params["wq"]), (B, Sq, H, hd))
     if isinstance(memory, tuple):
         k, v = memory
     else:
         Skv = memory.shape[1]
-        k = (memory @ params["wk"]).reshape(B, Skv, K, hd)
-        v = (memory @ params["wv"]).reshape(B, Skv, K, hd)
+        k = split_heads(layers.linear(memory, params["wk"]), (B, Skv, K, hd))
+        v = split_heads(layers.linear(memory, params["wv"]), (B, Skv, K, hd))
     scale = cfg.softmax_scale or hd ** -0.5
-    if Sq <= DECODE_MAX_Q:
+    if Sq <= DECODE_MAX_Q and is_dtensor(q):
+        # on each rank's rows, every head and key whole
+        pl = batch_heads_placements(q.device_mesh, B)
+        o = on_local_shards(lambda ql, kl, vl: attend(
+            ql, _expand_kv(kl, H), _expand_kv(vl, H), "bidir", 0, scale),
+            (q, k, v), (pl, pl, pl), pl)
+    elif Sq <= DECODE_MAX_Q:
         o = attend(q, _expand_kv(k, H), _expand_kv(v, H), "bidir", 0, scale)
     else:
-        o = flash_ops.gqa_flash_attention_kv(q, k, v, causal=False,
-                                             scale=scale)
-    return o.reshape(B, Sq, H * hd) @ params["wo"]
+        o = flash(q, k, v, causal=False, scale=scale)
+    return layers.linear(merge_heads(o, (B, Sq, H * hd)), params["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -237,9 +285,9 @@ def decode_attend(params, x, cache_k, cache_v, position: int, cfg: AttnCfg,
     Returns (out (B,1,D), new_k (B,1,K,hd), new_v)."""
     B = x.shape[0]
     H, K, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
-    q = (x @ params["wq"]).reshape(B, 1, H, hd)
-    k_new = (x @ params["wk"]).reshape(B, 1, K, hd)
-    v_new = (x @ params["wv"]).reshape(B, 1, K, hd)
+    q = split_heads(layers.linear(x, params["wq"]), (B, 1, H, hd))
+    k_new = split_heads(layers.linear(x, params["wk"]), (B, 1, K, hd))
+    v_new = split_heads(layers.linear(x, params["wv"]), (B, 1, K, hd))
     if cfg.qk_norm:
         q = layers.l2norm(q) * params["q_norm"]
         k_new = layers.l2norm(k_new) * params["k_norm"]
@@ -250,10 +298,13 @@ def decode_attend(params, x, cache_k, cache_v, position: int, cfg: AttnCfg,
     S = cache_k.shape[1]
     scale = cfg.softmax_scale or hd ** -0.5
     rep = H // K
-    qg = q.reshape(B, 1, K, rep, hd)
+    qg = split_heads(q.reshape(B, 1, H * hd), (B, 1, K, rep * hd)).reshape(
+        B, 1, K, rep, hd) if is_dtensor(q) else q.reshape(B, 1, K, rep, hd)
     logits = torch.einsum("bokrd,bskd->bkrs", qg, cache_k).float() * scale
     new_logit = torch.einsum("bokrd,bokd->bkro", qg, k_new).float() * scale
-    ki = torch.arange(S, device=x.device)
+    # on a sequence-sharded DTensor cache (flash-decoding) each rank
+    # scores its part of the cache and the softmax reduces across ranks
+    ki = replicate_like(logits, torch.arange(S, device=x.device))
     valid = ki[None, None, None, :] < position
     if window:
         valid &= ki[None, None, None, :] >= position - window
@@ -264,5 +315,5 @@ def decode_attend(params, x, cache_k, cache_v, position: int, cfg: AttnCfg,
     denom = p.sum(dim=-1, keepdim=True) + p_new
     ctx = (torch.einsum("bkrs,bskd->bkrd", (p / denom).to(x.dtype), cache_v)
            + (p_new / denom).to(x.dtype) * v_new.reshape(B, 1, K, 1, hd)[:, 0])
-    out = ctx.reshape(B, 1, H * hd) @ params["wo"]
+    out = layers.linear(merge_heads(ctx, (B, 1, H * hd)), params["wo"])
     return out, k_new, v_new

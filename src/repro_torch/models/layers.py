@@ -2,14 +2,28 @@
 RMSNorm, RoPE, the SwiGLU and GELU MLPs, embeddings.
 
 Pure functions over explicit parameter dicts.  Parameters are bf16; norms
-and softmax accumulate in fp32.  The reference's sharding roles and its
-custom VJP of RMSNorm (a training concern) have no counterpart here; the
-`init_*` functions draw from a `torch.Generator` on the given device.
+and softmax accumulate in fp32.  The `init_*` functions draw from a
+`torch.Generator` on the given device and return (params, roles), as the
+reference's: `roles` mirrors params, each leaf a tuple naming the semantic
+axis of each tensor dim, which `sharding/policies.py` maps onto a mesh:
+
+  embed      d_model                  vocab     (padded) vocabulary
+  ff         dense FFN hidden         qheads    merged H * hd
+  kvheads    merged K * hd            inner     mamba d_inner
+  inner_proj mamba in-projection      conv_ch   mamba conv channels
+  experts    MoE expert index         expert_ff MoE expert hidden
+  heads      per-head vectors         None      never sharded
+
+The reference's custom VJP of RMSNorm has no counterpart (autograd
+differentiates the same ops).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding.context import (is_dtensor, on_local_shards,
+                                          replicate_like)
 
 DTYPE = torch.bfloat16
 
@@ -23,8 +37,9 @@ def _normal(gen: torch.Generator, shape, scale: float) -> torch.Tensor:
 # Norms
 # ---------------------------------------------------------------------------
 
-def init_rmsnorm(d: int, device) -> dict:
-    return {"scale": torch.ones((d,), dtype=DTYPE, device=device)}
+def init_rmsnorm(d: int, device):
+    return ({"scale": torch.ones((d,), dtype=DTYPE, device=device)},
+            {"scale": ("embed",)})
 
 
 def rmsnorm(params, x, eps=1e-6):
@@ -54,23 +69,63 @@ def apply_rope(x, positions, theta: float):
     hd = x.shape[-1]
     freqs = rope_frequencies(hd, theta, x.device)             # (hd/2,)
     angles = positions[..., :, None].float() * freqs          # (S, hd/2)
-    cos = torch.cos(angles)[..., :, None, :]                  # (S, 1, hd/2)
-    sin = torch.sin(angles)[..., :, None, :]
+    cos = replicate_like(x, torch.cos(angles)[..., :, None, :])  # (S,1,hd/2)
+    sin = replicate_like(x, torch.sin(angles)[..., :, None, :])
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
+# Products
+# ---------------------------------------------------------------------------
+
+def linear(x, w):
+    """x @ w over x's last dim.  A DTensor x of more than two dims is folded
+    to rows here, and the product's rows are gathered over any mesh dim
+    whose sharding of them x's leading dim does not divide: DTensor's
+    matmul may cut the folded rows over an axis (a batch of 16 rows over
+    32 data ranks, each holding half a sequence) that its view back to
+    (B, S, F) cannot express.  Plain tensors: x @ w."""
+    if not is_dtensor(x) or x.ndim <= 2:
+        return x @ w
+    lead = tuple(x.shape[:-1])
+    mesh = x.device_mesh
+    x2 = x.reshape(-1, x.shape[-1])
+    n_data = 1
+    for i, name in enumerate(mesh.mesh_dim_names):
+        n_data *= mesh.size(i) if name != "model" else 1
+    if lead[0] % n_data:
+        # the fold's gradient held to x's placements: the backward's
+        # unflatten never meets rows cut across a batch row
+        pl = tuple(x2.placements)
+        x2 = on_local_shards(lambda t: t, (x2,), (pl,), pl)
+    y = x2 @ w
+    cut = [i for i, p in enumerate(y.placements) if p.is_shard(0)]
+    n = 1
+    for i in cut:
+        n *= mesh.size(i)
+    if cut and lead[0] % n:
+        # (a pending partial sum is reduced with it: a redistribution may
+        # not lead back to Partial in the backward)
+        from torch.distributed.tensor import Replicate
+        y = y.redistribute(mesh, [Replicate() if i in cut or p.is_partial()
+                                  else p for i, p in enumerate(y.placements)])
+    return y.reshape(lead + (w.shape[-1],))
+
+
+# ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
 
-def init_mlp(gen, d_model: int, d_ff: int, swiglu: bool = True) -> dict:
+def init_mlp(gen, d_model: int, d_ff: int, swiglu: bool = True):
     s_in, s_out = d_model ** -0.5, d_ff ** -0.5
     params = {"w_gate": _normal(gen, (d_model, d_ff), s_in)} if swiglu else {}
     params["w_up"] = _normal(gen, (d_model, d_ff), s_in)
     params["w_down"] = _normal(gen, (d_ff, d_model), s_out)
-    return params
+    roles = {k: ("embed", "ff") for k in params}
+    roles["w_down"] = ("ff", "embed")
+    return params, roles
 
 
 def gelu(x):
@@ -82,22 +137,67 @@ def gelu(x):
 def mlp(params, x, swiglu: bool = True):
     """SwiGLU, or (swiglu False, whisper) gelu(x w_up) w_down."""
     if not swiglu:
-        return (gelu(x @ params["w_up"]) @ params["w_down"]).to(x.dtype)
-    g = F.silu(x @ params["w_gate"])
-    return ((g * (x @ params["w_up"])) @ params["w_down"]).to(x.dtype)
+        return linear(gelu(linear(x, params["w_up"])),
+                      params["w_down"]).to(x.dtype)
+    g = F.silu(linear(x, params["w_gate"]))
+    return linear(g * linear(x, params["w_up"]), params["w_down"]).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
 # Embeddings / LM head
 # ---------------------------------------------------------------------------
 
-def init_embedding(gen, vocab_padded: int, d_model: int) -> dict:
-    return {"table": _normal(gen, (vocab_padded, d_model), 1.0)}
+def init_embedding(gen, vocab_padded: int, d_model: int):
+    return ({"table": _normal(gen, (vocab_padded, d_model), 1.0)},
+            {"table": ("vocab", "embed")})
 
 
 def embed(params, tokens):
-    return params["table"][tokens]
+    """The table's rows.  On a DTensor table the gather runs on each
+    rank's local shards (the same gather, and backward, as without a
+    mesh): a vocabulary sharded over mesh dims is gathered from each
+    rank's slice of it, the tokens outside the slice giving zero rows, and
+    the rows are a partial sum over those dims with one term, as
+    Megatron's vocab-parallel embedding, reduced at once; the table's
+    other dims are gathered whole first (FSDP).  (DTensor's own `F.embedding` rule keeps
+    a masked partial that torch 2.11 cannot reduce twice, as a block and
+    its remat re-forward do.)"""
+    table = params["table"]
+    if not is_dtensor(table):
+        return table[tokens]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from repro_torch.sharding.context import batch_heads_placements
+    mesh = table.device_mesh
+    rows = batch_heads_placements(mesh, tokens.shape[0])
+    vocab = [i for i, p in enumerate(table.placements) if p.is_shard(0)]
+    t_in = tuple(Shard(0) if i in vocab else Replicate()
+                 for i in range(mesh.ndim))
+    t_grad = tuple(Shard(0) if i in vocab else Partial() if r.is_shard()
+                   else Replicate() for i, r in enumerate(rows))
+    out = tuple(Partial() if i in vocab else r for i, r in enumerate(rows))
+    n_loc, block = table.shape[0], 0
+    for i in vocab:                 # major to minor, in mesh order
+        n_loc //= mesh.size(i)
+        block = block * mesh.size(i) + mesh.get_local_rank(i)
+    lo = block * n_loc
+
+    def local(t, idx):
+        if not vocab:
+            return t[idx]
+        j = idx - lo
+        inside = (j >= 0) & (j < n_loc)
+        got = t[j.clamp(0, n_loc - 1)]
+        return got * inside[..., None].to(got.dtype)
+
+    got = on_local_shards(local, (table, tokens), (t_in, rows), out,
+                          (t_grad, rows))
+    # the one-term sum taken at once: a block's input replicated over the
+    # vocabulary's dims (left partial, DTensor's later choices for the
+    # residual stream moved 1.60 TB of collectives a card in minitron-8b's
+    # dry run on (16, 16) under torch 2.11, against 0.27 TB reduced here)
+    return got.redistribute(mesh, rows) if vocab else got
 
 
-def init_lm_head(gen, d_model: int, vocab_padded: int) -> dict:
-    return {"w": _normal(gen, (d_model, vocab_padded), d_model ** -0.5)}
+def init_lm_head(gen, d_model: int, vocab_padded: int):
+    return ({"w": _normal(gen, (d_model, vocab_padded), d_model ** -0.5)},
+            {"w": ("embed", "vocab")})

@@ -27,6 +27,8 @@ from repro_torch.configs.base import SSMCfg
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import layers
 from repro_torch.models.layers import DTYPE, _normal
+from repro_torch.sharding.context import (batch_heads_placements, is_dtensor,
+                                          on_local_shards)
 
 
 def dims(d_model: int, cfg: SSMCfg):
@@ -35,13 +37,19 @@ def dims(d_model: int, cfg: SSMCfg):
     return d_inner, n_heads
 
 
-def init_mamba(gen, d_model: int, cfg: SSMCfg) -> dict:
+def init_mamba(gen, d_model: int, cfg: SSMCfg):
     d_inner, H = dims(d_model, cfg)
     G, N = cfg.n_groups, cfg.d_state
     conv_ch = d_inner + 2 * G * N
     d_in_proj = 2 * d_inner + 2 * G * N + H
     dev = gen.device
     f32 = dict(dtype=torch.float32, device=dev)
+    roles = {
+        "w_in": ("embed", "inner_proj"), "conv_w": (None, "conv_ch"),
+        "conv_b": ("conv_ch",), "a_log": ("heads",), "d_skip": ("heads",),
+        "dt_bias": ("heads",), "norm_scale": ("inner",),
+        "w_out": ("inner", "embed"),
+    }
     return {
         "w_in": _normal(gen, (d_model, d_in_proj), d_model ** -0.5),
         "conv_w": _normal(gen, (cfg.conv, conv_ch), 0.5),
@@ -51,7 +59,7 @@ def init_mamba(gen, d_model: int, cfg: SSMCfg) -> dict:
         "dt_bias": torch.zeros((H,), **f32),
         "norm_scale": torch.ones((d_inner,), dtype=DTYPE, device=dev),
         "w_out": _normal(gen, (d_inner, d_model), d_inner ** -0.5),
-    }
+    }, roles
 
 
 def _split_proj(proj, d_inner, G, N, H):
@@ -78,24 +86,82 @@ def mamba_block(params, hidden, cfg: SSMCfg, d_model: int):
         raise ValueError(f"mamba_block: L={L} is not a multiple of the chunk "
                          f"{Q}")
 
-    proj = hidden @ params["w_in"]
-    z, xBC_x, Bmat, Cmat, dt = _split_proj(proj, d_inner, G, N, H)
-    xBC = torch.cat([xBC_x, Bmat, Cmat], dim=-1)
-    xBC = _causal_conv(xBC, params["conv_w"], params["conv_b"])
-    x, Bmat, Cmat = torch.split(xBC, [d_inner, G * N, G * N], dim=-1)
+    proj = layers.linear(hidden, params["w_in"])
+    args = (proj, params["conv_w"], params["conv_b"], params["dt_bias"])
 
-    x = x.reshape(Bsz, L, H, P)
-    # the reference uses group 0 only (one B/C pair for all heads)
-    Bmat = Bmat.reshape(Bsz, L, G, N)[:, :, 0].float()
-    Cmat = Cmat.reshape(Bsz, L, G, N)[:, :, 0].float()
-    dt = F.softplus(dt.float() + params["dt_bias"])                # (B,L,H)
+    def pre(proj, conv_w, conv_b, dt_bias):
+        """The projection split, the causal conv, and x, B, C, dt (of
+        the rows it is given: a rank's local rows on a mesh)."""
+        Bsz, L = proj.shape[:2]
+        z, xBC_x, Bmat, Cmat, dt = _split_proj(proj, d_inner, G, N, H)
+        xBC = torch.cat([xBC_x, Bmat, Cmat], dim=-1)
+        xBC = _causal_conv(xBC, conv_w, conv_b)
+        x, Bmat, Cmat = torch.split(xBC, [d_inner, G * N, G * N], dim=-1)
+        x = x.reshape(Bsz, L, H, P)
+        # the reference uses group 0 only (one B/C pair for all heads)
+        Bmat = Bmat.reshape(Bsz, L, G, N)[:, :, 0].float()
+        Cmat = Cmat.reshape(Bsz, L, G, N)[:, :, 0].float()
+        dt = F.softplus(dt.float() + dt_bias)                      # (B,L,H)
+        return z, x, Bmat, Cmat, dt
+
+    if is_dtensor(proj):
+        z, x, Bmat, Cmat, dt = _pre_sharded(pre, args)
+    else:
+        z, x, Bmat, Cmat, dt = pre(*args)
     A = -torch.exp(params["a_log"])                                # (H,)
 
-    y = ssd_ops.ssd(x.float(), Bmat, Cmat, dt, A, chunk=Q)         # (B,L,H,P)
+    y = _ssd(x.float(), Bmat, Cmat, dt, A, Q)                      # (B,L,H,P)
     y = y + params["d_skip"][None, None, :, None] * x.float()
     y = y.reshape(Bsz, L, d_inner).to(hidden.dtype)
     y = layers.rmsnorm({"scale": params["norm_scale"]}, y * F.silu(z))
-    return y @ params["w_out"]
+    return layers.linear(y, params["w_out"])
+
+
+def _pre_sharded(pre, args):
+    """`pre` on DTensors: on each rank's rows of the batch, every channel
+    whole (the splits of the merged projection and the depthwise conv run
+    on local tensors); the conv and dt_bias parameters' gradients summed
+    over the data ranks."""
+    from torch.distributed.tensor import Partial, Replicate
+    proj = args[0]
+    mesh = proj.device_mesh
+    rows = batch_heads_placements(mesh, proj.shape[0])
+    whole = (Replicate(),) * mesh.ndim
+    summed = tuple(Partial() if p.is_shard() else Replicate() for p in rows)
+    return on_local_shards(pre, args, (rows, whole, whole, whole),
+                           (rows,) * 5, (rows, summed, summed, summed))
+
+
+def _ssd(x, b, c, dt, a, chunk: int):
+    """`ssd_ops.ssd` on plain tensors; on DTensors the same call on each
+    rank's local shards, the batch over the data axes and the heads over
+    'model' where they divide (B and C, one group for every head, whole on
+    each rank of the model axis)."""
+    if not is_dtensor(x):
+        return ssd_ops.ssd(x, b, c, dt, a, chunk=chunk)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from repro_torch.launch.mesh import axis_sizes
+    mesh = x.device_mesh
+    H = x.shape[2]
+    m = axis_sizes(mesh).get("model", 1)
+    heads = H % m == 0 and m > 1
+    x_pl = batch_heads_placements(mesh, x.shape[0], 2 if heads else None)
+    bc_pl = batch_heads_placements(mesh, x.shape[0])
+    a_pl = tuple(Shard(0) if n == "model" and heads else Replicate()
+                 for n in mesh.mesh_dim_names)
+
+    # each rank's heads add their part to B's and C's gradients, and each
+    # data rank's rows theirs to A's
+    bc_grad = tuple(Partial() if n == "model" and heads else p
+                    for n, p in zip(mesh.mesh_dim_names, bc_pl))
+    a_grad = tuple(Partial() if n != "model" and xp.is_shard() else p
+                   for n, p, xp in zip(mesh.mesh_dim_names, a_pl, x_pl))
+
+    def local(xl, bl, cl, dtl, al):
+        return ssd_ops.ssd(xl, bl, cl, dtl, al, chunk=chunk)
+    return on_local_shards(local, (x, b, c, dt, a),
+                           (x_pl, bc_pl, bc_pl, x_pl, a_pl), x_pl,
+                           (x_pl, bc_grad, bc_grad, x_pl, a_grad))
 
 
 # ---------------------------------------------------------------------------
@@ -142,4 +208,8 @@ def mamba_decode_step(params, hidden, state, cfg: SSMCfg, d_model: int):
     y = y.reshape(Bsz, d_inner).to(hidden.dtype)
     y = layers.rmsnorm({"scale": params["norm_scale"]}, y * F.silu(z))
     out = (y @ params["w_out"])[:, None]
+    if is_dtensor(state["ssm"]):    # the state keeps the cache's placements
+        new_ssm, new_conv = (n.redistribute(o.device_mesh, o.placements)
+                             for n, o in ((new_ssm, state["ssm"]),
+                                          (new_conv, state["conv"])))
     return out, {"ssm": new_ssm, "conv": new_conv}

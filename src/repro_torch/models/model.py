@@ -1,23 +1,26 @@
 """Unified model API (port of `repro/models/model.py`).
 
 build_model(cfg, device) -> Model with:
-  init(seed)                          -> params, drawn on the model's device
+  init(seed)                          -> (params, roles), drawn on the
+                                         model's device
   apply(params, batch)                -> (hidden (B,S,D), aux)    [prefill]
   logits(params, hidden)              -> (.., V_padded)
   decode_step(params, token, caches, position) -> (logits (B,1,V), caches)
   init_caches(batch, seq)             -> cache tree
+  input_specs(shape)                  -> the entry point's batch as meta
+                                         tensors (no allocation)
 and count_params(cfg, active_only), model_flops(cfg, shape) and
-abstract_init(model) beside it.
+abstract_init(model) -> (shapes, roles) beside it.
 
 Batch layout: {"tokens": (B, S) int}, plus per family the stubbed
 frontend's output, as the reference's: encdec `enc_frames` (B, S_enc, D)
 frame embeddings (the encoder's input), vlm `img_embed` (B, n_img, D)
 patch embeddings (the cross attention's memory as they are), read from
 whatever batch `apply` is given (in training, each microbatch's rows), and
-differentiated with the rest of the model.  The reference's `input_specs`
-(a dry-run helper) has no counterpart.  `device`
+differentiated with the rest of the model.  `device`
 is where init and init_caches allocate; it defaults to the card and does
-not drop to the CPU.
+not drop to the CPU.  Every function takes DTensor params and batches
+(`sharding/`) as well as plain tensors.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, ShapeCfg
 from repro_torch.models import layers, mamba, transformer
 from repro_torch.models.layers import DTYPE
+from repro_torch.sharding.context import replicate_like
 
 ENCODER_PATTERN = (("B", "D"),)
 
@@ -41,6 +45,7 @@ class Model(NamedTuple):
     logits: Callable
     decode_step: Callable
     init_caches: Callable
+    input_specs: Callable
 
 
 def build_model(cfg: ModelConfig, device: str | torch.device = "cuda"
@@ -54,20 +59,26 @@ def _build_on(cfg: ModelConfig, dev: torch.device) -> Model:
     V = cfg.padded_vocab
     emb_scale = torch.tensor(cfg.d_model ** 0.5, dtype=DTYPE, device=dev)
 
-    def init(seed: int = 0) -> dict:
+    def init(seed: int = 0):
+        """(params, roles), drawn from `seed` on the model's device."""
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
-        params = {"embed": layers.init_embedding(gen, V, cfg.d_model),
-                  "decoder": transformer.init_stack(gen, cfg),
-                  "ln_f": layers.init_rmsnorm(cfg.d_model, dev)}
+        params, roles = {}, {}
+
+        def put(name, pr):
+            params[name], roles[name] = pr
+
+        put("embed", layers.init_embedding(gen, V, cfg.d_model))
+        put("decoder", transformer.init_stack(gen, cfg))
+        put("ln_f", layers.init_rmsnorm(cfg.d_model, dev))
         if not cfg.tie_embeddings:
-            params["head"] = layers.init_lm_head(gen, cfg.d_model, V)
+            put("head", layers.init_lm_head(gen, cfg.d_model, V))
         if cfg.encoder is not None:
-            params["encoder"] = transformer.init_stack(
+            put("encoder", transformer.init_stack(
                 gen, cfg, pattern=ENCODER_PATTERN,
-                n_super=cfg.encoder.n_layers, first_k_dense=0)
-            params["ln_enc"] = layers.init_rmsnorm(cfg.d_model, dev)
-        return params
+                n_super=cfg.encoder.n_layers, first_k_dense=0))
+            put("ln_enc", layers.init_rmsnorm(cfg.d_model, dev))
+        return params, roles
 
     def memory(params, batch):
         """The cross attention's memory: the encoder's output after ln_enc,
@@ -83,15 +94,15 @@ def _build_on(cfg: ModelConfig, dev: torch.device) -> Model:
 
     def apply(params, batch):
         x = layers.embed(params["embed"], batch["tokens"]).to(DTYPE)
-        x = x * emb_scale
+        x = x * replicate_like(x, emb_scale)
         x, aux = transformer.apply_stack(params["decoder"], x, cfg,
                                          memory=memory(params, batch))
         return layers.rmsnorm(params["ln_f"], x, cfg.norm_eps), aux
 
     def logits(params, hidden):
         if cfg.tie_embeddings:
-            return hidden @ params["embed"]["table"].T
-        return hidden @ params["head"]["w"]
+            return layers.linear(hidden, params["embed"]["table"].T)
+        return layers.linear(hidden, params["head"]["w"])
 
     def init_caches(batch: int, seq: int) -> dict:
         """With an encoder or image memory, each 'C' block also gets a zero
@@ -106,25 +117,51 @@ def _build_on(cfg: ModelConfig, dev: torch.device) -> Model:
     def decode_step(params, token, caches, position: int):
         """token: (B,1) int. Returns (logits (B,1,V), new caches)."""
         x = layers.embed(params["embed"], token).to(DTYPE)
-        x = x * emb_scale
+        x = x * replicate_like(x, emb_scale)
         x, caches = transformer.decode_stack(params["decoder"], x, caches,
                                              int(position), cfg)
         h = layers.rmsnorm(params["ln_f"], x, cfg.norm_eps)
         return logits(params, h), caches
 
-    return Model(cfg, dev, init, apply, logits, decode_step, init_caches)
+    def input_specs(shape: ShapeCfg) -> dict:
+        """Meta-tensor stand-ins for the entry point's batch (no
+        allocation), as the reference's: train/prefill tokens and labels
+        (an encoder's decoder text of dec_seq tokens over S frames, image
+        embeddings beside a VLM's tokens), decode one token, its position
+        and caches of S entries."""
+        return _input_specs(cfg, shape)
+
+    return Model(cfg, dev, init, apply, logits, decode_step, init_caches,
+                 input_specs)
 
 
-def abstract_init(model: Model) -> dict:
-    """The parameter tree's shapes and dtypes without allocating anything:
-    `model.init` traced under a `FakeTensorMode` (the random draws make no
-    storage), every leaf returned as a tensor on the meta device
-    (`.shape`, `.dtype`).  The reference also returns each leaf's sharding
-    role; the port's `init` builds none, so roles wait for the sharding
-    slice (ROADMAP.md queue 1)."""
+def _input_specs(cfg: ModelConfig, shape: ShapeCfg) -> dict:
+    B, S = shape.global_batch, shape.seq
+    meta = lambda shp, dt: torch.empty(shp, dtype=dt, device="meta")
+    i32 = torch.int32
+    if shape.kind in ("train", "prefill"):
+        if cfg.encoder is not None:
+            return {"tokens": meta((B, cfg.encoder.dec_seq), i32),
+                    "enc_frames": meta((B, S, cfg.d_model), DTYPE),
+                    "labels": meta((B, cfg.encoder.dec_seq), i32)}
+        batch = {"tokens": meta((B, S), i32), "labels": meta((B, S), i32)}
+        if cfg.n_img_tokens:
+            batch["img_embed"] = meta((B, cfg.n_img_tokens, cfg.d_model),
+                                      DTYPE)
+        return batch
+    caches = _build_on(cfg, torch.device("meta")).init_caches(B, S)
+    return {"token": meta((B, 1), i32), "position": meta((), i32),
+            "caches": caches}
+
+
+def abstract_init(model: Model):
+    """(shapes, roles) without allocating anything: `model.init` traced
+    under a `FakeTensorMode` (the random draws make no storage), every
+    leaf of `shapes` returned as a tensor on the meta device (`.shape`,
+    `.dtype`)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     with FakeTensorMode():
-        fake = _build_on(model.cfg, torch.device("cpu")).init(0)
+        fake, roles = _build_on(model.cfg, torch.device("cpu")).init(0)
 
     def meta(tree):
         if isinstance(tree, dict):
@@ -133,7 +170,7 @@ def abstract_init(model: Model) -> dict:
             return [meta(v) for v in tree]
         return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
 
-    return meta(fake)
+    return meta(fake), roles
 
 
 # ---------------------------------------------------------------------------

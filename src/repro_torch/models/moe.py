@@ -6,8 +6,11 @@ The "dropping" MoE: capacity C per expert is static (C = ceil(T_group * k /
 E * capacity_factor), rounded up to 8), tokens beyond capacity are dropped.
 Expert weights are stacked (E, ...).  Dispatch carries a leading group axis
 G (cfg.dispatch_groups): routing, capacity and dispatch run per group of
-T / G tokens, and the aux metrics are averaged over the groups.  The
-reference pins that axis to the data axis of its mesh; one card has none.
+T / G tokens, and the aux metrics are averaged over the groups; on a mesh
+the group axis is constrained to the data axes, as the reference pins it
+(`sharding.context.constrain`).  On DTensors (`_moe_dispatch_sharded`)
+the routing runs on every token of the group, gathered to each rank, and
+the expert products take the experts' placements (EP or TP-in-expert).
 
 Router styles:
   mixtral/jamba : top-k over logits, softmax over the selected k
@@ -34,9 +37,11 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MoECfg
 from repro_torch.models.layers import _normal, gelu
+from repro_torch.sharding.context import (constrain, is_dtensor,
+                                          on_local_shards)
 
 
-def init_moe(gen, d_model: int, cfg: MoECfg, swiglu: bool = True) -> dict:
+def init_moe(gen, d_model: int, cfg: MoECfg, swiglu: bool = True):
     """The reference's leaves whatever `swiglu` (without it the gates
     `w_gate`/`ws_gate` are drawn and never read, as there)."""
     E, Fe = cfg.n_routed, cfg.d_expert
@@ -47,12 +52,29 @@ def init_moe(gen, d_model: int, cfg: MoECfg, swiglu: bool = True) -> dict:
         "w_up": _normal(gen, (E, d_model, Fe), s_in),
         "w_down": _normal(gen, (E, Fe, d_model), s_out),
     }
+    roles = {
+        "router": ("embed", None),
+        "w_gate": ("experts", "embed", "expert_ff"),
+        "w_up": ("experts", "embed", "expert_ff"),
+        "w_down": ("experts", "expert_ff", "embed"),
+    }
     if cfg.n_shared:
         Fs = cfg.n_shared * Fe
         params["ws_gate"] = _normal(gen, (d_model, Fs), s_in)
         params["ws_up"] = _normal(gen, (d_model, Fs), s_in)
         params["ws_down"] = _normal(gen, (Fs, d_model), Fs ** -0.5)
-    return params
+        roles["ws_gate"] = ("embed", "ff")
+        roles["ws_up"] = ("embed", "ff")
+        roles["ws_down"] = ("ff", "embed")
+    return params, roles
+
+
+def _bincount(idx, n: int):
+    """torch.bincount(idx, minlength=n) for ids below n; on `meta` (the
+    dry run, which has no values) an empty (n,) of its dtype."""
+    if idx.device.type == "meta":
+        return torch.empty(n, dtype=torch.long, device="meta")
+    return torch.bincount(idx, minlength=n)
 
 
 def _capacity(n_tokens: int, cfg: MoECfg) -> int:
@@ -69,11 +91,13 @@ def moe_ffn(params, x, cfg: MoECfg, swiglu: bool = True):
     if T % G or (T // G) * cfg.top_k < cfg.n_routed:
         G = 1
     if G > 1:
-        outs, auxs = zip(*(_moe_dispatch(params, xg, cfg, swiglu)
-                           for xg in x.reshape(G, T // G, 1, D)))
+        xg = constrain(x.reshape(G, T // G, 1, D), ("data", None, None, None))
+        outs, auxs = zip(*(_moe_dispatch(params, xg[g], cfg, swiglu)
+                           for g in range(G)))
         aux = {k: torch.stack([a[k] for a in auxs]).mean()
                for k in auxs[0]}
-        return torch.stack(outs).reshape(B, S, D), aux
+        yg = constrain(torch.stack(outs), ("data", None, None, None))
+        return yg.reshape(B, S, D), aux
     return _moe_dispatch(params, x, cfg, swiglu)
 
 
@@ -111,7 +135,7 @@ def route(params, xf, cfg: MoECfg) -> dict:
     flat_tok = torch.arange(T, device=dev).repeat_interleave(K)
     order = torch.argsort(flat_e, stable=True)
     se, st, sg = flat_e[order], flat_tok[order], flat_g[order]
-    counts = torch.bincount(flat_e, minlength=E)
+    counts = _bincount(flat_e, E)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(T * K, device=dev) - starts[se]            # rank in expert
     keep = pos < C
@@ -139,14 +163,20 @@ def route(params, xf, cfg: MoECfg) -> dict:
 
 def _moe_dispatch(params, x, cfg: MoECfg, swiglu: bool = True):
     """Single-group dispatch (the reference's `_moe_dispatch`)."""
+    if is_dtensor(x):
+        return _moe_dispatch_sharded(params, x, cfg, swiglu)
     B, S, D = x.shape
     T = B * S
     E, K = cfg.n_routed, cfg.top_k
     xf = x.reshape(T, D)
-    r = route(params, xf, cfg)
+    # the routing and the gather read xf through one view, so their
+    # gradients meet before the shared experts' (as in the sharded path's
+    # local region, `_moe_dispatch_sharded`: the same sums in the same order)
+    xd = xf.view(T, D)
+    r = route(params, xd, cfg)
     C, tok_of_slot, valid_slot = r["C"], r["tok_of_slot"], r["valid_slot"]
 
-    xe = xf[tok_of_slot.long()] * valid_slot[..., None].to(x.dtype)  # (E,C,D)
+    xe = xd[tok_of_slot.long()] * valid_slot[..., None].to(x.dtype)  # (E,C,D)
     if swiglu:
         h = F.silu(torch.bmm(xe, params["w_gate"]))
         h = h * torch.bmm(xe, params["w_up"])
@@ -172,7 +202,79 @@ def _moe_dispatch(params, x, cfg: MoECfg, swiglu: bool = True):
 
     # load-balance aux (Switch-style): E * sum_e f_e * p_e
     me = torch.softmax(r["logits"], dim=-1).mean(dim=0)
-    fe = torch.bincount(r["flat_e"], minlength=E).float() / (T * K)
+    fe = _bincount(r["flat_e"], E).float() / (T * K)
     aux = {"lb_loss": E * (me * fe).sum(),
            "drop_frac": 1.0 - valid_slot.sum() / (T * K)}
     return out.reshape(B, S, D), aux
+
+
+def _experts(params, xe, swiglu: bool):
+    """The batched expert products of the dispatched tokens xe (E, C, D)."""
+    if swiglu:
+        h = F.silu(torch.bmm(xe, params["w_gate"]))
+        h = h * torch.bmm(xe, params["w_up"])
+    else:
+        h = gelu(torch.bmm(xe, params["w_up"]))
+    return torch.bmm(h, params["w_down"])                         # (E, C, D)
+
+
+def _moe_dispatch_sharded(params, x, cfg: MoECfg, swiglu: bool = True):
+    """`_moe_dispatch` on DTensors.  The routing covers every token of the
+    group, as the reference's (capacity and ranks are global), so it runs
+    on the tokens gathered to every rank, on the local tensors; the
+    expert products are DTensor batched matmuls that take the experts'
+    placements (the expert dim over 'model' with EP, expert_ff with
+    TP-in-expert, and the data axes under FSDP); the combine runs on the
+    slot outputs gathered back."""
+    from torch.distributed.tensor import Replicate
+    B, S, D = x.shape
+    T = B * S
+    E, K = cfg.n_routed, cfg.top_k
+    mesh = x.device_mesh
+    rep = (Replicate(),) * mesh.ndim
+
+    def dispatch(xl, router):
+        xd = xl.view(T, D)
+        r = route({"router": router}, xd, cfg)
+        valid = r["valid_slot"]
+        xe = xd[r["tok_of_slot"].long()] * valid[..., None].to(xl.dtype)
+        w = (r["gate_of_slot"] * valid)[..., None].to(xl.dtype)
+        me = torch.softmax(r["logits"], dim=-1).mean(dim=0)
+        fe = _bincount(r["flat_e"], E).float() / (T * K)
+        return (xe, w, r["tok_slots"], E * (me * fe).sum(),
+                1.0 - valid.sum() / (T * K))
+
+    xf = x.reshape(T, D)
+    # its gradient held to its own placements: the rows may come back cut
+    # over more ranks than the batch dim, which the fold's backward (a
+    # view to (B, S, D)) cannot express
+    pl = tuple(xf.placements)
+    xf = on_local_shards(lambda t: t, (xf,), (pl,), pl)
+    xe, w, tok_slots, lb, drop = on_local_shards(
+        dispatch, (xf, params["router"]), (rep, rep), (rep,) * 5)
+    ye = _experts(params, xe, swiglu).redistribute(mesh, rep)
+
+    def combine(yel, wl, slots):
+        C = yel.shape[1]
+        yw = torch.cat([(yel * wl).reshape(E * C, D),
+                        torch.zeros((1, D), dtype=yel.dtype,
+                                    device=yel.device)])
+        out = torch.zeros((T, D), dtype=yel.dtype, device=yel.device)
+        for j in range(K):
+            out = out + yw[slots[:, j]]
+        return out
+
+    out = on_local_shards(combine, (ye, w, tok_slots), (rep, rep, rep), rep)
+    if cfg.n_shared:
+        if swiglu:
+            g = F.silu(xf @ params["ws_gate"])
+            shared = (g * (xf @ params["ws_up"])) @ params["ws_down"]
+        else:
+            shared = gelu(xf @ params["ws_up"]) @ params["ws_down"]
+        # gathered to the combine's placement: DTensor may leave the sum's
+        # rows cut over more ranks than the batch dim, which the view
+        # back to (B, S, D) cannot express
+        out = out + shared.redistribute(mesh, rep)
+    back = [Replicate() if p.is_partial() else p for p in x.placements]
+    out = out.reshape(B, S, D).redistribute(mesh, back)
+    return out, {"lb_loss": lb, "drop_frac": drop}

@@ -4,8 +4,15 @@ A block = (mixer, ffn) pair from the config pattern.  The reference stacks
 each pattern position's parameters over the super-blocks and runs them with
 `jax.lax.scan`; here the stack's `supers` is a list with one entry per
 super-block (a dict of per-position block parameters), walked in a Python
-loop.  Remat, `checkpoint_name` and the sequence-sharding `constrain` of the
-reference are training and sharding concerns and have no counterpart.
+loop.  `cfg.remat` wraps each super-block in `torch.utils.checkpoint`
+(non-reentrant) where autograd records: "full" saves nothing inside it,
+"block" saves the matmuls with no batch dims (`aten.mm`, as
+`dots_with_no_batch_dims_saveable`), "collectives" only the block outputs
+the reference names `mixer_out` / `ffn_out` (marked by the port's identity
+op `repro_torch::checkpoint_name`), "none" applies none.  In the re-forward
+the attention and SSD kernels run again.  `cfg.seq_shard` constrains the
+residual stream to ("data", "model", None) at the reference's three places
+(`sharding.context.constrain`; identity outside a sharding context).
 Covered: mixers 'A'/'G' (causal attention), 'W'/'L' (sliding-window /
 local attention; a ring-buffer decode cache of min(seq, window)), 'B'
 (bidirectional attention, the encoder's), 'C' (causal self-attention, then
@@ -16,12 +23,19 @@ another pattern and depth (the encoder's).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers, mamba, moe
 from repro_torch.models.layers import init_rmsnorm, rmsnorm
+from repro_torch.sharding.context import (constrain, is_dtensor,
+                                          on_local_shards, replicate_like)
 
 MIXER_KIND = {"A": "causal", "G": "causal", "W": "window", "L": "window",
               "B": "bidir", "C": "causal"}
@@ -39,24 +53,29 @@ def check_block(mixer: str, ffn: str) -> None:
 # Single block
 # ---------------------------------------------------------------------------
 
-def init_block(gen, cfg: ModelConfig, mixer: str, ffn: str) -> dict:
+def init_block(gen, cfg: ModelConfig, mixer: str, ffn: str):
+    """(params, roles) of one block."""
     check_block(mixer, ffn)
-    params = {"ln1": init_rmsnorm(cfg.d_model, gen.device)}
+    params, roles = {}, {}
+
+    def put(name, pr):
+        params[name], roles[name] = pr
+
+    put("ln1", init_rmsnorm(cfg.d_model, gen.device))
     if mixer == "M":
-        params["mixer"] = mamba.init_mamba(gen, cfg.d_model, cfg.ssm)
+        put("mixer", mamba.init_mamba(gen, cfg.d_model, cfg.ssm))
     else:
-        params["mixer"] = attn_mod.init_attention(gen, cfg.d_model, cfg.attn)
+        put("mixer", attn_mod.init_attention(gen, cfg.d_model, cfg.attn))
     if mixer == "C":
-        params["xattn"] = attn_mod.init_attention(gen, cfg.d_model, cfg.attn)
-        params["ln_x"] = init_rmsnorm(cfg.d_model, gen.device)
+        put("xattn", attn_mod.init_attention(gen, cfg.d_model, cfg.attn))
+        put("ln_x", init_rmsnorm(cfg.d_model, gen.device))
     if ffn == "D":
-        params["ln2"] = init_rmsnorm(cfg.d_model, gen.device)
-        params["ffn"] = layers.init_mlp(gen, cfg.d_model, cfg.d_ff,
-                                        cfg.swiglu)
+        put("ln2", init_rmsnorm(cfg.d_model, gen.device))
+        put("ffn", layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.swiglu))
     elif ffn == "E":
-        params["ln2"] = init_rmsnorm(cfg.d_model, gen.device)
-        params["ffn"] = moe.init_moe(gen, cfg.d_model, cfg.moe, cfg.swiglu)
-    return params
+        put("ln2", init_rmsnorm(cfg.d_model, gen.device))
+        put("ffn", moe.init_moe(gen, cfg.d_model, cfg.moe, cfg.swiglu))
+    return params, roles
 
 
 def apply_block(params, x, cfg: ModelConfig, mixer: str, ffn: str,
@@ -65,25 +84,34 @@ def apply_block(params, x, cfg: ModelConfig, mixer: str, ffn: str,
     block is its self-attention alone, as in the reference). Returns (x,
     aux); aux holds the MoE block's lb_loss."""
     check_block(mixer, ffn)
+    seq_spec = ("data", "model", None)
+    named = cfg.remat == "collectives"
     aux = {}
+    if cfg.seq_shard:
+        x = constrain(x, seq_spec)
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     if mixer == "M":
         out = mamba.mamba_block(params["mixer"], h, cfg.ssm, cfg.d_model)
     else:
         out = attn_mod.self_attention(params["mixer"], h, cfg.attn,
                                       MIXER_KIND[mixer], positions)
-    x = x + out
+    x = x + (checkpoint_name(out, "mixer_out") if named else out)
     if mixer == "C" and memory is not None:
         h = rmsnorm(params["ln_x"], x, cfg.norm_eps)
         x = x + attn_mod.cross_attention(params["xattn"], h, memory, cfg.attn)
+    if cfg.seq_shard:
+        x = constrain(x, seq_spec)
     if ffn == "D":
         h = rmsnorm(params["ln2"], x, cfg.norm_eps)
-        x = x + layers.mlp(params["ffn"], h, cfg.swiglu)
+        out = layers.mlp(params["ffn"], h, cfg.swiglu)
+        x = x + (checkpoint_name(out, "ffn_out") if named else out)
     elif ffn == "E":
         h = rmsnorm(params["ln2"], x, cfg.norm_eps)
         out, moe_aux = moe.moe_ffn(params["ffn"], h, cfg.moe, cfg.swiglu)
-        x = x + out
+        x = x + (checkpoint_name(out, "ffn_out") if named else out)
         aux["lb_loss"] = moe_aux["lb_loss"]
+    if cfg.seq_shard:
+        x = constrain(x, seq_spec)
     return x, aux
 
 
@@ -92,18 +120,25 @@ def apply_block(params, x, cfg: ModelConfig, mixer: str, ffn: str,
 # ---------------------------------------------------------------------------
 
 def init_stack(gen, cfg: ModelConfig, pattern=None, n_super=None,
-               first_k_dense=None) -> dict:
-    """The decoder's stack, or (pattern, n_super, first_k_dense given) the
-    encoder's."""
+               first_k_dense=None):
+    """(params, roles) of the decoder's stack, or (pattern, n_super,
+    first_k_dense given) the encoder's.  Roles mirror params: a list per
+    leading dense block and per super-block (the reference's roles carry a
+    leading "layers" dim instead, for its stacked leaves;
+    `sharding.policies.stack` folds the one into the other)."""
     pattern = cfg.pattern if pattern is None else pattern
     n_super = cfg.n_super if n_super is None else n_super
     first_k = cfg.first_k_dense if first_k_dense is None else first_k_dense
     first = [init_block(gen, cfg, pattern[0][0], "D")
              for _ in range(first_k)]
-    supers = [{str(i): init_block(gen, cfg, mx, ff)
-               for i, (mx, ff) in enumerate(pattern)}
+    supers = [[(str(i), init_block(gen, cfg, mx, ff))
+               for i, (mx, ff) in enumerate(pattern)]
               for _ in range(n_super)]
-    return {"first": first, "supers": supers}
+    params = {"first": [p for p, _ in first],
+              "supers": [{k: p for k, (p, _) in s} for s in supers]}
+    roles = {"first": [r for _, r in first],
+             "supers": [{k: r for k, (_, r) in s} for s in supers]}
+    return params, roles
 
 
 def apply_stack(params, x, cfg: ModelConfig, pattern=None, memory=None,
@@ -114,14 +149,75 @@ def apply_stack(params, x, cfg: ModelConfig, pattern=None, memory=None,
     pattern = cfg.pattern if pattern is None else pattern
     for p in params["first"]:
         x, _ = apply_block(p, x, cfg, pattern[0][0], "D", memory, positions)
-    lb_loss = torch.zeros((), device=x.device)
-    for block_params in params["supers"]:
+    lb_loss = replicate_like(x, torch.zeros((), device=x.device))
+
+    def super_block(block_params, x, lb_loss, memory):
         for i, (mx, ff) in enumerate(pattern):
             x, aux = apply_block(block_params[str(i)], x, cfg, mx, ff,
                                  memory, positions)
             if "lb_loss" in aux:
                 lb_loss = lb_loss + aux["lb_loss"]
+        return x, lb_loss
+
+    remat = cfg.remat != "none" and torch.is_grad_enabled()
+    for block_params in params["supers"]:
+        if remat:
+            x, lb_loss = checkpoint(super_block, block_params, x, lb_loss,
+                                    memory, use_reentrant=False,
+                                    context_fn=_remat_context(cfg.remat))
+        else:
+            x, lb_loss = super_block(block_params, x, lb_loss, memory)
     return x, {"lb_loss": lb_loss}
+
+
+# ---------------------------------------------------------------------------
+# Remat
+# ---------------------------------------------------------------------------
+
+REMAT_MODES = ("none", "full", "block", "collectives")
+CHECKPOINT_NAMES = ("mixer_out", "ffn_out")
+
+
+@torch.library.custom_op("repro_torch::checkpoint_name", mutates_args=())
+def _checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    return x.clone()
+
+
+@_checkpoint_name.register_fake
+def _(x, name):
+    return torch.empty_like(x)
+
+
+_checkpoint_name.register_autograd(
+    lambda ctx, g: (g, None), setup_context=lambda ctx, inputs, output: None)
+
+
+def checkpoint_name(x, name: str):
+    """x, marked `name` for the "collectives" remat policy (the
+    reference's `jax.ad_checkpoint.checkpoint_name`): an identity op of the
+    port's own that the policy saves; on DTensors, on the local shards."""
+    if not is_dtensor(x):
+        return torch.ops.repro_torch.checkpoint_name(x, name)
+    pl = tuple(x.placements)
+    return on_local_shards(
+        lambda xl: torch.ops.repro_torch.checkpoint_name(xl, name), (x,),
+        (pl,), pl)
+
+
+def _remat_context(mode: str):
+    """`context_fn` of one super-block's checkpoint for a remat mode."""
+    if mode not in REMAT_MODES:
+        raise ValueError(f"remat {mode!r}: one of {REMAT_MODES}")
+    if mode == "full":
+        return noop_context_fn
+    save = ((torch.ops.aten.mm.default,) if mode == "block"
+            else (torch.ops.repro_torch.checkpoint_name.default,))
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in save
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
 
 
 # ---------------------------------------------------------------------------
@@ -169,6 +265,27 @@ def init_caches(cfg: ModelConfig, batch: int, seq: int, device,
     return {"first": first, "supers": supers}
 
 
+def _write_slot(cache, wpos: int, new) -> None:
+    """cache[:, wpos] = new[:, 0] in place.  A DTensor cache sharded over
+    its sequence dim 1 is written by the rank that holds slot wpos, into
+    its local shard (the batch split as the cache's)."""
+    if not is_dtensor(cache):
+        cache[:, wpos] = new[:, 0].to(cache.dtype)
+        return
+    from torch.distributed.tensor import Replicate
+    mesh = cache.device_mesh
+    pl = [Replicate() if p.is_shard(1) else p for p in cache.placements]
+    local_new = new.redistribute(mesh, pl).to_local()
+    seq_dims = [i for i, p in enumerate(cache.placements) if p.is_shard(1)]
+    n_loc = cache.to_local().shape[1]
+    block = 0
+    for i in seq_dims:              # major to minor, in mesh order
+        block = block * mesh.size(i) + mesh.get_local_rank(i)
+    lo = block * n_loc
+    if lo <= wpos < lo + n_loc:
+        cache.to_local()[:, wpos - lo] = local_new[:, 0].to(cache.dtype)
+
+
 def _decode_attn_block(params, x, cache, position: int, cfg: ModelConfig,
                        mixer: str):
     """Writes the new K/V into the cache in place (the reference returns an
@@ -185,8 +302,8 @@ def _decode_attn_block(params, x, cache, position: int, cfg: ModelConfig,
         cache["k"], cache["v"], min(position, S) if windowed else position,
         cfg.attn, window=0)
     wpos = position % S if windowed else min(position, S - 1)
-    cache["k"][:, wpos] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, wpos] = v_new[:, 0].to(cache["v"].dtype)
+    _write_slot(cache["k"], wpos, k_new)
+    _write_slot(cache["v"], wpos, v_new)
     x = x + out
     if mixer == "C" and "xk" in cache:
         h = rmsnorm(params["ln_x"], x, cfg.norm_eps)

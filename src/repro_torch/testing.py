@@ -11,10 +11,15 @@ records the expert choices of one run (or takes them from elsewhere,
 `push`) and makes the next run take them in the same order, while it
 counts how many routed tokens that run's own top-k would have sent to the
 same experts anyway.  `check` holds that share to MIN_ROUTE_AGREEMENT.
+A remat'd block routes again in the backward's re-forward, on the same
+logits: there both modes run the forward's ops and return the choice the
+forward made for those logits (bit for bit), and nothing is queued or
+taken.
 """
 from __future__ import annotations
 
 import contextlib
+import hashlib
 
 import torch
 
@@ -34,6 +39,26 @@ class RouteReplay:
     def __init__(self):
         self.queue: list[torch.Tensor] = []
         self.same = self.seen = 0
+        self.chosen: dict[str, torch.Tensor] = {}
+
+    def _again(self, logits):
+        """The forward's choice for these logits when called in the
+        backward (a remat re-forward), else None."""
+        if torch._C._current_graph_task_id() == -1:
+            return None
+        key = self._key(logits)
+        if key not in self.chosen:
+            raise AssertionError("re-forward of an MoE layer on logits the "
+                                 "forward did not route")
+        return self.chosen[key].to(logits.device)
+
+    def _remember(self, logits, idx) -> None:
+        self.chosen[self._key(logits)] = idx.detach().cpu()
+
+    @staticmethod
+    def _key(logits) -> str:
+        t = logits.detach().float().cpu().contiguous()
+        return hashlib.sha1(t.numpy().tobytes()).hexdigest()
 
     def push(self, expert_idx) -> None:
         """Queue one router call's (T, top_k) expert indices."""
@@ -46,7 +71,9 @@ class RouteReplay:
 
         def recording(logits, cfg):
             gates, idx = select(logits, cfg)
-            self.push(idx)
+            if self._again(logits) is None:
+                self.push(idx)
+                self._remember(logits, idx)
             return gates, idx
         with _patched(recording):
             yield self
@@ -59,7 +86,11 @@ class RouteReplay:
 
         def replaying(logits, cfg):
             own = select(logits, cfg)[1]
+            again = self._again(logits)
+            if again is not None:       # the same ops as the forward's
+                return moe.gates_for(logits, again, cfg), again
             idx = self.queue.pop(0).to(logits.device)
+            self._remember(logits, idx)
             if idx.shape != own.shape:
                 raise AssertionError(f"replayed routes {tuple(idx.shape)} "
                                      f"against {tuple(own.shape)}")

@@ -12,6 +12,15 @@ All follow the reference's (init, update) protocol:
 over trees of nested dicts and lists of tensors (a model's parameters, in
 the port's layout).  The math is the reference's, op for op, in float32.
 
+On a mesh the parameters, gradients and moments are DTensors: each
+leaf's update runs on local shards in the moments' placements (the
+gradient held there, the parameter resharded there, e.g. cut over the
+data axes for ZeRO moments, then gathered back into its own placement and
+copied into its local shard), so no rank holds more of a leaf than the
+placements give it.  `global_norm` sums each rank's local squares, in the
+same order as without a mesh, and reduces them over the mesh dims that
+shard them.
+
 `adamw` has two forms, told apart by the rank of `step`.  With a 0-d step
 (the trainer's) it is the reference's: one global norm over every leaf
 clips the gradients.  With a (B,) step it is the agent's: every leaf of a
@@ -29,6 +38,7 @@ import torch
 
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.kernels.batched_linear.ops import sq_norm
+from repro_torch.sharding.context import is_dtensor
 
 Tree = Any
 
@@ -69,13 +79,52 @@ def global_norm(tree: Tree) -> torch.Tensor:
     """The 0-d L2 norm over every leaf of `tree`, in float32, the squares
     summed leaf by leaf in the reference's leaf order (a leaf of more than
     UPDATE_PIECE values piece by piece, so its f32 square is never made
-    whole)."""
-    total = None
+    whole).  DTensor leaves: each rank sums its local shards' squares in
+    that order, one running sum per set of mesh dims that shard a leaf
+    (the size-1 dims left out), and each sum is reduced over its dims."""
+    totals: dict = {}
+    meshes: dict = {}
     for leaf in tree_leaves(tree):
-        for piece in leaf.reshape(-1).split(UPDATE_PIECE):
+        key, local = (), leaf
+        if is_dtensor(leaf):
+            mesh = leaf.device_mesh
+            key = tuple(i for i, p in enumerate(leaf.placements)
+                        if p.is_shard() and mesh.size(i) > 1)
+            meshes[key] = mesh
+            local = leaf.to_local()
+        for piece in local.reshape(-1).split(UPDATE_PIECE):
             sq = torch.sum(torch.square(piece.to(torch.float32)))
-            total = sq if total is None else total + sq
+            totals[key] = sq if key not in totals else totals[key] + sq
+    total = None
+    for key, part in totals.items():
+        if key:
+            part = _sum_over(part, meshes[key], key)
+        total = part if total is None else total + part
     return torch.sqrt(total)
+
+
+def _sum_over(x: torch.Tensor, mesh, dims: tuple) -> torch.Tensor:
+    """x summed over the ranks of the mesh dims `dims`."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    pl = [Partial() if i in dims else Replicate() for i in range(mesh.ndim)]
+    return DTensor.from_local(x, mesh, pl, run_check=False).full_tensor()
+
+
+def on_shards(p, g, moments: list, fn) -> None:
+    """fn(p, g, *moments) on local tensors, in place.  A DTensor p is
+    resharded to the moments' placements (cut, not gathered), g held
+    there, and p's new values gathered back into its own placements and
+    copied into its local shard."""
+    if not is_dtensor(p):
+        fn(p, g, *moments)
+        return
+    mesh, pl = p.device_mesh, tuple(moments[0].placements)
+    p_u = p if tuple(p.placements) == pl else p.redistribute(mesh, pl)
+    g_u = g if is_dtensor(g) and tuple(g.placements) == pl \
+        else g.redistribute(mesh, pl)
+    fn(p_u.to_local(), g_u.to_local(), *[m.to_local() for m in moments])
+    if p_u is not p:
+        p.to_local().copy_(p_u.redistribute(mesh, p.placements).to_local())
 
 
 def lane_global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
@@ -124,7 +173,7 @@ def adamw(lr: float | Callable = 1e-3, b1: float = 0.9, b2: float = 0.999,
         bc1 = 1 - torch.pow(b1, t)
         bc2 = 1 - torch.pow(b2, t)
 
-        def upd(p, g, m, v):
+        def local(p, g, m, v):
             pieces = [x.view(-1).split(UPDATE_PIECE) for x in (p, m, v)]
             for ps, gs, ms, vs in zip(pieces[0],
                                       g.reshape(-1).split(UPDATE_PIECE),
@@ -136,6 +185,9 @@ def adamw(lr: float | Callable = 1e-3, b1: float = 0.9, b2: float = 0.999,
                 if weight_decay:
                     delta = delta + weight_decay * ps.to(torch.float32)
                 ps.copy_((ps.to(torch.float32) - lr_t * delta).to(p.dtype))
+
+        def upd(p, g, m, v):
+            on_shards(p, g, [m, v], local)
             return p
 
         tree_map(upd, params, grads, state["m"], state["v"])
@@ -267,24 +319,29 @@ def quantized_adamw(lr: float | Callable = 1e-3, b1: float = 0.9,
                 delta = delta + weight_decay * p.to(torch.float32)
             return (p.to(torch.float32) - lr_t * delta).to(p.dtype), m, v
 
+        def plain(p, g, m, v):
+            pieces = [x.view(-1).split(UPDATE_PIECE) for x in (p, m, v)]
+            for ps, gs, ms, vs in zip(pieces[0],
+                                      g.reshape(-1).split(UPDATE_PIECE),
+                                      pieces[1], pieces[2]):
+                for old, new in zip((ps, ms, vs), adam(ps, gs, ms, vs)):
+                    old.copy_(new)
+
         def upd(p, g, st):
             if "mq" not in st:
-                pieces = [x.view(-1).split(UPDATE_PIECE)
-                          for x in (p, st["m"], st["v"])]
-                for ps, gs, ms, vs in zip(pieces[0],
-                                          g.reshape(-1).split(UPDATE_PIECE),
-                                          pieces[1], pieces[2]):
-                    for old, new in zip((ps, ms, vs), adam(ps, gs, ms, vs)):
-                        old.copy_(new)
-                return p
+                on_shards(p, g, [st["m"], st["v"]], plain)
+            else:
+                on_shards(p, g, [st[k] for k in ("ms", "mq", "vq", "v_lo",
+                                                 "v_sc")], quant)
+            return p
+
+        def quant(p, g, ms, mq, vq, vlo, vsc):
             F = p.shape[-1]
             R = p.numel() // F
             rows = max(1, UPDATE_PIECE // F)
             p2, g2 = p.view(R, F), g.reshape(R, F)
-            mq, vq = (st[k].view(R, F // _QBLOCK, _QBLOCK) for k in ("mq",
-                                                                     "vq"))
-            ms, vlo, vsc = (st[k].view(R, F // _QBLOCK)
-                            for k in ("ms", "v_lo", "v_sc"))
+            mq, vq = (t.view(R, F // _QBLOCK, _QBLOCK) for t in (mq, vq))
+            ms, vlo, vsc = (t.view(R, F // _QBLOCK) for t in (ms, vlo, vsc))
             for r0 in range(0, R, rows):
                 sl = slice(r0, r0 + rows)
                 n = p2[sl].shape[0]
@@ -296,7 +353,6 @@ def quantized_adamw(lr: float | Callable = 1e-3, b1: float = 0.9,
                     dst.copy_(src)
                 for dst, src in zip((vq[sl], vlo[sl], vsc[sl]), _q8_log(v)):
                     dst.copy_(src)
-            return p
 
         tree_map(upd, params, grads, state)
         return params, state

@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.models.model import Model
+from repro_torch.sharding.context import is_dtensor
 
 _TINY = float(np.finfo(np.float32).tiny)
 
@@ -21,7 +22,12 @@ def make_serve_step(model: Model) -> Callable:
     Greedy decode of one token for the whole batch (argmax in float32)."""
     def serve_step(params, token, caches, position):
         logits, caches = model.decode_step(params, token, caches, position)
-        nxt = torch.argmax(logits[:, -1].float(), dim=-1)
+        last = logits[:, -1].float()
+        if is_dtensor(last):    # the argmax reads the whole vocabulary
+            from torch.distributed.tensor import Replicate
+            last = last.redistribute(last.device_mesh,
+                                     [Replicate()] * last.device_mesh.ndim)
+        nxt = torch.argmax(last, dim=-1)
         return nxt[:, None].to(torch.int32), caches
 
     return serve_step

@@ -192,7 +192,7 @@ def test_moe_ffn_gelu_f32_matches_reference(n_shared, router_pre_softmax):
     for k in ("lb_loss", "drop_frac"):
         np.testing.assert_allclose(float(aux[k]), float(jaux[k]), rtol=1e-5)
     gen = torch.Generator().manual_seed(0)
-    assert set(moe.init_moe(gen, D, cfg, swiglu=False)) == set(tree)
+    assert set(moe.init_moe(gen, D, cfg, swiglu=False)[0]) == set(tree)
 
 
 # ---------------------------------------------------------------------------

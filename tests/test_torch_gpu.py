@@ -891,7 +891,7 @@ def test_full_width_layer_card_matches_cpu(cuda, arch, block):
     cfg = dataclasses.replace(get_config(arch), n_layers=1, pattern=(block,),
                               first_k_dense=0)
     card, cpu = build_model(cfg, cuda), build_model(cfg, "cpu")
-    params = card.init(4)
+    params, _ = card.init(4)
     toks = torch.randint(1, cfg.vocab, (1, 128),
                          generator=torch.Generator().manual_seed(4))
     routes = RouteReplay()
@@ -917,7 +917,7 @@ def test_moe_layer_repeat_runs_equal_on_card(cuda):
     from repro_torch.testing import RouteReplay
     cfg = get_config("deepseek-moe-16b")
     gen = torch.Generator(device=cuda).manual_seed(5)
-    params = moe.init_moe(gen, cfg.d_model, cfg.moe)
+    params, _ = moe.init_moe(gen, cfg.d_model, cfg.moe)
     for T in (4096, 4):
         x = torch.randn((1, T, cfg.d_model), generator=gen,
                         device=cuda).bfloat16()
@@ -944,7 +944,7 @@ def test_moe_layer_backward_repeat_runs_equal_on_card(cuda):
     from repro_torch.models import moe
     cfg = get_config("deepseek-moe-16b")
     gen = torch.Generator(device=cuda).manual_seed(6)
-    params = moe.init_moe(gen, cfg.d_model, cfg.moe)
+    params, _ = moe.init_moe(gen, cfg.d_model, cfg.moe)
     x = torch.randn((1, 4096, cfg.d_model), generator=gen,
                     device=cuda).bfloat16()
     dy = torch.randn(x.shape, generator=gen, device=cuda).bfloat16()
@@ -1048,7 +1048,7 @@ def test_full_width_encdec_block_card_matches_cpu(cuda, arch, S, S_mem):
         cfg = dataclasses.replace(cfg, encoder=EncoderCfg(n_layers=1,
                                                           dec_seq=S))
     card, cpu = build_model(cfg, cuda), build_model(cfg, "cpu")
-    params = card.init(6)
+    params, _ = card.init(6)
     g = torch.Generator().manual_seed(6)
     batch = {"tokens": torch.randint(1, cfg.vocab, (1, S), generator=g)}
     key = "enc_frames" if cfg.encoder is not None else "img_embed"
@@ -1371,3 +1371,127 @@ def test_cost_models_unchanged_by_the_card(cuda):
     before = numbers()
     torch.ones(4, device="cuda").sum().item()
     assert numbers() == before
+
+
+# ---------------------------------------------------------------------------
+# The sharding layer on a one-card mesh
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def world1():
+    """A world-1 nccl group and a (1, 1) mesh over the card."""
+    import socket
+    import torch.distributed as dist
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there (no "
+                    "interpret mode for CUDA C++)")
+    from repro_torch.launch.mesh import make_host_mesh
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    yield make_host_mesh(1, 1)
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch,layers,quant", [("minitron-8b", 1, True),
+                                               ("mamba2-370m", 2, False),
+                                               ("deepseek-moe-16b", 2, False)])
+def test_world1_sharded_train_step_equals_unsharded(cuda, world1, arch,
+                                                    layers, quant):
+    """One training step (2 microbatches, S 512, full width, `layers`
+    deep) through DTensor params, state and batch placed by the policies
+    on the (1, 1) mesh: loss and updated params torch.equal to the
+    unsharded step's, the same flash and SSD launches."""
+    import dataclasses
+    from chip_smoke import local_tree, placed, reset_zoo_launches, \
+        zoo_launches
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.models.model import abstract_init, build_model
+    from repro_torch.sharding import policies as P
+    from repro_torch.train.optimizer import adamw, quantized_adamw
+    from repro_torch.train.train_step import make_train_step
+    mesh = world1
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    model = build_model(cfg, cuda)
+    S, B = 512, 2
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (B, S + 1), generator=gen,
+                         device=cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    shapes, roles = abstract_init(model)
+    pspecs = P.param_specs(roles, shapes, cfg, mesh)
+    ospecs = P.opt_state_specs(pspecs, shapes, mesh, cfg, quantized=quant)
+    one = ShapeCfg("mb", S, B // 2, "train")
+    mbspecs = P.batch_specs(cfg, one, mesh, model.input_specs(one))
+    bspecs = P.batch_specs(cfg, ShapeCfg("b", S, B, "train"), mesh,
+                           model.input_specs(ShapeCfg("b", S, B, "train")))
+    opt = (quantized_adamw if quant else adamw)(1e-3, weight_decay=0.01,
+                                                 grad_clip=1.0)
+    step = torch.tensor(0, device=cuda)
+    p0, _ = model.init(0)
+    reset_zoo_launches()
+    p0, _, m0 = make_train_step(model, opt, microbatches=2)(
+        p0, opt.init(p0), batch, step)
+    torch.cuda.synchronize()
+    c0 = zoo_launches()
+    p1, _ = model.init(0)
+    reset_zoo_launches()
+    p1, _, m1 = make_train_step(
+        model, opt, microbatches=2,
+        grad_shardings=P.zero_shard_specs(pspecs, shapes, mesh, cfg),
+        batch_shardings={k: mbspecs[k] for k in batch})(
+        placed(p1, pspecs, mesh), placed(opt.init(p1), ospecs, mesh),
+        placed(batch, {k: bspecs[k] for k in batch}, mesh), step)
+    torch.cuda.synchronize()
+    assert zoo_launches() == c0 and any(c0.values())
+    assert torch.equal(m1["loss"], m0["loss"])
+    from repro_torch.core.tree import tree_leaves
+    for a, b in zip(tree_leaves(local_tree(p1)), tree_leaves(p0)):
+        assert torch.equal(a, b)
+
+
+def test_world1_sharded_prefill_and_decode_equal(cuda, world1):
+    """minitron-8b at 2 layers: the prefill (B 1, S 1024) and 8 greedy
+    decode steps on placed caches torch.equal to the unsharded path, the
+    prefill's flash launches the same."""
+    import dataclasses
+    from chip_smoke import local_tree, placed, reset_zoo_launches, \
+        zoo_launches
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.models.model import abstract_init, build_model
+    from repro_torch.sharding import policies as P
+    mesh = world1
+    cfg = dataclasses.replace(get_config("minitron-8b"), n_layers=2)
+    model = build_model(cfg, cuda)
+    params, roles = model.init(0)
+    shapes, _ = abstract_init(model)
+    dparams = placed(params, P.param_specs(roles, shapes, cfg, mesh), mesh)
+    S = 1024
+    toks = torch.randint(0, cfg.vocab, (1, S), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(2))
+    with torch.no_grad():
+        reset_zoo_launches()
+        h0 = model.apply(params, {"tokens": toks})[0]
+        c0 = zoo_launches()
+        reset_zoo_launches()
+        h1 = model.apply(dparams, {"tokens": placed(
+            {"t": toks}, {"t": P.sharding((None, None), mesh)}, mesh)["t"]})[0]
+        assert zoo_launches() == c0 and c0["flash_attention"] == 2
+        assert torch.equal(local_tree({"h": h1})["h"], h0)
+        dshape = ShapeCfg("d", S, 1, "decode")
+        cs = P.batch_specs(cfg, dshape, mesh, model.input_specs(dshape))
+        c_plain = model.init_caches(1, S)
+        c_shard = placed(model.init_caches(1, S), cs["caches"], mesh)
+        tok = toks[:, :1]
+        for t in range(8):
+            l0, c_plain = model.decode_step(params, tok, c_plain, t)
+            l1, c_shard = model.decode_step(
+                dparams, placed({"t": tok}, {"t": cs["token"]}, mesh)["t"],
+                c_shard, t)
+            assert torch.equal(local_tree({"l": l1})["l"], l0)
+            tok = l0[:, -1].float().argmax(-1)[:, None]

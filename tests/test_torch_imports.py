@@ -67,7 +67,9 @@ def test_port_has_files_to_scan():
                  "train/optimizer.py", "train/train_step.py",
                  "train/loop.py", "launch/train.py",
                  "launch/memory_model.py", "launch/roofline.py",
-                 "core/sharding_mapper.py"):
+                 "core/sharding_mapper.py", "sharding/policies.py",
+                 "sharding/context.py", "launch/mesh.py",
+                 "launch/dryrun.py", "kernels/costs.py"):
         assert want in names
     assert (ROOT / "chip_smoke.py").exists()
     assert {p.name for p in (PORT / "csrc").glob("*.cu")} == {

@@ -230,7 +230,7 @@ def test_moe_aux_sums_over_the_super_blocks():
     positions in its super-block), not counting leading dense blocks."""
     cfg = get_config("jamba-1.5-large-398b", smoke=True)
     m = build_model(cfg, device="cpu")
-    p = m.init(0)
+    p, _ = m.init(0)
     toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab,
                                                               (1, 32)))
     seen = []

@@ -215,6 +215,6 @@ def test_device_policy_and_unported_parts_raise():
     with pytest.raises(ValueError, match="mixers"):
         build_model(dataclasses.replace(cfg, pattern=(("X", "D"),)), "cpu")
     x = torch.zeros((1, 8, cfg.d_model), dtype=torch.bfloat16)
-    blk = build_model(cfg, device="cpu").init(0)["decoder"]["supers"][0]
+    blk = build_model(cfg, device="cpu").init(0)[0]["decoder"]["supers"][0]
     with pytest.raises(ValueError, match="kind"):
         attention.self_attention(blk["0"]["mixer"], x, cfg.attn, "cross")

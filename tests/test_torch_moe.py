@@ -153,7 +153,7 @@ def test_bf16_moe_layer_matches_reference():
 def test_init_moe_shapes_and_capacity():
     cfg = MoECfg(n_routed=8, top_k=2, d_expert=48, n_shared=2)
     gen = torch.Generator().manual_seed(0)
-    p = moe.init_moe(gen, D, cfg)
+    p, _ = moe.init_moe(gen, D, cfg)
     assert p["router"].dtype == torch.float32 and p["router"].shape == (D, 8)
     assert p["w_gate"].shape == (8, D, 48) and p["w_down"].shape == (8, 48, D)
     assert p["ws_gate"].shape == (D, 96) and p["ws_down"].shape == (96, D)

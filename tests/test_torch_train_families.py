@@ -137,11 +137,11 @@ def _reference_value_and_grad(jm, jp, jb, monkeypatch):
 
 def _port_value_and_grad(m, p, tb, routes):
     leaves = [t.detach().requires_grad_() for t in tree_leaves(p)]
-    with routes.replay():
+    with routes.replay():   # the remat'd re-forward routes as the forward
         loss, _ = make_loss_fn(m)(tree_unflatten(p, leaves), tb)
+        grads = torch.autograd.grad(loss, leaves)
     if m.cfg.moe is not None:
         routes.check(f"{m.cfg.name} smoke")
-    grads = torch.autograd.grad(loss, leaves)
     return loss, tree_unflatten(p, list(grads))
 
 
@@ -232,7 +232,7 @@ def test_microbatches_cut_every_batch_key_on_axis_0(arch):
         return m.apply(params, batch)
     spied = m._replace(apply=spy_apply)
     opt = optimizer.sgd(0.0)
-    p = m.init(0)
+    p, _ = m.init(0)
     make_train_step(spied, opt, microbatches=2)(
         p, opt.init(p), tb, torch.tensor(0, dtype=torch.int32))
     assert len(seen) == 2
