@@ -3467,7 +3467,7 @@ def dryrun_job(job):
         _, shape_name, arch, multi = job
         fake_world(dryrun.WORLD)
         res = dryrun.lower_cell(arch, shape_name, make_production_mesh(
-            multi_pod=multi, flat_pods=True), multi)
+            multi_pod=multi), multi)
     else:
         from repro_torch.configs.base import ShapeCfg
         _, arch, layers, remat, quant, seq = job

@@ -14,16 +14,14 @@ the CPU (which computes the whole S x S square and masks it), or nothing
 on `meta`.
 
 Inside `sharding.context.on_local_shards` an op sees one rank's local
-shard; `split()` holds the number of ranks the work is split over there
-(the sizes of the mesh dims that shard an input), the wrappers pass it to
-the ops, and the formulas scale by it, so every op is counted at its
-whole (logical) size.
+shard and is counted at that size: the counter counts each rank's own
+work.
 """
 from __future__ import annotations
 
 import contextlib
 
-_STATE = {"counting": 0, "split": 1, "mark": None}
+_STATE = {"counting": 0, "mark": None}
 
 
 @contextlib.contextmanager
@@ -56,21 +54,6 @@ def mark() -> None:
     """A boundary the counter snapshots (the train step's microbatches)."""
     if _STATE["mark"] is not None:
         _STATE["mark"]()
-
-
-@contextlib.contextmanager
-def split_over(n: int):
-    """Local shards of work split over `n` ranks (see module doc)."""
-    old = _STATE["split"]
-    _STATE["split"] = old * n
-    try:
-        yield
-    finally:
-        _STATE["split"] = old
-
-
-def split() -> int:
-    return _STATE["split"]
 
 
 def visible_pairs(S: int, window: int) -> int:

@@ -250,7 +250,7 @@ def gqa_flash_attention_kv(q, k, v, *, causal: bool = True,
                          f", {v.device}")
     if dev.type == "meta" or costs.active():
         return torch.ops.repro_torch.flash_attention(
-            q, k, v, float(scale), bool(causal), int(window), costs.split())
+            q, k, v, float(scale), bool(causal), int(window))
     return _attention(q, k, v, scale, causal, window)
 
 
@@ -291,15 +291,12 @@ def _attention(q, k, v, scale, causal, window):
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
 def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              scale: float, causal: bool, window: int,
-              split: int) -> torch.Tensor:
-    """`split`: the ranks this local shard's work is split over (its
-    FLOPs count that many times; `kernels/costs.py`)."""
+              scale: float, causal: bool, window: int) -> torch.Tensor:
     return _attention(q, k, v, scale, causal, window)
 
 
 @_flash_op.register_fake
-def _(q, k, v, scale, causal, window, split):
+def _(q, k, v, scale, causal, window):
     return torch.empty_like(q)
 
 
@@ -307,24 +304,22 @@ def _(q, k, v, scale, causal, window, split):
 def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   do: torch.Tensor, dq: torch.Tensor, dk: torch.Tensor,
                   dv: torch.Tensor, scale: float, causal: bool,
-                  window: int, split: int) -> tuple[torch.Tensor,
-                                                    torch.Tensor,
-                                                    torch.Tensor]:
+                  window: int) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
     """The gradient, computed before the op (the op carries it to be
     counted as one backward)."""
     return dq.clone(), dk.clone(), dv.clone()
 
 
 @_flash_bwd_op.register_fake
-def _(q, k, v, do, dq, dk, dv, scale, causal, window, split):
+def _(q, k, v, do, dq, dk, dv, scale, causal, window):
     return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
 def _flash_setup(ctx, inputs, output):
-    q, k, v, scale, causal, window, split = inputs
+    q, k, v, scale, causal, window = inputs
     ctx.save_for_backward(q, k, v)
     ctx.args = (scale, causal, window)
-    ctx.split = split
 
 
 def _flash_grad(ctx, do):
@@ -341,8 +336,8 @@ def _flash_grad(ctx, do):
             out = _attention(*leaves, *ctx.args)
             grads = torch.autograd.grad(out, leaves, do)
     dq, dk, dv = torch.ops.repro_torch.flash_attention_bwd(
-        q, k, v, do, *grads, *ctx.args, ctx.split)
-    return dq, dk, dv, None, None, None, None
+        q, k, v, do, *grads, *ctx.args)
+    return dq, dk, dv, None, None, None
 
 
 _flash_op.register_autograd(_flash_grad, setup_context=_flash_setup)
@@ -351,19 +346,18 @@ _flash_op.register_autograd(_flash_grad, setup_context=_flash_setup)
 def _register_flops():
     from torch.utils.flop_counter import register_flop_formula
 
-    def fwd(q, k, v, causal, window, split):
+    def fwd(q, k, v, causal, window):
         B, S, H, hd = q
-        return split * costs.flash_flops(B, S, k[1], H, hd, causal, window)
+        return costs.flash_flops(B, S, k[1], H, hd, causal, window)
 
     @register_flop_formula(torch.ops.repro_torch.flash_attention)
-    def _(q, k, v, scale, causal, window, split, out_shape=None, **kw):
-        return fwd(q, k, v, causal, window, split)
+    def _(q, k, v, scale, causal, window, out_shape=None, **kw):
+        return fwd(q, k, v, causal, window)
 
     @register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
-    def _(q, k, v, do, dq, dk, dv, scale, causal, window, split,
-          out_shape=None, **kw):
-        return int(costs.FLASH_BWD_FACTOR * fwd(q, k, v, causal, window,
-                                                split))
+    def _(q, k, v, do, dq, dk, dv, scale, causal, window, out_shape=None,
+          **kw):
+        return int(costs.FLASH_BWD_FACTOR * fwd(q, k, v, causal, window))
 
 
 _register_flops()

@@ -164,8 +164,7 @@ def ssd(x, b, c, dt, a, *, chunk: int = 128):
     if any(t.device != dev for t in (b, c, dt, a)):
         raise ValueError("ssd: tensors on more than one device")
     if dev.type == "meta" or costs.active():
-        return torch.ops.repro_torch.ssd_scan(x, b, c, dt, a, int(chunk),
-                                              costs.split())
+        return torch.ops.repro_torch.ssd_scan(x, b, c, dt, a, int(chunk))
     return _scan(x, b, c, dt, a, chunk)
 
 
@@ -193,15 +192,12 @@ def _scan(x, b, c, dt, a, chunk):
 
 @torch.library.custom_op("repro_torch::ssd_scan", mutates_args=())
 def _ssd_op(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
-            dt: torch.Tensor, a: torch.Tensor, chunk: int,
-            split: int) -> torch.Tensor:
-    """`split`: the ranks this local shard's work is split over (its
-    FLOPs count that many times; `kernels/costs.py`)."""
+            dt: torch.Tensor, a: torch.Tensor, chunk: int) -> torch.Tensor:
     return _scan(x, b, c, dt, a, chunk)
 
 
 @_ssd_op.register_fake
-def _(x, b, c, dt, a, chunk, split):
+def _(x, b, c, dt, a, chunk):
     return torch.empty_like(x)
 
 
@@ -209,7 +205,7 @@ def _(x, b, c, dt, a, chunk, split):
 def _ssd_bwd_op(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                 dt: torch.Tensor, a: torch.Tensor, dy: torch.Tensor,
                 dx: torch.Tensor, db: torch.Tensor, dc: torch.Tensor,
-                ddt: torch.Tensor, da: torch.Tensor, chunk: int, split: int
+                ddt: torch.Tensor, da: torch.Tensor, chunk: int
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                            torch.Tensor, torch.Tensor]:
     """The gradient, computed before the op (the op carries it to be
@@ -218,14 +214,14 @@ def _ssd_bwd_op(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
 
 
 @_ssd_bwd_op.register_fake
-def _(x, b, c, dt, a, dy, dx, db, dc, ddt, da, chunk, split):
+def _(x, b, c, dt, a, dy, dx, db, dc, ddt, da, chunk):
     return tuple(torch.empty_like(t) for t in (x, b, c, dt, a))
 
 
 def _ssd_setup(ctx, inputs, output):
-    *xs, chunk, split = inputs
+    *xs, chunk = inputs
     ctx.save_for_backward(*xs)
-    ctx.chunk, ctx.split = chunk, split
+    ctx.chunk = chunk
 
 
 def _ssd_grad(ctx, dy):
@@ -240,9 +236,8 @@ def _ssd_grad(ctx, dy):
             leaves = [t.detach().requires_grad_() for t in xs]
             grads = torch.autograd.grad(_scan(*leaves, ctx.chunk), leaves,
                                         dy)
-    out = torch.ops.repro_torch.ssd_scan_bwd(*xs, dy, *grads, ctx.chunk,
-                                             ctx.split)
-    return (*out, None, None)
+    out = torch.ops.repro_torch.ssd_scan_bwd(*xs, dy, *grads, ctx.chunk)
+    return (*out, None)
 
 
 _ssd_op.register_autograd(_ssd_grad, setup_context=_ssd_setup)
@@ -256,13 +251,13 @@ def _register_flops():
         return B, L, H, P, b[-1], chunk
 
     @register_flop_formula(torch.ops.repro_torch.ssd_scan)
-    def _(x, b, c, dt, a, chunk, split, out_shape=None, **kw):
-        return split * costs.ssd_flops(*dims(x, b, chunk))
+    def _(x, b, c, dt, a, chunk, out_shape=None, **kw):
+        return costs.ssd_flops(*dims(x, b, chunk))
 
     @register_flop_formula(torch.ops.repro_torch.ssd_scan_bwd)
-    def _(x, b, c, dt, a, dy, dx, db, dc, ddt, da, chunk, split,
-          out_shape=None, **kw):
-        return split * costs.ssd_bwd_flops(*dims(x, b, chunk))
+    def _(x, b, c, dt, a, dy, dx, db, dc, ddt, da, chunk, out_shape=None,
+          **kw):
+        return costs.ssd_bwd_flops(*dims(x, b, chunk))
 
 
 _register_flops()

@@ -5,7 +5,7 @@ input shape) on the production meshes, 16 x 16 (one pod, 256 H100s) and
 How it runs.  The mesh is a `fake` process group of 256 (512) ranks in this
 one process (`launch.mesh.fake_world`): this process is rank 0, and a
 collective moves nothing.  The two-pod mesh runs as (32, 16), its pod axis
-folded into data (`make_production_mesh(flat_pods=True)`: the same ranks
+folded into data (`launch.mesh.make_production_mesh`: the same ranks
 under every placement the policies give).  Params, optimizer state and batch are DTensors
 placed by `sharding.policies`, each local shard a `meta` tensor (nothing
 allocated).  The port's real step (`make_train_step`, a prefill, the serve
@@ -264,7 +264,7 @@ def _lowered(arch, shape_name, multi_pod, variant="baseline"):
     """lower_cell on the cell's production mesh (a `fake` group of this
     process); an exception becomes an "error" result."""
     fake_world(WORLD)
-    mesh = make_production_mesh(multi_pod=multi_pod, flat_pods=True)
+    mesh = make_production_mesh(multi_pod=multi_pod)
     try:
         return lower_cell(arch, shape_name, mesh, multi_pod, variant)
     except Exception as e:

@@ -4,7 +4,8 @@ Functions, never module-level constants: importing this module touches no
 process group, as the reference's touches no device state.
 
   make_production_mesh(multi_pod)  (16, 16) ("data", "model"), 256 ranks, or
-                                   (2, 16, 16) ("pod", "data", "model"), 512:
+                                   (2, 16, 16) ("pod", "data", "model"), 512,
+                                   its pod axis folded into data (32, 16):
                                    a `DeviceMesh` over the initialised
                                    process group (the dry run's `fake`
                                    backend of that world size)
@@ -72,17 +73,18 @@ def _device_mesh(device_type: str, shape: AbstractMesh):
 
 
 def make_production_mesh(*, multi_pod: bool = False,
-                         device_type: str = "cpu", flat_pods: bool = False):
+                         device_type: str = "cpu"):
     """The production mesh over an initialised group of 256 (512) ranks
     (the dry run's: `fake_world`, its DTensors' local shards on `meta`).
-    `flat_pods`: the two-pod mesh as (32, 16) ("data", "model"), the pod
-    axis folded into data major to minor.  The policies put 'pod' and
-    'data' on a tensor dim only together, as ('pod', 'data') (`Policy.dp`),
-    so every placement covers the same ranks in the same order; DTensor's
-    sharding propagation then searches two mesh dims, not three (the
-    dry run's trace of jamba takes minutes on three)."""
+    The two-pod mesh is built as (32, 16) ("data", "model"), its pod axis
+    folded into data major to minor: the policies put 'pod' and 'data' on
+    a tensor dim only together, as ('pod', 'data') (`Policy.dp`), so every
+    placement covers the same ranks in the same order as on (2, 16, 16),
+    and DTensor's sharding propagation searches two mesh dims, not three
+    (the dry run's trace of jamba takes minutes on three).  The policies'
+    specs on the three-axis mesh are `production_shape(True)`'s."""
     shape = production_shape(multi_pod)
-    if multi_pod and flat_pods:
+    if multi_pod:
         shape = AbstractMesh((shape.shape[0] * shape.shape[1],
                               shape.shape[2]), ("data", "model"))
     return _device_mesh(device_type, shape)

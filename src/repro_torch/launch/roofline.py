@@ -20,10 +20,13 @@ a mesh, or plain tensors) under `FlopCounterMode` and `CommDebugMode` and
 returns an `HLOStats`-shaped record: FLOPs per card, collective bytes per
 card by kind, the trip counts it was scaled by.  It stands in for the
 reference's `parse_hlo_costs` / `parse_hlo_collectives` (HLO text of a
-compiled step).  The flash and SSD kernels are counted by their formulas
-(`kernels/costs.py`), whatever runs them.  FLOPs are logical: an op is
-counted at its whole size once, whatever ranks repeat it (the FLOPs per
-card are that over the cards).  `period_scaled` stands in for
+compiled step, whose FLOPs are the per-device program's).  The flash and
+SSD kernels are counted by their formulas (`kernels/costs.py`), whatever
+runs them.  FLOPs are each rank's own work, repeated work included: an op
+on plain tensors (a local shard) at its size, an op on DTensors at its
+whole size over the ranks that split it (the mesh dims its output is
+sharded or partial over), so work that every rank of a mesh dim repeats
+(a replicated output) counts in full on each.  `period_scaled` stands in for
 `scan_corrected`: a step at full depth and microbatch count is
 extrapolated from two counts at one and two super-block periods, each with
 two microbatches split at their boundary (exact where each period and
@@ -35,6 +38,7 @@ reference's.
 from __future__ import annotations
 
 import dataclasses
+import math
 from collections import defaultdict
 
 import torch
@@ -219,38 +223,53 @@ def _peak_mode(args):
     return mode
 
 
-def _mesh_size(args) -> int:
+def _flop_mode():
     from torch.distributed.tensor import DTensor
-    stack = list(args)
-    while stack:
-        a = stack.pop()
-        if isinstance(a, DTensor):
-            return a.device_mesh.size()
-        if isinstance(a, dict):
-            stack.extend(a.values())
-        elif isinstance(a, (list, tuple)):
-            stack.extend(a)
-    return 1
+    from torch.utils.flop_counter import FlopCounterMode
+    from torch.utils._pytree import tree_leaves
+
+    class RankFlops(FlopCounterMode):
+        """FlopCounterMode that also sums this rank's own FLOPs (`local`):
+        an op on DTensors (seen at its whole shape) over the ranks its
+        first output is sharded or partial over."""
+
+        def __init__(self):
+            super().__init__(display=False)
+            self.local = 0.0
+
+        def _count_flops(self, func_packet, out, args, kwargs):
+            f = self.flop_registry.get(func_packet)
+            if f is not None:
+                n = f(*args, **kwargs, out_val=out)
+                t = next((o for o in tree_leaves(out)
+                          if isinstance(o, DTensor)), None)
+                if t is not None:
+                    mesh = t.device_mesh
+                    n /= math.prod(mesh.size(i) for i, p in
+                                   enumerate(t.placements)
+                                   if p.is_shard() or p.is_partial())
+                self.local += n
+            return out
+
+    return RankFlops()
 
 
 def count_step_costs(fn, *args, memory: bool = False, **kwargs) -> HLOStats:
     """fn(*args, **kwargs) run once under a `CommDebugMode` and
     `FlopCounterMode`, the kernels counted by their formulas: FLOPs per
-    card (the logical count over the mesh's cards) and collective bytes
-    per card, by kind; `marks` the running totals (flops, {kind: bytes})
+    card (this rank's own work, `_flop_mode`) and collective bytes per
+    card, by kind; `marks` the running totals (flops, {kind: bytes})
     at each `kernels.costs.mark()` (the train step's microbatch ends);
     with `memory`, `peak_bytes`, the peak of what the step allocates on
     this rank beyond its arguments (`_peak_mode`)."""
     import contextlib
-    from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.kernels import costs
-    chips = _mesh_size((args, kwargs))
     comm = _comm_mode()
-    fc = FlopCounterMode(display=False)
+    fc = _flop_mode()
     marks = []
 
     def snapshot():
-        marks.append((fc.get_total_flops() / chips,
+        marks.append((fc.local,
                       {k: float(v) for k, v in comm.bytes_by_kind.items()}))
 
     mem = None
@@ -268,7 +287,7 @@ def count_step_costs(fn, *args, memory: bool = False, **kwargs) -> HLOStats:
     peak = 0 if mem is None else mem.peak
     return HLOStats(collective_bytes=float(sum(by_kind.values())),
                     collective_ops=by_kind, trip_counts={},
-                    flops=fc.get_total_flops() / chips, marks=marks,
+                    flops=fc.local, marks=marks,
                     peak_bytes=peak)
 
 

@@ -104,9 +104,6 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to this many layers")
-    ap.add_argument("--remat", default=None,
-                    choices=("none", "full", "block", "collectives"),
-                    help="override the config's remat mode")
     args = ap.parse_args(argv)
     res = train(args.arch, smoke=args.smoke, steps=args.steps, seq=args.seq,
                 global_batch=args.global_batch,
@@ -114,7 +111,7 @@ def main(argv=None) -> int:
                 data_parallel=args.data_parallel,
                 model_parallel=args.model_parallel, ckpt_dir=args.ckpt_dir,
                 quantized_opt=args.quantized_opt, device=args.device,
-                layers=args.layers, remat=args.remat)
+                layers=args.layers)
     ok = all(torch.isfinite(torch.tensor(res["losses"])).tolist())
     return 0 if ok else 1
 

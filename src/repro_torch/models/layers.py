@@ -77,8 +77,99 @@ def apply_rope(x, positions, theta: float):
 
 
 # ---------------------------------------------------------------------------
+# Remat's saved outputs
+# ---------------------------------------------------------------------------
+
+_REMAT = {"store": None}
+
+
+class RematStore:
+    """The outputs that a remat policy keeps of one checkpointed
+    super-block: the products of `linear` (mode "block", the reference's
+    `dots_with_no_batch_dims_saveable`) or the outputs named by
+    `checkpoint_name` (mode "collectives").  The checkpoint's forward
+    records them; its re-forward in the backward takes them back in the
+    same order instead of computing them, and computes the rest again.
+    Only the marked sites look at the store: no dispatch mode sees the
+    other ops."""
+
+    def __init__(self, mode: str):
+        self.mode = mode
+        self.outs = []
+        self.recorded = False
+        self.pos = None             # None: recording; else replaying
+
+    def run(self, fn, *args):
+        """fn(*args) with this store active (the checkpoint's function):
+        the first call records, a later one replays."""
+        old = _REMAT["store"]
+        _REMAT["store"] = self
+        self.pos = 0 if self.recorded else None
+        try:
+            return fn(*args)
+        finally:
+            _REMAT["store"] = old
+            self.recorded = True
+
+    def take(self, compute):
+        """compute()'s output, recorded; in the re-forward, the recorded
+        one (each handed back once)."""
+        if self.pos is None:
+            y = compute()
+            self.outs.append(y.detach())
+            return y
+        y, self.outs[self.pos] = self.outs[self.pos], None
+        self.pos += 1
+        return y
+
+
+def remat_store(mode: str):
+    """The active store when it keeps `mode`'s outputs and autograd
+    records, else None."""
+    st = _REMAT["store"]
+    if st is None or st.mode != mode or not torch.is_grad_enabled():
+        return None
+    return st
+
+
+class _SavedProduct(torch.autograd.Function):
+    """x @ w (both 2-D), its output kept by a `RematStore`; the backward
+    is autograd's own for `mm` (the transposed forms where an operand is
+    column-major, as `mm_mat1_backward` / `mm_mat2_backward`)."""
+
+    @staticmethod
+    def forward(ctx, x, w, store):
+        ctx.save_for_backward(x, w)
+        return store.take(lambda: x @ w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = (w.mm(g.t()).t() if _column_major(x)
+                  else g.mm(w.t()))
+        if ctx.needs_input_grad[1]:
+            gw = (g.t().mm(x).t() if _column_major(w)
+                  else x.t().mm(g))
+        return gx, gw, None
+
+
+# ---------------------------------------------------------------------------
 # Products
 # ---------------------------------------------------------------------------
+
+def _column_major(t) -> bool:
+    return t.stride(0) == 1 and t.stride(1) == t.shape[0]
+
+
+def _product(x2, w):
+    """x2 @ w of 2-D x2, kept under remat "block"."""
+    st = remat_store("block")
+    if st is None:
+        return x2 @ w
+    return _SavedProduct.apply(x2, w, st)
+
 
 def linear(x, w):
     """x @ w over x's last dim.  A DTensor x of more than two dims is folded
@@ -86,9 +177,16 @@ def linear(x, w):
     whose sharding of them x's leading dim does not divide: DTensor's
     matmul may cut the folded rows over an axis (a batch of 16 rows over
     32 data ranks, each holding half a sequence) that its view back to
-    (B, S, F) cannot express.  Plain tensors: x @ w."""
-    if not is_dtensor(x) or x.ndim <= 2:
-        return x @ w
+    (B, S, F) cannot express.  Plain tensors: x @ w.  Under remat "block"
+    the product is kept (`RematStore`)."""
+    if x.ndim <= 2:
+        return _product(x, w)
+    if not is_dtensor(x):
+        if remat_store("block") is None:
+            return x @ w
+        lead = tuple(x.shape[:-1])
+        return _product(x.reshape(-1, x.shape[-1]), w).view(
+            lead + (w.shape[-1],))
     lead = tuple(x.shape[:-1])
     mesh = x.device_mesh
     x2 = x.reshape(-1, x.shape[-1])
@@ -100,7 +198,7 @@ def linear(x, w):
         # unflatten never meets rows cut across a batch row
         pl = tuple(x2.placements)
         x2 = on_local_shards(lambda t: t, (x2,), (pl,), pl)
-    y = x2 @ w
+    y = _product(x2, w)
     cut = [i for i, p in enumerate(y.placements) if p.is_shard(0)]
     n = 1
     for i in cut:

@@ -10,7 +10,8 @@ T / G tokens, and the aux metrics are averaged over the groups; on a mesh
 the group axis is constrained to the data axes, as the reference pins it
 (`sharding.context.constrain`).  On DTensors (`_moe_dispatch_sharded`)
 the routing runs on every token of the group, gathered to each rank, and
-the expert products take the experts' placements (EP or TP-in-expert).
+the expert products take the experts' placements (EP or TP-in-expert),
+their capacity slots cut over the data axes.
 
 Router styles:
   mixtral/jamba : top-k over logits, softmax over the selected k
@@ -36,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoECfg
-from repro_torch.models.layers import _normal, gelu
+from repro_torch.models.layers import _normal, gelu, linear
 from repro_torch.sharding.context import (constrain, is_dtensor,
                                           on_local_shards)
 
@@ -119,14 +120,16 @@ def gates_for(logits, expert_idx, cfg: MoECfg):
     return torch.softmax(logits.gather(1, expert_idx), dim=-1)
 
 
-def route(params, xf, cfg: MoECfg) -> dict:
+def route(params, xf, cfg: MoECfg, logits=None) -> dict:
     """The routing of T tokens xf (T, D): logits, per-slot token, gate and
-    validity (E, C), and each token's kept slots in scatter order."""
+    validity (E, C), and each token's kept slots in scatter order.
+    `logits`: the router's (T, E) where taken already (the sharded path)."""
     T = xf.shape[0]
     E, K = cfg.n_routed, cfg.top_k
     C = _capacity(T, cfg)
     dev = xf.device
-    logits = xf.float() @ params["router"]                        # (T, E)
+    if logits is None:
+        logits = linear(xf.float(), params["router"])            # (T, E)
     gates, expert_idx = select_experts(logits, cfg)
 
     # --- sort-based dispatch with static capacity ---
@@ -170,19 +173,14 @@ def _moe_dispatch(params, x, cfg: MoECfg, swiglu: bool = True):
     E, K = cfg.n_routed, cfg.top_k
     xf = x.reshape(T, D)
     # the routing and the gather read xf through one view, so their
-    # gradients meet before the shared experts' (as in the sharded path's
-    # local region, `_moe_dispatch_sharded`: the same sums in the same order)
+    # gradients meet before the shared experts' (as in
+    # `_moe_dispatch_sharded`: the same sums in the same order)
     xd = xf.view(T, D)
     r = route(params, xd, cfg)
     C, tok_of_slot, valid_slot = r["C"], r["tok_of_slot"], r["valid_slot"]
 
     xe = xd[tok_of_slot.long()] * valid_slot[..., None].to(x.dtype)  # (E,C,D)
-    if swiglu:
-        h = F.silu(torch.bmm(xe, params["w_gate"]))
-        h = h * torch.bmm(xe, params["w_up"])
-    else:
-        h = gelu(torch.bmm(xe, params["w_up"]))
-    ye = torch.bmm(h, params["w_down"])                           # (E, C, D)
+    ye = _experts(params, xe, swiglu)                             # (E, C, D)
 
     w = (r["gate_of_slot"] * valid_slot)[..., None].to(x.dtype)
     yw = torch.cat([(ye * w).reshape(E * C, D),
@@ -194,11 +192,8 @@ def _moe_dispatch(params, x, cfg: MoECfg, swiglu: bool = True):
     for j in range(K):
         out = out + yw[r["tok_slots"][:, j]]
 
-    if cfg.n_shared and swiglu:
-        g = F.silu(xf @ params["ws_gate"])
-        out = out + (g * (xf @ params["ws_up"])) @ params["ws_down"]
-    elif cfg.n_shared:
-        out = out + gelu(xf @ params["ws_up"]) @ params["ws_down"]
+    if cfg.n_shared:
+        out = out + _shared(params, xf, swiglu)
 
     # load-balance aux (Switch-style): E * sum_e f_e * p_e
     me = torch.softmax(r["logits"], dim=-1).mean(dim=0)
@@ -206,6 +201,14 @@ def _moe_dispatch(params, x, cfg: MoECfg, swiglu: bool = True):
     aux = {"lb_loss": E * (me * fe).sum(),
            "drop_frac": 1.0 - valid_slot.sum() / (T * K)}
     return out.reshape(B, S, D), aux
+
+
+def _shared(params, xf, swiglu: bool):
+    """The shared experts on every token xf (T, D)."""
+    if swiglu:
+        g = F.silu(linear(xf, params["ws_gate"]))
+        return linear(g * linear(xf, params["ws_up"]), params["ws_down"])
+    return linear(gelu(linear(xf, params["ws_up"])), params["ws_down"])
 
 
 def _experts(params, xe, swiglu: bool):
@@ -218,14 +221,55 @@ def _experts(params, xe, swiglu: bool):
     return torch.bmm(h, params["w_down"])                         # (E, C, D)
 
 
+def _rows_over_mesh(xf):
+    """The tokens xf (T, D) cut over every mesh dim (of size > 1) where
+    they divide T: each rank takes the router's product of its own rows."""
+    from torch.distributed.tensor import Shard
+    mesh = xf.device_mesh
+    cut = [i for i in range(mesh.ndim) if mesh.size(i) > 1]
+    n = 1
+    for i in cut:
+        n *= mesh.size(i)
+    if not cut or xf.shape[0] % n:
+        return xf
+    pl = tuple(Shard(0) if i in cut else p
+               for i, p in enumerate(xf.placements))
+    return xf.redistribute(mesh, pl)
+
+
+def _slots_over_data(xe, w):
+    """The dispatched tokens xe (E, C, D), replicated, cut over the data
+    axes along the capacity slots where they divide C: each data rank runs
+    the expert products of its own slots (on the replicated xe every data
+    rank would repeat all of them).  Not over an axis that the expert
+    weights w are sharded over (FSDP): their products already split the
+    work there, by the contraction, and cutting the slots too would
+    gather the weights whole."""
+    from torch.distributed.tensor import Shard
+    mesh = xe.device_mesh
+    data = [i for i, a in enumerate(mesh.mesh_dim_names)
+            if a != "model" and mesh.size(i) > 1
+            and not w.placements[i].is_shard()]
+    n = 1
+    for i in data:
+        n *= mesh.size(i)
+    if not data or xe.shape[1] % n:
+        return xe
+    pl = tuple(Shard(1) if i in data else p
+               for i, p in enumerate(xe.placements))
+    return xe.redistribute(mesh, pl)
+
+
 def _moe_dispatch_sharded(params, x, cfg: MoECfg, swiglu: bool = True):
     """`_moe_dispatch` on DTensors.  The routing covers every token of the
     group, as the reference's (capacity and ranks are global), so it runs
-    on the tokens gathered to every rank, on the local tensors; the
-    expert products are DTensor batched matmuls that take the experts'
-    placements (the expert dim over 'model' with EP, expert_ff with
-    TP-in-expert, and the data axes under FSDP); the combine runs on the
-    slot outputs gathered back."""
+    on the tokens gathered to every rank, on the local tensors, from the
+    router's logits taken on the tokens cut over every mesh dim; the
+    expert products are DTensor batched matmuls of the slots cut over the
+    data axes (`_slots_over_data`) that take the experts' placements (the
+    expert dim over 'model' with EP, expert_ff with TP-in-expert, and the
+    data axes under FSDP); the combine runs on the slot outputs gathered
+    back."""
     from torch.distributed.tensor import Replicate
     B, S, D = x.shape
     T = B * S
@@ -233,11 +277,10 @@ def _moe_dispatch_sharded(params, x, cfg: MoECfg, swiglu: bool = True):
     mesh = x.device_mesh
     rep = (Replicate(),) * mesh.ndim
 
-    def dispatch(xl, router):
-        xd = xl.view(T, D)
-        r = route({"router": router}, xd, cfg)
+    def dispatch(xl, logits):
+        r = route({}, xl, cfg, logits)
         valid = r["valid_slot"]
-        xe = xd[r["tok_of_slot"].long()] * valid[..., None].to(xl.dtype)
+        xe = xl[r["tok_of_slot"].long()] * valid[..., None].to(xl.dtype)
         w = (r["gate_of_slot"] * valid)[..., None].to(xl.dtype)
         me = torch.softmax(r["logits"], dim=-1).mean(dim=0)
         fe = _bincount(r["flat_e"], E).float() / (T * K)
@@ -250,9 +293,15 @@ def _moe_dispatch_sharded(params, x, cfg: MoECfg, swiglu: bool = True):
     # view to (B, S, D)) cannot express
     pl = tuple(xf.placements)
     xf = on_local_shards(lambda t: t, (xf,), (pl,), pl)
+    # the router and the gather read xf through one view, as in
+    # `_moe_dispatch`: their gradients meet there before the shared
+    # experts' (the same sums in the same order)
+    xd = xf.view(T, D)
+    logits = linear(_rows_over_mesh(xd).float(), params["router"])
     xe, w, tok_slots, lb, drop = on_local_shards(
-        dispatch, (xf, params["router"]), (rep, rep), (rep,) * 5)
-    ye = _experts(params, xe, swiglu).redistribute(mesh, rep)
+        dispatch, (xd, logits), (rep, rep), (rep,) * 5)
+    ye = _experts(params, _slots_over_data(xe, params["w_up"]),
+                  swiglu).redistribute(mesh, rep)
 
     def combine(yel, wl, slots):
         C = yel.shape[1]
@@ -266,11 +315,7 @@ def _moe_dispatch_sharded(params, x, cfg: MoECfg, swiglu: bool = True):
 
     out = on_local_shards(combine, (ye, w, tok_slots), (rep, rep, rep), rep)
     if cfg.n_shared:
-        if swiglu:
-            g = F.silu(xf @ params["ws_gate"])
-            shared = (g * (xf @ params["ws_up"])) @ params["ws_down"]
-        else:
-            shared = gelu(xf @ params["ws_up"]) @ params["ws_down"]
+        shared = _shared(params, xf, swiglu)
         # gathered to the combine's placement: DTensor may leave the sum's
         # rows cut over more ranks than the batch dim, which the view
         # back to (B, S, D) cannot express

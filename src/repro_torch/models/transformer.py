@@ -6,13 +6,14 @@ each pattern position's parameters over the super-blocks and runs them with
 super-block (a dict of per-position block parameters), walked in a Python
 loop.  `cfg.remat` wraps each super-block in `torch.utils.checkpoint`
 (non-reentrant) where autograd records: "full" saves nothing inside it,
-"block" saves the matmuls with no batch dims (`aten.mm`, as
+"block" keeps the products with no batch dims (`layers.linear`, as
 `dots_with_no_batch_dims_saveable`), "collectives" only the block outputs
-the reference names `mixer_out` / `ffn_out` (marked by the port's identity
-op `repro_torch::checkpoint_name`), "none" applies none.  In the re-forward
-the attention and SSD kernels run again.  `cfg.seq_shard` constrains the
-residual stream to ("data", "model", None) at the reference's three places
-(`sharding.context.constrain`; identity outside a sharding context).
+the reference names `mixer_out` / `ffn_out` (`checkpoint_name`), "none"
+applies none; the kept outputs are handed back in the re-forward by a
+`layers.RematStore`.  In the re-forward the attention and SSD kernels run
+again.  `cfg.seq_shard` constrains the residual stream to ("data",
+"model", None) at the reference's three places (`constrain` of
+`sharding.context`; identity outside a sharding context).
 Covered: mixers 'A'/'G' (causal attention), 'W'/'L' (sliding-window /
 local attention; a ring-buffer decode cache of min(seq, window)), 'B'
 (bidirectional attention, the encoder's), 'C' (causal self-attention, then
@@ -26,9 +27,7 @@ from __future__ import annotations
 import functools
 
 import torch
-from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
-                                    create_selective_checkpoint_contexts,
-                                    noop_context_fn)
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
@@ -85,7 +84,6 @@ def apply_block(params, x, cfg: ModelConfig, mixer: str, ffn: str,
     aux); aux holds the MoE block's lb_loss."""
     check_block(mixer, ffn)
     seq_spec = ("data", "model", None)
-    named = cfg.remat == "collectives"
     aux = {}
     if cfg.seq_shard:
         x = constrain(x, seq_spec)
@@ -95,7 +93,7 @@ def apply_block(params, x, cfg: ModelConfig, mixer: str, ffn: str,
     else:
         out = attn_mod.self_attention(params["mixer"], h, cfg.attn,
                                       MIXER_KIND[mixer], positions)
-    x = x + (checkpoint_name(out, "mixer_out") if named else out)
+    x = x + checkpoint_name(out, "mixer_out")
     if mixer == "C" and memory is not None:
         h = rmsnorm(params["ln_x"], x, cfg.norm_eps)
         x = x + attn_mod.cross_attention(params["xattn"], h, memory, cfg.attn)
@@ -104,11 +102,11 @@ def apply_block(params, x, cfg: ModelConfig, mixer: str, ffn: str,
     if ffn == "D":
         h = rmsnorm(params["ln2"], x, cfg.norm_eps)
         out = layers.mlp(params["ffn"], h, cfg.swiglu)
-        x = x + (checkpoint_name(out, "ffn_out") if named else out)
+        x = x + checkpoint_name(out, "ffn_out")
     elif ffn == "E":
         h = rmsnorm(params["ln2"], x, cfg.norm_eps)
         out, moe_aux = moe.moe_ffn(params["ffn"], h, cfg.moe, cfg.swiglu)
-        x = x + (checkpoint_name(out, "ffn_out") if named else out)
+        x = x + checkpoint_name(out, "ffn_out")
         aux["lb_loss"] = moe_aux["lb_loss"]
     if cfg.seq_shard:
         x = constrain(x, seq_spec)
@@ -162,9 +160,9 @@ def apply_stack(params, x, cfg: ModelConfig, pattern=None, memory=None,
     remat = cfg.remat != "none" and torch.is_grad_enabled()
     for block_params in params["supers"]:
         if remat:
-            x, lb_loss = checkpoint(super_block, block_params, x, lb_loss,
-                                    memory, use_reentrant=False,
-                                    context_fn=_remat_context(cfg.remat))
+            x, lb_loss = checkpoint(
+                functools.partial(_remat_store(cfg.remat).run, super_block),
+                block_params, x, lb_loss, memory, use_reentrant=False)
         else:
             x, lb_loss = super_block(block_params, x, lb_loss, memory)
     return x, {"lb_loss": lb_loss}
@@ -178,46 +176,31 @@ REMAT_MODES = ("none", "full", "block", "collectives")
 CHECKPOINT_NAMES = ("mixer_out", "ffn_out")
 
 
-@torch.library.custom_op("repro_torch::checkpoint_name", mutates_args=())
-def _checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
-    return x.clone()
+class _Named(torch.autograd.Function):
+    """x, kept by the store of remat "collectives" (its gradient is g)."""
 
+    @staticmethod
+    def forward(ctx, x, store):
+        return store.take(x.clone)
 
-@_checkpoint_name.register_fake
-def _(x, name):
-    return torch.empty_like(x)
-
-
-_checkpoint_name.register_autograd(
-    lambda ctx, g: (g, None), setup_context=lambda ctx, inputs, output: None)
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 def checkpoint_name(x, name: str):
-    """x, marked `name` for the "collectives" remat policy (the
-    reference's `jax.ad_checkpoint.checkpoint_name`): an identity op of the
-    port's own that the policy saves; on DTensors, on the local shards."""
-    if not is_dtensor(x):
-        return torch.ops.repro_torch.checkpoint_name(x, name)
-    pl = tuple(x.placements)
-    return on_local_shards(
-        lambda xl: torch.ops.repro_torch.checkpoint_name(xl, name), (x,),
-        (pl,), pl)
+    """x, marked `name` (the reference's `jax.ad_checkpoint.checkpoint_name`
+    of `CHECKPOINT_NAMES`): under remat "collectives" the output the
+    re-forward takes back (`layers.RematStore`), else x as it is."""
+    st = layers.remat_store("collectives")
+    return x if st is None else _Named.apply(x, st)
 
 
-def _remat_context(mode: str):
-    """`context_fn` of one super-block's checkpoint for a remat mode."""
+def _remat_store(mode: str):
+    """A new store for one super-block's checkpoint under a remat mode."""
     if mode not in REMAT_MODES:
         raise ValueError(f"remat {mode!r}: one of {REMAT_MODES}")
-    if mode == "full":
-        return noop_context_fn
-    save = ((torch.ops.aten.mm.default,) if mode == "block"
-            else (torch.ops.repro_torch.checkpoint_name.default,))
-
-    def policy(ctx, op, *args, **kwargs):
-        return (CheckpointPolicy.MUST_SAVE if op in save
-                else CheckpointPolicy.PREFER_RECOMPUTE)
-
-    return functools.partial(create_selective_checkpoint_contexts, policy)
+    return layers.RematStore(mode)
 
 
 # ---------------------------------------------------------------------------

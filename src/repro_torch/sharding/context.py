@@ -25,8 +25,6 @@ import math
 
 import torch
 
-from repro_torch.kernels import costs
-
 _STATE: dict = {"mesh": None, "dp": None}
 
 
@@ -174,14 +172,5 @@ def on_local_shards(fn, args: tuple, in_placements: tuple, out_placements,
     ins = tuple(None if p is None else list(p) for p in in_placements)
     grads = None if grad_placements is None else tuple(
         None if p is None else list(p) for p in grad_placements)
-    # the ranks the work splits over: the step-cost counter scales the
-    # kernels' formulas by it (kernels/costs.py)
-    split = math.prod(mesh.size(i) for i in range(mesh.ndim)
-                      if any(p is not None and p[i].is_shard()
-                             for p in in_placements))
-
-    def run(*local):
-        with costs.split_over(split):
-            return fn(*local)
-    return local_map(run, out_placements=out, in_placements=ins,
+    return local_map(fn, out_placements=out, in_placements=ins,
                      in_grad_placements=grads, device_mesh=mesh)(*moved)

@@ -261,3 +261,25 @@ def test_remat_modes_equal_none(arch, monkeypatch):
             assert (g is None) == (w is None), mode
             if g is not None:
                 assert torch.equal(g, w), mode
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_remat_block_keeps_products(arch):
+    """Remat "block" takes the products with no batch dims back in the
+    re-forward: its step computes the same `mm` FLOPs as "none", and
+    "full", which computes them again, more."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.core.tree import tree_leaves, tree_unflatten
+    from repro_torch.models.model import build_model
+    from repro_torch.train.train_step import make_loss_fn
+    m0, params, _ = _model(arch)
+    batch = _batch(m0.cfg, 7)
+    mm = {}
+    for mode in ("none", "full", "block"):
+        m = build_model(dataclasses.replace(m0.cfg, remat=mode), "cpu")
+        leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+        with FlopCounterMode(display=False) as fc:
+            loss, _ = make_loss_fn(m)(tree_unflatten(params, leaves), batch)
+            torch.autograd.grad(loss, leaves, allow_unused=True)
+        mm[mode] = fc.get_flop_counts()["Global"][torch.ops.aten.mm]
+    assert mm["block"] == mm["none"] < mm["full"]

@@ -11,6 +11,8 @@ process, against the reference's shardings where they meet:
   * the flash and SSD FLOPs come from their formulas, the same on the
     plain path (CPU tensors) as on `meta`;
   * collective bytes 0 on a (1, 1) mesh and > 0 where 'model' > 1;
+  * the FLOPs per card are each rank's own work: split work its share,
+    repeated work in full;
   * `lower_cell`'s "skipped" reasons `==` `shape_applicable`'s.
 """
 import dataclasses
@@ -184,6 +186,27 @@ def test_collective_bytes_zero_on_one_card():
     assert out[1].collective_bytes == 0
     assert out[2].collective_bytes > 0
     assert out[1].flops == out[2].flops * 2     # per card, over 1 and 2
+
+
+@pytest.mark.parametrize("arch,data,ratio", [
+    ("minitron-8b", 2, 2.0),        # the 2-row microbatches split
+    ("minitron-8b", 4, 1.0),        # 2 rows over 4 ranks: all repeat
+    ("deepseek-moe-16b", 2, 2.0)])  # the router's rows, the expert slots
+def test_counts_each_ranks_own_work(arch, data, ratio):
+    """Per-card FLOPs on (data, 1) against (1, 1): work that the data
+    ranks split counts its share, work that they repeat counts in full
+    on each (the reference's per-device program).  The MoE's router
+    product is split over the mesh by rows and its expert products over
+    data by capacity slot, though its routing runs on every token."""
+    shape = ShapeCfg("t", 128, 8, "train")
+    out = {}
+    for d in (1, data):
+        mesh = _mesh(d, 1)
+        with sharding_ctx(mesh, policies.resolve_policy(
+                get_config(arch, smoke=True), mesh)):
+            _, fn, args = _smoke_step(arch, mesh, 2, 2, shape)
+            out[d] = count_step_costs(fn, *args).flops
+    assert out[1] == ratio * out[data]
 
 
 def test_skipped_reasons_match_shape_applicable():
