@@ -76,6 +76,19 @@ Phases (each prints its lines; the run exits 0 only if every phase passes):
     failures up to quarantine, the store poison with rollback and a stall
     over the deadline, every healthy tenant `==` to the fault-free run on
     the same shapes.
+ 5e. the partition layer over ranks (`[mesh]`): rank processes started
+    on this card in a gloo group on localhost through the REPRO_DIST_*
+    knobs, each holding the run to one rank on the card: the figure grid
+    at MESH_OPS ops (135 cells, seeds 0-2, so S = 3 pads on seed dims 2
+    and 4) on 4 ranks under REPRO_SWEEP_MESH 4x1, 2x2, 1x4 and auto
+    (deterministic lanes `==`, learned lanes `==` or by 5b's rule, with
+    the count `==`); then on 2 ranks the switch stream through
+    `run_stream` (rank 0's checkpoints restored on every rank), 8 tenants
+    on 4 slots through the MappingServer (every tenant `==` to one rank, 4
+    against `solo_stream`) and the shrink drill 2 -> 1 (every tenant `==`
+    to the fault-free run); each shape's walls, each rank's launches by
+    kernel and peak memory.  The ranks share the one card, so the walls say
+    nothing of scaling over cards.
  5d. the planning layer (`[plan]`): shape_applicable, model_flops,
     memory_bytes and the card's Roofline for every arch x shape; the
     mapper's dueling_qnet at state 24 (N 1 and 64) within 1e-4 and its TD
@@ -114,9 +127,9 @@ Phases (each prints its lines; the run exits 0 only if every phase passes):
  7. card vs CPU at full width, B 1, S 256, final hidden state, the card
     (kernels) against the port's CPU path, depth cut to one super-block
     (minitron-8b, mamba2-370m, qwen3-32b, phi3-medium-14b, mixtral-8x22b:
-    2 layers; gemma3-12b: 6; deepseek-moe-16b: its dense first layer and
+    1 layer; gemma3-12b: 6; deepseek-moe-16b: its dense first layer and
     one MoE layer; llama-3.2-vision-11b: one 'C' and four 'A' layers over
-    1601 image tokens; whisper-large-v3: 2 encoder and 2 decoder layers,
+    1601 image tokens; whisper-large-v3: 1 encoder and 1 decoder layer,
     1500 frames and 448 tokens), MoE layers on the CPU run's routes
     (`repro_torch.testing.RouteReplay`; the card's own top-k must agree on
     MIN_ROUTE_AGREEMENT of the tokens);
@@ -1515,13 +1528,13 @@ def get_config_layers(arch: str) -> int:
 # card vs CPU: (arch, layers, S) at full width, B 1; the depth cut to one
 # super-block (gemma3-12b's is 6 layers; deepseek-moe-16b's 2 are its dense
 # first layer and one MoE layer; llama-3.2-vision-11b's 5 are one 'C' and
-# four 'A' layers, over its 1601 image tokens), whisper-large-v3 to 2
-# encoder and 2 decoder layers at its 1500 frames and 448 tokens.
-ZOO_CPU_RUNS = (("minitron-8b", 2, 256), ("mamba2-370m", 2, 256),
+# four 'A' layers, over its 1601 image tokens), whisper-large-v3 to 1
+# encoder and 1 decoder layer at its 1500 frames and 448 tokens.
+ZOO_CPU_RUNS = (("minitron-8b", 1, 256), ("mamba2-370m", 1, 256),
                 ("gemma3-12b", 6, 256), ("deepseek-moe-16b", 2, 256),
-                ("qwen3-32b", 2, 256), ("phi3-medium-14b", 2, 256),
-                ("mixtral-8x22b", 2, 256),
-                ("whisper-large-v3", 2, WHISPER_TOKENS),
+                ("qwen3-32b", 1, 256), ("phi3-medium-14b", 1, 256),
+                ("mixtral-8x22b", 1, 256),
+                ("whisper-large-v3", 1, WHISPER_TOKENS),
                 ("llama-3.2-vision-11b", 5, 256))
 # smoke archs decoded teacher-forced on the card and the CPU: the windowed
 # ones past their window of 32, the cross-attention ones on their zero
@@ -1740,11 +1753,12 @@ def phase_main_path(dev) -> dict[str, int]:
 
 def figure_grid(aimm_episodes: int = GRID_AIMM_EPISODES,
                 eval_episode: bool = True,
-                mappers: tuple[str, ...] = ("none", "tom", "aimm")):
-    """benchmarks/common.py figure_grid at BP_OPS ops with three seeds."""
+                mappers: tuple[str, ...] = ("none", "tom", "aimm"),
+                n_ops: int = BP_OPS):
+    """benchmarks/common.py figure_grid at `n_ops` ops with three seeds."""
     from repro_torch.nmp import scenarios
     return scenarios.build("single", apps=GRID_APPS, techniques=GRID_TECHS,
-                           mappers=mappers, n_ops=BP_OPS, seeds=GRID_SEEDS,
+                           mappers=mappers, n_ops=n_ops, seeds=GRID_SEEDS,
                            aimm_episodes=aimm_episodes,
                            eval_episode=eval_episode)
 
@@ -2300,6 +2314,367 @@ def phase_faults(dev) -> dict[str, int]:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The partition layer: the sweep, the stream and the server over ranks
+# ---------------------------------------------------------------------------
+
+# [mesh]: the figure grid (its 135 cells, seeds 0-2, so S = 3 pads on seed
+# dims 2 and 4) at MESH_OPS ops, cut from BP_OPS to keep the phase near 90 s,
+# on 4 ranks sharing the one card, under each REPRO_SWEEP_MESH; then on 2
+# ranks the switch stream (cut to MESH_STREAM_OPS ops per app and
+# MESH_STREAM_EPISODES episodes), a fleet through the MappingServer, and the
+# shrink drill 2 -> 1
+MESH_OPS = 4096
+MESH_SHAPES = ("4x1", "2x2", "1x4", "auto")
+MESH_RANKS = 4
+MESH_STREAM_OPS = 2048
+MESH_STREAM_EPISODES = 2
+MESH_FLEET = 8                 # tenants, 2 phases, 1024 ops per app
+MESH_SLOTS = 4
+MESH_SPOT = ("t000", "t003", "t004", "t007")
+MESH_TIMEOUT_S = 420           # a job's limit: past it, or once one rank
+                               # fails, every rank is killed
+
+
+def mesh_stream():
+    from repro_torch.nmp.scenarios import continual_stream
+    return continual_stream(n_ops_per_app=MESH_STREAM_OPS,
+                            episodes=MESH_STREAM_EPISODES, technique="bnmp")
+
+
+def mesh_fleet():
+    from repro_torch.nmp.scenarios import tenant_fleet
+    return tenant_fleet(n_tenants=MESH_FLEET, n_phases=2,
+                        n_ops_per_app=FLEET_N_OPS)
+
+
+def mesh_drill_fleet():
+    from repro_torch.nmp.scenarios import tenant_fleet
+    return tenant_fleet(n_tenants=2, apps=("KM", "SC"), n_phases=3,
+                        n_ops_per_app=DRILL_N_OPS)
+
+
+class Served:
+    """A served fleet as the hold functions read it: `tenant(tid).results`
+    of (result with `.metrics`/`.actions` of one lane, 0)."""
+
+    def __init__(self, tenants: dict):
+        import types
+        self._t = {tid: types.SimpleNamespace(results=[
+            (types.SimpleNamespace(metrics=m, actions=a), 0)
+            for m, a in phases]) for tid, phases in tenants.items()}
+
+    def tenant(self, tid):
+        return self._t[tid]
+
+
+def served_record(srv) -> dict:
+    """Every tenant's served phases, one lane each (metrics, actions), and
+    the server's stats."""
+    tenants = {}
+    for tid, t in srv._tenants.items():
+        tenants[tid] = [({k: v[lane:lane + 1] for k, v in res.metrics.items()},
+                         res.actions[lane:lane + 1]) for res, lane in t.results]
+    return {"tenants": tenants, "stats": srv.stats()}
+
+
+def serve_fleet(dev, fleet, n_slots: int, faults=None) -> dict:
+    from repro_torch.nmp.config import NMPConfig
+    from repro_torch.nmp.serving import MappingServer
+    srv = MappingServer(NMPConfig(), n_slots=n_slots, faults=faults,
+                        backoff_base_s=0.001, device=dev)
+    for tid, stream in fleet.items():
+        srv.submit(tid, stream)
+    srv.run()
+    return served_record(srv)
+
+
+def shrink_plan():
+    from repro_torch.nmp.faults import FaultEvent, FaultPlan
+    return FaultPlan([FaultEvent("shrink_devices", at=1, keep_devices=1)])
+
+
+def measured(fn, *args) -> tuple:
+    """fn(*args) with this process's kernel counts set to 0 just before and
+    read just after: (result, wall s, launches, peak device bytes)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_aimm_launches()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0, aimm_launches(),
+            torch.cuda.max_memory_allocated())
+
+
+def mesh_grid_job(dev) -> dict:
+    """A rank's part of the grid job: the figure grid under each mesh
+    shape (a small grid first, so no shape pays the first launches)."""
+    import os
+    from repro_torch.nmp.config import NMPConfig
+    from repro_torch.nmp.sweep import run_grid
+    cfg = NMPConfig()
+    grid = figure_grid(n_ops=MESH_OPS)
+    run_grid(figure_grid(aimm_episodes=1, eval_episode=False, n_ops=256)[:12],
+             cfg, device=dev)
+    recs = {}
+    for shape in MESH_SHAPES:
+        os.environ["REPRO_SWEEP_MESH"] = shape
+        res, wall, launches, peak = measured(lambda: run_grid(grid, cfg, device=dev))
+        recs[shape] = {"metrics": res.metrics, "actions": res.actions,
+                       "n_devices": res.n_devices,
+                       "mesh_shape": res.mesh_shape, "wall": wall,
+                       "launches": launches, "peak": peak}
+    return recs
+
+
+def mesh_serve_job(dev, ck: str) -> dict:
+    """A rank's part of the serving job: the switch stream through
+    `run_stream` (rank 0 writes its checkpoints, every rank restores the
+    last), the fleet through the MappingServer, and the shrink drill."""
+    import numpy as np
+    from repro_torch.core import agent as agent_mod
+    from repro_torch.nmp.config import NMPConfig
+    from repro_torch.nmp.continual import PolicyStore, run_stream
+    from repro_torch.nmp.engine import default_agent_cfg
+    cfg = NMPConfig()
+    full, wall_s, launch_s, peak_s = measured(
+        lambda: run_stream(mesh_stream(), cfg, checkpoint_dir=ck,
+                           device=dev))
+    restored = PolicyStore.restore(ck, default_agent_cfg(cfg))
+    snap = lambda st: agent_mod.map_snapshot(np.asarray, st.get("stream"))
+    fleet, wall_f, launch_f, peak_f = measured(
+        serve_fleet, dev, mesh_fleet(), MESH_SLOTS)
+    drill = serve_fleet(dev, mesh_drill_fleet(), 2, shrink_plan())
+    return {"stream": [(r.metrics, r.actions) for r in full.phases],
+            "store": snap(full.store), "restored": snap(restored),
+            "fleet": fleet, "drill": drill,
+            "wall": {"stream": wall_s, "fleet": wall_f},
+            "launches": {"stream": launch_s, "fleet": launch_f},
+            "peak": max(peak_s, peak_f)}
+
+
+def mesh_rank(job: str, out: str) -> int:
+    """The body of one rank process of `[mesh]` (started by `run_ranks`
+    with the REPRO_DIST_* knobs): join the group, run the job on this
+    rank's card, write its record."""
+    import pickle
+    import torch
+    from repro_torch.nmp import partition
+    assert partition.maybe_init_distributed()
+    _, rank = partition.world()
+    dev = partition.rank_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rec = (mesh_grid_job(dev) if job == "grid"
+           else mesh_serve_job(dev, str(Path(out) / "ck")))
+    with open(Path(out) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(rec, f)
+    partition.barrier()
+    return 0
+
+
+def run_ranks(job: str, world: int) -> list[dict]:
+    """Start `world` rank processes of `job` on this machine's card(s) in a
+    gloo group on localhost, wait for all, and read their records.  Any
+    rank failing (or the limit passing) stops every rank and fails."""
+    import os
+    import pickle
+    import shutil
+    out = ROOT / "build" / f"mesh_{job}"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    env = dict(os.environ, REPRO_DIST_COORD=f"127.0.0.1:{_free_port()}",
+               REPRO_DIST_NPROCS=str(world),
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT / "src")] + ([os.environ["PYTHONPATH"]]
+                                          if os.environ.get("PYTHONPATH")
+                                          else [])))
+    for k in ("REPRO_SWEEP_MESH", "REPRO_SWEEP_DEVICES", "LOCAL_RANK"):
+        env.pop(k, None)
+    logs = [open(out / f"rank{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                               "--mesh-rank", job, str(out)],
+                              env=dict(env, REPRO_DIST_RANK=str(r)),
+                              stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(world)]
+    deadline = time.monotonic() + MESH_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if (any(p.poll() not in (None, 0) for p in procs)
+                    or time.monotonic() > deadline):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    rcs = [p.returncode for p in procs]
+    if any(rcs):
+        tails = "\n".join(f"rank {r} (rc {rc}): ..."
+                          + (out / f"rank{r}.log").read_text()[-1500:]
+                          for r, rc in enumerate(rcs) if rc)
+        raise AssertionError(f"[mesh] {job} on {world} ranks failed, rcs "
+                             f"{rcs}:\n{tails}")
+    recs = []
+    for r in range(world):
+        with open(out / f"rank{r}.pkl", "rb") as f:
+            recs.append(pickle.load(f))
+    return recs
+
+
+def same_arrays(a: dict, b: dict, lane=slice(None)) -> bool:
+    import numpy as np
+    return set(a) == set(b) and all(
+        a[k].dtype == b[k].dtype and np.array_equal(a[k][lane], b[k][lane])
+        for k in a)
+
+
+def phase_mesh(dev) -> dict[str, dict]:
+    """The sweep, the stream and the server over a mesh of rank processes
+    on the card (several ranks share it here), each held to one rank on
+    the same card: the figure grid on 4 ranks under every mesh shape
+    (deterministic lanes `==`, learned lanes `==` or by 5b's near-tie rule),
+    then on 2 ranks the switch stream, a fleet (every tenant `==` to one
+    rank, 4 tenants held to `solo_stream`) and the shrink drill 2 -> 1
+    (every tenant `==` to the fault-free run).  Returns each kernel's
+    launches by rank."""
+    import types
+    import numpy as np
+    from repro_torch.core import agent as agent_mod
+    from repro_torch.nmp.config import NMPConfig
+    from repro_torch.nmp.continual import run_stream
+    from repro_torch.nmp.sweep import run_grid
+    cfg = NMPConfig()
+    card = card_line()
+    grid = figure_grid(n_ops=MESH_OPS)
+    one, wall1, launch1, peak1 = measured(lambda: run_grid(grid, cfg, device=dev))
+    t0 = time.perf_counter()
+    ranks = run_ranks("grid", MESH_RANKS)
+    t_ranks = time.perf_counter() - t0
+    learned = [i for i, sc in enumerate(grid) if sc.mapper == "aimm"]
+    log(f"[mesh] figure grid at {MESH_OPS} ops ({len(grid)} cells, seeds "
+        f"{GRID_SEEDS}) on one rank: {wall1:.3f} s, peak "
+        f"{peak1 / 2**20:.1f} MiB; on {MESH_RANKS} ranks sharing this one "
+        f"card ({card}), {t_ranks:.1f} s for the ranks' processes in all "
+        "(start, warm-up, four shapes); the ranks share the card and the "
+        "host's cores, so these walls say nothing of scaling over cards")
+    by_rank = {f"rank{r}": {} for r in range(MESH_RANKS)}
+    for shape in MESH_SHAPES:
+        recs = [r[shape] for r in ranks]
+        rec = recs[0]
+        for r, other in enumerate(recs[1:], 1):
+            if not (same_arrays(other["metrics"], rec["metrics"])
+                    and np.array_equal(other["actions"], rec["actions"])):
+                raise AssertionError(f"[mesh] {shape}: rank {r}'s whole "
+                                     "result differs from rank 0's")
+        want = {"4x1": (4, 1), "2x2": (2, 2), "1x4": (1, 4)}.get(shape)
+        if rec["n_devices"] != MESH_RANKS or (
+                want and tuple(rec["mesh_shape"]) != want):
+            raise AssertionError(f"[mesh] {shape}: n_devices "
+                                 f"{rec['n_devices']}, shape "
+                                 f"{rec['mesh_shape']}")
+        eq, held = 0, []
+        for i, sc in enumerate(grid):
+            same = (same_arrays(rec["metrics"], one.metrics, i)
+                    and np.array_equal(rec["actions"][i], one.actions[i]))
+            if i not in learned:
+                if not same:
+                    raise AssertionError(f"[mesh] {shape} {sc.name}: a "
+                                         "deterministic lane differs from "
+                                         "one rank")
+                continue
+            if same:
+                eq += 1
+                continue
+            res = types.SimpleNamespace(metrics=rec["metrics"],
+                                        actions=rec["actions"])
+            held.append(f"{sc.name}: {hold_learned_lane(dev, res, i, sc, cfg)}")
+        for r, rr in enumerate(recs):
+            for k, n in rr["launches"].items():
+                by_rank[f"rank{r}"][k] = by_rank[f"rank{r}"].get(k, 0) + n
+        log(f"[mesh] {shape} -> mesh {tuple(rec['mesh_shape'])}: "
+            f"{len(grid) - len(learned)} deterministic cells ==, learned "
+            f"cells == to one rank {eq}/{len(learned)}"
+            + (f", the rest held to their serial runs by 5b's rule: "
+               f"{'; '.join(held)}" if held else "")
+            + f"; walls by rank {[round(x['wall'], 3) for x in recs]} s, "
+            f"peak MiB by rank {[round(x['peak'] / 2**20, 1) for x in recs]}"
+            f", launches by rank {json.dumps([x['launches'] for x in recs])}")
+
+    stream = mesh_stream()
+    full1 = run_stream(stream, cfg, device=dev)
+    fleet = mesh_fleet()
+    fleet1, wall_f1, _, _ = measured(serve_fleet, dev, fleet, MESH_SLOTS)
+    clean = serve_fleet(dev, mesh_drill_fleet(), 2)
+    t0 = time.perf_counter()
+    pair = run_ranks("serve", 2)
+    t_pair = time.perf_counter() - t0
+    for r, rec in enumerate(pair):
+        for pi, (m, a) in enumerate(rec["stream"]):
+            want = full1.phases[pi]
+            if not (same_arrays(m, want.metrics)
+                    and np.array_equal(a, want.actions)):
+                raise AssertionError(f"[mesh] rank {r}: run_stream phase "
+                                     f"{pi} differs from one rank")
+        want_snap = agent_mod.map_snapshot(np.asarray,
+                                           full1.store.get("stream"))
+        if not (same_snapshot(rec["store"], want_snap)
+                and same_snapshot(rec["restored"], want_snap)):
+            raise AssertionError(f"[mesh] rank {r}: the stream's store (or "
+                                 "the one restored from rank 0's "
+                                 "checkpoint) differs from one rank's")
+        for name, got, want in (("fleet", rec["fleet"], fleet1),
+                                ("shrink drill", rec["drill"], clean)):
+            for tid, phases in want["tenants"].items():
+                g = got["tenants"][tid]
+                if len(g) != len(phases) or not all(
+                        same_arrays(gm, wm) and np.array_equal(ga, wa)
+                        for (gm, ga), (wm, wa) in zip(g, phases)):
+                    raise AssertionError(f"[mesh] rank {r} {name}: tenant "
+                                         f"{tid} differs from one rank")
+        st = rec["drill"]["stats"]
+        if (st["faults"]["device_shrinks"], st["n_devices"]) != (1, 1):
+            raise AssertionError(f"[mesh] rank {r}: shrink drill {st}")
+        if rec["fleet"]["stats"]["n_devices"] != 2:
+            raise AssertionError(f"[mesh] rank {r}: fleet on "
+                                 f"{rec['fleet']['stats']['n_devices']}")
+        for part in ("stream", "fleet"):
+            for k, n in rec["launches"][part].items():
+                by_rank[f"rank{r}"][k] = by_rank[f"rank{r}"].get(k, 0) + n
+    served = Served(pair[0]["fleet"]["tenants"])
+    holds = [f"{tid} {hold_tenant(dev, cfg, served, tid, fleet[tid])}"
+             for tid in MESH_SPOT]
+    st = pair[0]["fleet"]["stats"]
+    log(f"[mesh] 2 ranks ({t_pair:.1f} s for the ranks' processes): the "
+        f"switch stream ({MESH_STREAM_OPS} ops per app, "
+        f"{MESH_STREAM_EPISODES} episodes) through run_stream, every phase "
+        f"and the store == one rank, rank 0's checkpoints restored on both "
+        f"==; walls by rank {[round(p['wall']['stream'], 3) for p in pair]} "
+        f"s")
+    log(f"[mesh] 2 ranks: {MESH_FLEET} tenants x 2 phases on "
+        f"{st['n_slots']} slots (mesh {st['n_devices']} ranks), every "
+        f"tenant == one rank ({wall_f1:.3f} s there); walls by rank "
+        f"{[round(p['wall']['fleet'], 3) for p in pair]} s, ticks "
+        f"{st['ticks']}, p50 {st['phase_latency_p50_s']!r} s; against "
+        f"solo_stream: {'; '.join(holds)}")
+    log(f"[mesh] 2 ranks: shrink drill 2 -> 1 at attempt 1 (2 tenants x 3 "
+        f"phases, 2 slots): device_shrinks 1, n_devices 1 after, every "
+        f"tenant == the fault-free run; peak MiB by rank "
+        f"{[round(p['peak'] / 2**20, 1) for p in pair]}")
+    log(f"[mesh] launches by rank (grid shapes, stream and fleet): "
+        f"{json.dumps(by_rank)} ({card})")
+    for r, counts in by_rank.items():
+        for k in ("fused_epoch", "dueling_qnet", "threefry",
+                  "batched_linear"):
+            if not counts.get(k):
+                raise AssertionError(f"[mesh] {r} launched no {k}")
+    return by_rank
+
+
 def profiled(fn):
     """Run fn() under torch.profiler, tracing the device alone (the busy
     share and the kernel table need no host-op events, and recording and
@@ -2443,13 +2818,13 @@ TRAIN_FAMILY_RUNS = (("gemma3-12b", 6, "train"),
 TRAIN_FAMILY_STEPS = 3
 # card vs CPU, one step's loss and gradients (no optimizer step), B 1:
 # (arch, layers, S); at full width, the depth of [zoo-cpu] (gemma3-12b's 6
-# layers hold its global hd-256 layer; whisper-large-v3 2 + 2 at 1500 frames
+# layers hold its global hd-256 layer; whisper-large-v3 1 + 1 at 1500 frames
 # and 448 tokens; llama-3.2-vision-11b's 5 one 'C' and four 'A' over 1601
 # image tokens; deepseek-moe-16b's 2 the dense first layer and one MoE
 # layer, on the card's routes)
-TRAIN_CPU_RUNS = (("minitron-8b", 2, 256), ("mamba2-370m", 2, 256),
+TRAIN_CPU_RUNS = (("minitron-8b", 1, 256), ("mamba2-370m", 1, 256),
                   ("gemma3-12b", 6, 256),
-                  ("whisper-large-v3", 2, WHISPER_TOKENS),
+                  ("whisper-large-v3", 1, WHISPER_TOKENS),
                   ("llama-3.2-vision-11b", 5, 256),
                   ("deepseek-moe-16b", 2, 256))
 
@@ -4060,6 +4435,7 @@ def main() -> int:
     lifecycle = {"continual": timed(phase_continual, dev),
                  "serving": timed(phase_serving, dev),
                  "faults": timed(phase_faults, dev)}
+    mesh_counts = timed(phase_mesh, dev)
     plan_counts = timed(phase_plan, dev)
     kernels += timed(phase_zoo_kernels, dev)
     timed(phase_zoo_card_vs_cpu, dev)
@@ -4093,6 +4469,11 @@ def main() -> int:
         for phase, counts in lifecycle.items():
             if name in counts:
                 k[f"launches_{phase}"] = counts[name]
+        by_rank = {r: c[name] for r, c in mesh_counts.items() if c.get(name)}
+        if by_rank:
+            # [mesh]: each rank process's own launches (grid shapes, stream
+            # and fleet), besides the main path's in this process
+            k["launches_mesh_by_rank"] = by_rank
         if plan_counts.get(name):
             # the sharding mapper's searches
             k["launches_plan"] = plan_counts[name]
@@ -4124,4 +4505,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank(*sys.argv[2:4]))
     sys.exit(main())

@@ -21,6 +21,10 @@ INC_INTERVAL = 6       # (vii) increase agent invocation interval
 DEC_INTERVAL = 7       # (viii)decrease agent invocation interval
 
 N_ACTIONS = 8
+ACTION_NAMES = (
+    "default", "near_data", "far_data", "near_compute", "far_compute",
+    "source_compute", "inc_interval", "dec_interval",
+)
 
 # Discrete invocation intervals, in cycles (paper §4.2).
 INTERVALS = (100, 125, 167, 250)

@@ -37,6 +37,16 @@ class DQNConfig:
     batch_size: int = 64
 
 
+def num_params(cfg: DQNConfig) -> int:
+    """Parameters of one agent's network (trunk, value and advantage
+    heads)."""
+    n, prev = 0, cfg.state_dim
+    for h in cfg.hidden:
+        n += prev * h + h
+        prev = h
+    return n + prev * 1 + 1 + prev * cfg.n_actions + cfg.n_actions
+
+
 def init_params(key: torch.Tensor, cfg: DQNConfig, n_agents: int,
                 device: torch.device) -> dict[str, torch.Tensor]:
     """He-scaled normal weights and zero biases, as the reference draws

@@ -101,3 +101,14 @@ ENERGY_NJ = {
     "network_per_bit_hop": 0.005,   # 5 pJ/bit/hop
     "memory_per_bit": 0.012,        # 12 pJ/bit/access
 }
+
+# Area of the AIMM hardware (paper §7.7, CACTI 45nm).
+AREA_MM2 = {
+    "page_info_cache": 0.23,   # 64 KB
+    "nmp_buffer": 0.14,        # 512 B
+    "migration_queue": 0.04,   # 2 KB
+    "mdma_buffers": 0.124,     # 1 KB
+    "weight_matrix": 2.095,    # 603 KB
+    "replay_buffer": 117.86,   # 36 MB
+    "state_buffer": 0.12,      # 576 B
+}

@@ -16,6 +16,12 @@ persistent policies across scenarios, program switches and processes.
                   one PolicyStore, i.e. one DQN living through app switches
                   and co-runner arrival and departure.
 
+In a process group (`nmp.partition`) every rank holds the same store (each
+`run_grid` hands every rank the same write-backs), so only rank 0 writes a
+checkpoint, in the one-host format (`shard_0.npz` and its `meta.json`, as
+the reference's `PolicyStore` writes with host_id 0), and every rank may
+restore it.
+
 Scenario-boundary semantics (`PolicyStore.checkout`): the DNN weights,
 target network, Adam moments, replay, key and `global_step` carry across
 the boundary; only the per-scenario interaction counter resets
@@ -33,6 +39,7 @@ import torch
 from repro_torch.core import agent as agent_mod
 from repro_torch.core.agent import AgentConfig, AgentState
 from repro_torch.core.tree import Fields, leaf_paths, unflatten
+from repro_torch.nmp import partition
 from repro_torch.nmp.config import NMPConfig
 from repro_torch.nmp.scenarios import Scenario
 from repro_torch.train.checkpoint import (CheckpointCorruptError,
@@ -202,17 +209,21 @@ class PolicyStore:
         `step` defaults to latest+1 so repeated saves of a long-running
         stream form a history.  Every step is kept by default (`keep=0`): a
         stream checkpoints once per phase and any phase must stay a valid
-        resume point; pass `keep > 0` to bound the history instead."""
-        mgr = CheckpointManager(directory, keep=keep, async_write=False)
-        if step is None:
-            latest = mgr.latest_step()
-            step = 0 if latest is None else latest + 1
-        mgr.save(step, dict(self._agents),
-                 extras={"tags": self.tags, "meta": self.meta,
-                         "capacity": self.capacity,
-                         "evictions": self.evictions,
-                         "rollbacks": self.rollbacks})
-        return step
+        resume point; pass `keep > 0` to bound the history instead.
+
+        In a process group only rank 0 writes (every rank holds the same
+        store), and every rank returns rank 0's step once it is written."""
+        if partition.is_writer():
+            mgr = CheckpointManager(directory, keep=keep, async_write=False)
+            if step is None:
+                latest = mgr.latest_step()
+                step = 0 if latest is None else latest + 1
+            mgr.save(step, dict(self._agents),
+                     extras={"tags": self.tags, "meta": self.meta,
+                             "capacity": self.capacity,
+                             "evictions": self.evictions,
+                             "rollbacks": self.rollbacks})
+        return partition.agree(step)
 
     @classmethod
     def restore(cls, directory: str, agent_cfg: AgentConfig,
@@ -320,7 +331,12 @@ def run_stream(stream: Sequence[Sequence[Scenario]],
     bit-exactly.
 
     `faults` is an optional `nmp.faults.FaultPlan`: its `on_phase` hook
-    fires before each phase and its `on_checkpoint` hook after each save."""
+    fires before each phase and its `on_checkpoint` hook after each save.
+
+    In a process group every rank calls this with the same arguments, runs
+    its block of every phase and gets the whole result; rank 0 writes the
+    checkpoints (and the corruptions a fault plan arms on them), and every
+    rank goes on once they are on disk."""
     from repro_torch.nmp.sweep import run_grid
     store = store if store is not None else PolicyStore()
     base = checkpoint_base_step
@@ -336,5 +352,7 @@ def run_stream(stream: Sequence[Sequence[Scenario]],
             store.save(checkpoint_dir,
                        step=None if base is None else base + pi)
             if faults is not None:
-                faults.on_checkpoint(checkpoint_dir)
+                faults.on_checkpoint(checkpoint_dir,
+                                     writer=partition.is_writer())
+                partition.barrier()
     return StreamResult(phases=results, store=store)

@@ -24,13 +24,17 @@ Fault classes (`FaultEvent.kind`):
                      or shard file): what the crash-safe
                      `CheckpointManager.restore` must detect and fall back
                      from.
-  shrink_devices     shrink the server's visible device count to
-                     `keep_devices`; on one device the degenerate 1 -> 1
-                     case (placement over several GPUs is not ported).
+  shrink_devices     shrink the server's mesh to its first `keep_devices`
+                     ranks (`nmp.partition`); the ranks it drops hold no
+                     slots but keep joining the gathers.  A lone process
+                     runs the degenerate 1 -> 1 case.
 
 Events are one-shot and fire deterministically: serving events at
 dispatch-attempt ordinal `at` (retries advance the ordinal), stream events
-at phase ordinal `at`, checkpoint events at save ordinal `at`.  Byte
+at phase ordinal `at`, checkpoint events at save ordinal `at`.  In a
+process group every rank holds the same plan, and since every event is
+keyed on ordinals it fires on every rank alike (a checkpoint is corrupted
+by the rank that wrote it).  Byte
 positions for disk corruption come from the plan's seeded generator, so a
 corruption run is reproducible from `(seed, events)` alone.
 """
@@ -133,10 +137,13 @@ class FaultPlan:
         return tuple(t for t in stalled if t is not None)
 
     def poison_warm_agents(self, attempt: int, tenants: Sequence[str],
-                           warm, n_seeds: int = 1):
+                           warm, n_seeds: int = 1,
+                           held: Sequence[int] | None = None):
         """NaN-fill the float param leaves of matching tenants' cells of the
         warm agent batch (flat (L*S, ...) AgentState) at dispatch, on the
-        batch's device.  Out of place: the batch's tensors may share memory
+        batch's device.  `held` lists the flat cells of the whole batch
+        that `warm` holds, in order (a rank's block on a mesh; all of them
+        by default).  Out of place: the batch's tensors may share memory
         with reused host buffers."""
         lanes = [li for ev in self._take("poison_agent", attempt, tenants)
                  for li, t in enumerate(tenants) if t == ev.tenant
@@ -145,6 +152,11 @@ class FaultPlan:
             return warm
         cells = [li * n_seeds + s for li in sorted(set(lanes))
                  for s in range(n_seeds)]
+        if held is not None:
+            pos = {c: i for i, c in enumerate(held)}
+            cells = [pos[c] for c in cells if c in pos]
+            if not cells:
+                return warm
         idx = torch.as_tensor(cells, dtype=torch.int64,
                               device=next(iter(warm.params.values())).device)
         fill = lambda t: (t.index_fill(0, idx, float("nan"))
@@ -177,14 +189,18 @@ class FaultPlan:
                 + (f" (lineage {ev.tenant!r})" if ev.tenant else ""),
                 tenant=ev.tenant)
 
-    def on_checkpoint(self, directory: str) -> None:
+    def on_checkpoint(self, directory: str, writer: bool = True) -> None:
         """Called after each checkpoint save; corrupt events armed at this
-        save ordinal flip bytes of the just-written (or `step`-named) step."""
+        save ordinal flip bytes of the just-written (or `step`-named) step.
+        Only the `writer` (the rank that wrote the step) flips them; the
+        other ranks mark the events fired."""
         save = self._saves
         self._saves += 1
         for ev in self._take("corrupt_checkpoint", save):
-            self.corrupt_checkpoint(directory, step=ev.step,
-                                    target=ev.target, n_bytes=ev.n_bytes)
+            if writer:
+                self.corrupt_checkpoint(directory, step=ev.step,
+                                        target=ev.target,
+                                        n_bytes=ev.n_bytes)
 
     # -- disk corruption utilities --------------------------------------
 

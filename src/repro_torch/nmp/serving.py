@@ -70,9 +70,19 @@ Fault injection: pass a `faults.FaultPlan` to arm deterministic faults
 (poisoned warm agents, failed/stalled ticks, shrunken device visibility) at
 explicit hook sites; with `faults=None` every hook site is a single `is
 not None` check, and the only standing cost is the once-per-tick finite
-guard (disable with `divergence_guard=False`).  The server runs on one
-device: a shrink drill to one device is the reference's degenerate
-`keep_devices=1` case, and a request for more raises NotImplementedError.
+guard (disable with `divergence_guard=False`).
+
+Several cards: in a process group (`nmp.partition`) every rank builds the
+same server, submits the same tenants and calls the same methods (SPMD).
+The slots are a lane-sharded mesh over the ranks (`n_slots` rounded up to
+its lane dim); each tick every rank runs its slot block, and `_complete`
+gathers the tick's results to every rank before the write-back, so every
+rank's store, tenants and counters stay identical.  Decisions read from the
+wall clock (retry backoff, the phase deadline) are agreed: rank 0's
+monotonic clock is every rank's, and a tick's wall is the slowest rank's,
+so every rank schedules the same tenants and every gather is matched.  A
+`shrink_devices` fault rebuilds the mesh over the first `keep_devices`
+ranks; the ranks it drops hold no slots but keep joining the gathers.
 
 Metrics: `MappingServer.stats()` reports per-phase latency p50/p99 over
 steady-state ticks (ticks that dispatched a new signature, the port's
@@ -91,7 +101,6 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
 from repro_torch.core import agent as agent_mod
 from repro_torch.nmp import baselines, partition
 from repro_torch.nmp import faults as faults_mod
@@ -164,8 +173,8 @@ class MappingServer:
     """Long-lived multi-tenant mapping service (see module docstring), on
     `device` (the card unless the caller asks for the CPU).
 
-    `n_slots` is rounded up to the device-mesh width (1: the port serves
-    on one device).  `envelope`
+    `n_slots` is rounded up to the device-mesh width (the lane dim of the
+    rank mesh; 1 alone).  `envelope`
     fixes the resident programs' padded shapes up front; by default it is
     inferred (and frozen) from everything submitted before the first tick,
     and later submissions must fit it.  `store` (or `store_capacity`)
@@ -196,10 +205,11 @@ class MappingServer:
             raise ValueError(
                 f"max_phase_retries must be >= 0 (got {max_phase_retries})")
         self.cfg = cfg
-        self.device = partition.placement(resolve_device(device))
-        self.mesh = None                 # one device: no mesh
+        self.device = partition.placement(device)
+        self.mesh = partition.build_mesh(device=self.device)
         self.n_slots = partition.padded_lane_count(n_slots, self.mesh)
-        # Tenants never fold, so every group is seed-width 1.
+        # Tenants never fold, so every group is seed-width 1; a mesh with a
+        # seed dim pads it (the padding slots are dropped).
         self.spec = state_spec_for(cfg)
         self.agent_cfg = agent_cfg or default_agent_cfg(cfg)
         if store is not None and store_capacity is not None:
@@ -368,6 +378,12 @@ class MappingServer:
 
     # -- scheduling ----------------------------------------------------
 
+    def _now(self) -> float:
+        """The monotonic clock every decision reads: on a mesh rank 0's
+        (one broadcast), so every rank decides alike."""
+        now = time.monotonic()
+        return now if self.mesh is None else partition.agree(now)
+
     def _freeze_envelope(self) -> None:
         if self.envelope is None:
             scs = [sc for t in self._tenants.values() if not t.done
@@ -386,7 +402,7 @@ class MappingServer:
         batched run.  Pure bookkeeping: never waits on device results.
         Slot holders inside their retry backoff window are skipped (their
         slot idles until the backoff expires)."""
-        now = time.monotonic()
+        now = self._now()
         for i, tid in enumerate(self._slots):
             if tid is None and self._queue:
                 nxt = self._queue.popleft()
@@ -400,7 +416,8 @@ class MappingServer:
     def _backoff_wait(self) -> bool:
         """When every slotted tenant is inside its backoff window, sleep
         until the earliest one expires.  True if a wait happened."""
-        waits = [self._tenants[tid].backoff_until - time.monotonic()
+        now = self._now()
+        waits = [self._tenants[tid].backoff_until - now
                  for tid in self._slots if tid is not None]
         waits = [w for w in waits if w > 0]
         if not waits:
@@ -432,7 +449,8 @@ class MappingServer:
         batch, _ = sweep_mod.prepare_group_batch(plan, group, self.cfg,
                                                  self.device,
                                                  n_lanes=self.n_slots,
-                                                 host_cache=self._host_cache)
+                                                 host_cache=self._host_cache,
+                                                 mesh=self.mesh)
         return (sched, scs, plan, group, batch, lane_of)
 
     def _advance(self, sched: list[tuple[int, Tenant]]) -> None:
@@ -453,25 +471,27 @@ class MappingServer:
     # -- fault handling ------------------------------------------------
 
     def _maybe_shrink(self) -> bool:
-        """Apply an armed shrink_devices fault: re-place the resident slots
-        on the surviving devices.  The server runs on one device, so this
-        is the reference's degenerate `keep_devices=1` case (the batch is
-        rebuilt and per-lane results stay bit-identical); `keep_devices`
-        above one on a host with several GPUs raises NotImplementedError
-        (`partition.build_mesh`: placement over several GPUs is not
-        ported)."""
+        """Apply an armed shrink_devices fault: rebuild the mesh over the
+        first `keep_devices` ranks.  The resident slot count is fixed, so it
+        must stay divisible by the new width; the next dispatch re-places
+        the slots and per-lane results stay bit-identical (the partition
+        layer's standing invariant).  The dropped ranks hold no slots but
+        keep joining the gathers; a lone process shrinks 1 -> 1."""
         if self.faults is None:
             return False
         keep = self.faults.shrink_devices_now(self._attempts)
         if keep is None:
             return False
-        devs = partition.visible_devices(self.device)
+        devs = partition.sweep_devices(self.device)
         keep = max(1, min(int(keep), len(devs)))
         if self.n_slots % keep:
             raise ValueError(
                 f"cannot shrink to {keep} devices: the resident slot count "
                 f"{self.n_slots} must stay device-divisible")
-        self.mesh = partition.build_mesh(devs[:keep], shape=(keep, 1))
+        # Shrink to a lane-only mesh explicitly: a REPRO_SWEEP_MESH override
+        # was shaped for the full rank count and would not factor `keep`.
+        self.mesh = partition.build_mesh(devs[:keep], shape=(keep, 1),
+                                         device=self.device)
         self._tom_cands = None           # rebuilt on next freeze
         self._device_shrinks += 1
         self._pending = None             # placed on the old mesh; rebuild
@@ -487,7 +507,7 @@ class MappingServer:
             self._quarantine(t, reason)
         else:
             t.health = "degraded"
-            t.backoff_until = (time.monotonic()
+            t.backoff_until = (self._now()
                                + self.backoff_base_s * 2 ** (t.retries - 1))
 
     def _quarantine(self, t: Tenant, reason: str) -> None:
@@ -544,32 +564,41 @@ class MappingServer:
         tenant_ids = [t.tenant_id for _, t in sched]
         attempt = self._attempts
         self._attempts += 1
-        s_pad = int(batch["ep_seed"].shape[1])   # executed seed width
-        warm = sweep_mod._warm_agent_batch(group, self.n_slots, self.store,
-                                           self.agent_cfg, self.device,
-                                           n_seeds=s_pad,
-                                           staging=self._staging)
+        # the executed seed width (1, or the mesh's seed dim) and this
+        # rank's share of it
+        s_pad = partition.padded_seed_count(group.n_seeds, self.mesh)
+        s_loc = s_pad // partition.mesh_seed_dim(self.mesh)
+        warm = (sweep_mod._warm_agent_batch(group, self.n_slots, self.store,
+                                            self.agent_cfg, self.device,
+                                            n_seeds=s_pad,
+                                            staging=self._staging,
+                                            mesh=self.mesh)
+                if batch is not None else None)
         stalled: tuple[str, ...] = ()
         if self.faults is not None:
             # poison indexes cells by position in the tenants list, which
             # must therefore follow lane (not schedule) order
             lane_tenants = [tenant_ids[lane.indices[0]]
                             for lane in group.lanes]
-            warm = self.faults.poison_warm_agents(attempt, lane_tenants,
-                                                  warm, s_pad)
+            warm = self.faults.poison_warm_agents(
+                attempt, lane_tenants, warm, s_pad,
+                held=(None if self.mesh is None else partition.local_cells(
+                    self.mesh, self.n_slots, s_pad)))
         n_prog0 = sweep_mod.compiled_sweep_programs()
         t0 = time.perf_counter()
         try:
             if self.faults is not None:
                 stalled = self.faults.on_dispatch(attempt, tenant_ids)
-            out, _env_fin, agent_fin = sweep_mod.dispatch_sweep(
-                batch, self._tom_cands, self.cfg, self.spec, self.agent_cfg,
-                self.envelope.n_epochs, group.n_episodes,
-                self.envelope.ring_len,
-                dataclasses.replace(
-                    self._flags,
-                    share_seed_inv=s_pad > 1 and seed_share_enabled()),
-                warm_agent=warm, want_agent=True)
+            out = agent_fin = None
+            if batch is not None:
+                out, _env_fin, agent_fin = sweep_mod.dispatch_sweep(
+                    batch, self._tom_cands, self.cfg, self.spec,
+                    self.agent_cfg, self.envelope.n_epochs,
+                    group.n_episodes, self.envelope.ring_len,
+                    dataclasses.replace(
+                        self._flags,
+                        share_seed_inv=s_loc > 1 and seed_share_enabled()),
+                    warm_agent=warm, want_agent=True)
             self._advance(sched)
             # the card is executing this tick: overlap the next tick's host
             # batch build + copy with it
@@ -580,10 +609,12 @@ class MappingServer:
             self._fail_attempt(sched, e.tenant, str(e))
             return self._prepare_next() if overlap else None
         wall = time.perf_counter() - t0
+        if self.mesh is not None:
+            wall = partition.agree_max(wall)      # the slowest rank's
         self._global_failure_streak = 0
         dirty = self._complete(sched, scs, out, agent_fin, group, wall,
                                sweep_mod.compiled_sweep_programs() - n_prog0,
-                               stalled, s_pad, lane_of)
+                               stalled, s_pad, lane_of, s_loc)
         if dirty:
             # a lane failed after the next batch was prepared: its schedule
             # (and the failed tenant's cursor) changed — rebuild
@@ -593,19 +624,25 @@ class MappingServer:
     def _complete(self, sched, scs, out, agent_fin, group, wall: float,
                   compiles: int, stalled: Sequence[str] = (),
                   s_pad: int = 1,
-                  lane_of: Sequence[int] | None = None) -> bool:
+                  lane_of: Sequence[int] | None = None,
+                  s_loc: int | None = None) -> bool:
         # s_pad is the *executed* seed width: 1 (tenants never fold
-        # together); slot 0 of each lane is the tenant's cell.
+        # together), or the mesh's seed dim; slot 0 of each lane is the
+        # tenant's cell.  On a mesh `out`/`agent_fin` are this rank's block
+        # (s_loc seed slots a lane), gathered here before anything is read.
         missed = (self.phase_deadline_s is not None
                   and wall > self.phase_deadline_s)
         if missed:
             self._deadline_misses += 1
         if lane_of is None:
             lane_of = list(range(len(sched)))
-        finite = (sweep_mod.lane_finite_mask(out, agent_fin, len(sched),
+        out = sweep_mod.host_outs(out, self.mesh)
+        host_agents = partition.host_fetch(
+            None if agent_fin is None else agent_mod.export_agents(agent_fin),
+            self.mesh, seeds=s_loc)
+        finite = (sweep_mod.lane_finite_mask(out, host_agents, len(sched),
                                              s_pad)
                   if self.guard else np.ones(len(sched), bool))
-        out = sweep_mod.host_outs(out)
         lanes = lambda v: np.stack([v[lane_of[li], 0]
                                     for li in range(len(sched))])
         actions = lanes(out.pop("action_t"))
@@ -614,7 +651,6 @@ class MappingServer:
             metrics={k: lanes(v) for k, v in out.items()},
             final_env=None, n_episodes=group.n_episodes, wall_s=wall,
             actions=actions)
-        host_agents = agent_mod.export_agents(agent_fin)
         served = 0
         dirty = False
         for li, (slot, t) in enumerate(sched):

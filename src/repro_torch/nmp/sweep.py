@@ -7,9 +7,10 @@
                               padding envelope, lanes grouped by DQN
                               liveness and topology, seeds folded into a
                               per-lane seed axis, lanes cost-ordered;
-  partition (nmp.partition) : the device the sweep runs on: in this slice
-                              the caller's one device, no mesh (the
-                              reference's one-device path);
+  partition (nmp.partition) : a (lane, seed) mesh over the ranks of a
+                              process group, one card each (the reference's
+                              device mesh), or one device alone; each rank
+                              runs its block of every group batch;
   execute   (this module)   : one batched run per lane group — episode
                               chaining with the env reset per episode and
                               the agent chained, the epoch loop
@@ -33,7 +34,12 @@ route stage once per cell (`BodyFlags.share_seed_inv`, REPRO_SEED_SHARE).
 Exactness: every (lane, seed) cell's cycles, ops and OPC equal a serial
 `run_episode`/`run_program` of the same scenario on the same device (every
 update is gated on has_ops, so padded lanes and episodes are exact no-ops),
-and on the CPU the reference's `run_grid`.
+and on the CPU the reference's `run_grid`.  On a mesh each rank runs an
+independent block (no cell's work crosses a rank), every collective is a
+gather of landed results issued in dispatch order from the landing thread,
+and every rank reassembles the same whole result and writes the same
+lineage write-backs into its own `PolicyStore`, so the stores stay
+identical.
 
 Agent lifecycle: cold-start lanes are born and die inside the group's
 run; lanes that declare a `Scenario.lineage` tag form a separate group
@@ -60,7 +66,6 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
 from repro_torch.core import agent as agent_mod
 from repro_torch.core.tree import leaf_paths, unflatten
 from repro_torch.nmp import partition
@@ -155,9 +160,10 @@ class AgentStaging:
 
 def _warm_agent_batch(group, n_lanes_padded: int, store, agent_cfg,
                       device: torch.device, n_seeds: int | None = None,
-                      staging: AgentStaging | None = None):
+                      staging: AgentStaging | None = None, mesh=None):
     """Initial agent batch of a lineage group on `device`: flat (L*S,)
-    cells, lane-major.
+    cells, lane-major; on a mesh this rank's cells of it
+    (`partition.shard_agent_batch`), None past the mesh.
 
     A cell whose lineage tag is in the store warm-starts from the stored
     agent (scenario-boundary handoff applied); a fresh tag cold-starts the
@@ -185,6 +191,9 @@ def _warm_agent_batch(group, n_lanes_padded: int, store, agent_cfg,
     lane0 = cells[:S]
     for _ in range(n_lanes_padded - group.n_lanes):
         cells.extend(lane0)
+    cells = partition.shard_agent_batch(cells, mesh, n_lanes_padded, S)
+    if cells is None:
+        return None
     return agent_mod.import_agents(staging.stack(cells), device)
 
 
@@ -343,23 +352,31 @@ class SweepResult:
 
 def prepare_group_batch(plan: GridPlan, group, group_cfg: NMPConfig,
                         device: torch.device, n_lanes: int | None = None,
-                        host_cache=None):
+                        host_cache=None, mesh=None):
     """Host-side build of one group's input batch and its copy to `device`.
+
     `n_lanes` forces the padded lane count (the serving layer's fixed
-    slots); `host_cache` reuses per-lane host arrays across calls
-    (`plan.build_group_batch`).  Returns (device batch, padded lane count);
-    the executed seed width is `batch["ep_seed"].shape[1]`."""
-    n_lanes_padded = (partition.padded_lane_count(group.n_lanes, None)
+    slots); by default the group is padded to the smallest mesh-divisible
+    lane count, and the folded seed axis to the smallest mesh-divisible
+    seed width (`partition.padded_seed_count`; padding slots re-simulate
+    seed slot 0 and are dropped).  `host_cache` reuses per-lane host arrays
+    across calls (`plan.build_group_batch`).  Returns (device batch, padded
+    lane count): on a mesh the batch is this rank's block (its executed
+    seed width `batch["ep_seed"].shape[1]`), None past the mesh."""
+    n_lanes_padded = (partition.padded_lane_count(group.n_lanes, mesh)
                       if n_lanes is None else n_lanes)
     if n_lanes_padded < group.n_lanes:
         raise ValueError(f"n_lanes={n_lanes_padded} < group lane count "
                          f"{group.n_lanes}")
+    if n_lanes_padded != partition.padded_lane_count(n_lanes_padded, mesh):
+        raise ValueError(f"n_lanes={n_lanes_padded} is not divisible by the "
+                         "device mesh width")
     batch_np = plan_mod.build_group_batch(plan, group, group_cfg,
                                           host_cache=host_cache)
     batch_np = partition.pad_seed_axis(
-        batch_np, partition.padded_seed_count(group.n_seeds, None))
+        batch_np, partition.padded_seed_count(group.n_seeds, mesh))
     batch_np = partition.pad_group_batch(batch_np, n_lanes_padded)
-    return (partition.shard_group_batch(batch_np, None, device),
+    return (partition.shard_group_batch(batch_np, mesh, device),
             n_lanes_padded)
 
 
@@ -406,11 +423,12 @@ def compiled_sweep_programs() -> int:
     return len(_SIGNATURES)
 
 
-def host_outs(out: dict) -> dict[str, np.ndarray]:
-    """A group's per-cell outputs fetched to the host, the per-epoch
-    timelines at the reference's slim dtypes (`valid_t`/`invoke_t` uint16)
-    and the actions as int8."""
-    out = partition.host_fetch(out)
+def host_outs(out: dict, mesh=None) -> dict[str, np.ndarray]:
+    """A group's per-cell outputs fetched to the host (on a mesh gathered
+    from every rank: (L_padded, S_padded, ...)), the per-epoch timelines at
+    the reference's slim dtypes (`valid_t`/`invoke_t` uint16) and the
+    actions as int8."""
+    out = partition.host_fetch(out, mesh)
     for k in ("valid_t", "invoke_t"):
         out[k] = out[k].astype(np.uint16)
     out["action_t"] = out["action_t"].astype(np.int8)
@@ -421,8 +439,9 @@ def lane_finite_mask(out: dict, agent_fin, n_lanes: int,
                      n_seeds: int = 1) -> np.ndarray:
     """Per-lane divergence guard: True where every float metric of the lane
     and every float param leaf of its final agent cells is finite.  `out`
-    leaves are (L_padded, S, ...) (tensors or numpy), `agent_fin` params
-    flat (L_padded*S, ...).  Only the first `n_lanes` lanes are reported."""
+    leaves are (L_padded, S, ...) (tensors or numpy), `agent_fin` a host
+    snapshot (`export_agents`) whose params are flat (L_padded*S, ...).
+    Only the first `n_lanes` lanes are reported."""
     lanes_padded = None
     floats = []
     for v in out.values():
@@ -431,7 +450,8 @@ def lane_finite_mask(out: dict, agent_fin, n_lanes: int,
             floats.append(v)
             lanes_padded = v.shape[0]
     if agent_fin is not None:
-        for leaf in agent_fin.params.values():
+        for leaf in agent_fin["params"].values():
+            leaf = torch.as_tensor(leaf)
             if leaf.is_floating_point():
                 floats.append(leaf)
                 if lanes_padded is None:
@@ -450,8 +470,11 @@ def run_grid(scenarios: Sequence[Scenario], cfg: NMPConfig = NMPConfig(),
              agent_cfg=None, store=None,
              device: str | torch.device = "cuda") -> SweepResult:
     """Run every scenario cell of a grid through the plan -> partition ->
-    execute pipeline: one batched run per lane group on `device`, the
-    folded seed axis as S cells per lane.
+    execute pipeline: one batched run per lane group, the folded seed axis
+    as S cells per lane, on `device` alone or, in a process group, over a
+    (lane, seed) mesh of its ranks (`partition`; every rank calls this with
+    the same arguments and gets the whole result).  The mesh shape is
+    REPRO_SWEEP_MESH's, else the auto-factored one for this plan.
 
     `store` is a `continual.PolicyStore` carrying agent lineages across
     calls: lanes whose `Scenario.lineage` tag it holds warm-start from the
@@ -464,12 +487,19 @@ def run_grid(scenarios: Sequence[Scenario], cfg: NMPConfig = NMPConfig(),
     `run_episode`/`run_program` protocol bit for bit (module docstring)."""
     scenarios = list(scenarios)
     t0 = time.time()
-    dev = partition.placement(resolve_device(device))
+    dev = partition.rank_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False   # full-f32 matmuls
     plan = plan_grid(scenarios, cfg)
     spec = state_spec_for(cfg)
     agent_cfg = agent_cfg or default_agent_cfg(cfg)
-    tom_cands = plan_mod.plan_tom_candidates(plan, cfg, dev)
+    devices = partition.sweep_devices(dev)
+    shape = (partition.sweep_mesh_shape(len(devices))
+             or partition.auto_mesh_shape(
+                 len(devices), [(g.n_lanes, g.n_seeds, g.n_episodes)
+                                for g in plan.groups]))
+    mesh = partition.build_mesh(devices, shape, dev)
+    tom_cands = partition.replicate(
+        plan_mod.plan_tom_candidates(plan, cfg, dev), mesh)
     if store is None and plan.lineage_tags():
         from repro_torch.nmp.continual import PolicyStore
         store = PolicyStore()
@@ -490,30 +520,36 @@ def run_grid(scenarios: Sequence[Scenario], cfg: NMPConfig = NMPConfig(),
     store_lock = threading.Lock()
 
     def launch(group):
-        """Host batch build + the group's batched run."""
+        """Host batch build + the group's batched run (of this rank's block
+        on a mesh; nothing past it)."""
         group_cfg = dataclasses.replace(cfg, topology=group.topology)
         batch, n_lanes_padded = prepare_group_batch(plan, group, group_cfg,
-                                                    dev)
-        s_pad = int(batch["ep_seed"].shape[1])
+                                                    dev, mesh=mesh)
+        s_pad = partition.padded_seed_count(group.n_seeds, mesh)
+        s_loc = s_pad // partition.mesh_seed_dim(mesh)   # this rank's slots
+        if batch is None:
+            return group, group_cfg, s_pad, s_loc, None, None, None
         if group.lineage:
             with store_lock:
                 warm = _warm_agent_batch(group, n_lanes_padded, store,
                                          agent_cfg, dev, n_seeds=s_pad,
-                                         staging=staging)
+                                         staging=staging, mesh=mesh)
         else:
             warm = None
         out, env_fin, agent_fin = dispatch_sweep(
             batch, tom_cands, group_cfg, spec, agent_cfg, plan.n_epochs,
-            group.n_episodes, plan.ring_len, executed_flags(group, s_pad),
+            group.n_episodes, plan.ring_len, executed_flags(group, s_loc),
             warm_agent=warm, want_agent=group.lineage)
-        return group, group_cfg, s_pad, out, env_fin, agent_fin
+        return group, group_cfg, s_pad, s_loc, out, env_fin, agent_fin
 
     def land(state):
-        """Fetch one group's results to the host and unfold its lanes."""
-        group, group_cfg, s_pad, out, env_fin, agent_fin = state
-        out = host_outs(out)
-        env_fin = _map_state(lambda t: t.detach().cpu().numpy().reshape(
-            (-1, s_pad) + tuple(t.shape[1:])), env_fin)
+        """Fetch one group's results to the host (on a mesh gathered from
+        every rank) and unfold its lanes."""
+        group, group_cfg, s_pad, s_loc, out, env_fin, agent_fin = state
+        out = host_outs(out, mesh)
+        env_fin = _map_state(
+            lambda a: a.reshape((-1, s_pad) + a.shape[1:]),
+            partition.host_fetch(env_fin, mesh, seeds=s_loc))
         pad_l = n_links_max - get_topology(group_cfg).n_links
         if pad_l:
             env_fin = dataclasses.replace(env_fin, pending_mig_loads=np.pad(
@@ -534,7 +570,10 @@ def run_grid(scenarios: Sequence[Scenario], cfg: NMPConfig = NMPConfig(),
             # Hand every tag's final agent back to the store.  When several
             # cells share a tag (seed replicas, repeated tags), the lineage
             # continues from the first cell of the last lane declaring it.
-            host = agent_mod.export_agents(agent_fin)
+            host = partition.host_fetch(
+                None if agent_fin is None
+                else agent_mod.export_agents(agent_fin), mesh,
+                seeds=s_loc)
             with store_lock:
                 for li, lane in enumerate(group.lanes):
                     cell = agent_mod.snapshot_cell(
@@ -551,7 +590,9 @@ def run_grid(scenarios: Sequence[Scenario], cfg: NMPConfig = NMPConfig(),
             if land_mode() == "async" else None)
     try:
         landings = []
-        for gi in plan_mod.packed_group_order(plan):
+        for gi in plan_mod.packed_group_order(
+                plan, partition.mesh_lane_dim(mesh),
+                partition.mesh_seed_dim(mesh)):
             launched = launch(plan.groups[gi])
             if pool is not None:
                 landings.append(pool.submit(land, launched))
@@ -566,7 +607,7 @@ def run_grid(scenarios: Sequence[Scenario], cfg: NMPConfig = NMPConfig(),
     metrics = {k: np.stack([o[k] for o in outs]) for k in outs[0]}
     actions = metrics.pop("action_t")
     final_env = _map_state(lambda *xs: np.stack(xs), *envs)
-    desc = partition.mesh_desc(None)
+    desc = partition.mesh_desc(mesh)
     return SweepResult(scenarios=scenarios, cfg=cfg, metrics=metrics,
                        final_env=final_env, n_episodes=plan.n_episodes,
                        wall_s=time.time() - t0, plan=plan,

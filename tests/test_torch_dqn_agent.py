@@ -265,3 +265,15 @@ def test_batched_linear_on_cpu_is_the_plain_layer_and_counts_nothing():
     assert ops.launches == {"batched_linear": 0} and not ops.launches_by_shape
     with pytest.raises(ValueError, match="float32"):
         ops.sq_norm([torch.ones((2, 2), dtype=torch.float64)])
+
+
+@pytest.mark.parametrize("hidden", [(128, 128), (64,), (32, 16, 8)])
+def test_num_params_matches_reference_and_the_tree(hidden):
+    """`num_params` `==` the reference's, and the size of one agent's
+    (dueling) parameter tree."""
+    jc = j_dqn.DQNConfig(state_dim=S, n_actions=A, hidden=hidden)
+    tc = t_dqn.DQNConfig(state_dim=S, n_actions=A, hidden=hidden)
+    n = t_dqn.num_params(tc)
+    assert n == j_dqn.num_params(jc)
+    params = t_dqn.zeros_params(tc)
+    assert n == sum(int(np.prod(np.shape(v))) for v in params.values())

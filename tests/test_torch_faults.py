@@ -5,7 +5,8 @@ the reference.
 Each serving drill runs on both packages with the same fault plan: a
 poisoned warm agent, silent store poison with rollback, attributed
 failures up to quarantine, an unattributed failed tick, a stall over the
-deadline, and the one-device shrink (1 -> 1).  Bars: every tenant's served
+deadline, and the shrink of a lone process (1 -> 1; the shrink over
+process-group ranks, 2 -> 1, is in tests/test_torch_fleet.py).  Bars: every tenant's served
 phases `==` to the reference server's (dtype too), the recovery counters
 of `stats()["faults"]` and the tenants' health `==` to the reference's,
 and the healthy tenants `==` to the port's fault-free solo runs.  The
@@ -235,14 +236,20 @@ def test_shrink_to_one_device_stays_exact_and_more_is_not_ported(
     assert st["faults"]["device_shrinks"] == 1 and st["n_devices"] == 1
     for tid, stream in _fleet(PORT, 2, n_phases=3).items():
         _matches_solo(srv, tid, stream)
-    # a host with two GPUs asked to keep both: placement over several GPUs
-    # is not ported
+    # a lone process on a host with two GPUs asked to keep both: its mesh
+    # has one rank, so it keeps that one, as the reference on one device
+    # (a mesh over several cards spans the ranks of a process group)
     two = [torch.device("cpu"), torch.device("cpu")]
     monkeypatch.setattr(partition, "visible_devices", lambda device: two)
     plan = FaultPlan([FaultEvent("shrink_devices", at=0, keep_devices=2)])
     srv2 = MappingServer(CFG, n_slots=2, faults=plan, device=CPU)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        srv2.tick()
+    srv2.submit("t", tenant_stream(apps=("KM",), n_phases=1,
+                                   n_ops_per_app=N_OPS))
+    assert srv2.tick() == 1
+    st2 = srv2.stats()
+    assert st2["faults"]["device_shrinks"] == 1 and st2["n_devices"] == 1
+    _matches_solo(srv2, "t", tenant_stream(apps=("KM",), n_phases=1,
+                                           n_ops_per_app=N_OPS))
 
 
 # -- the harness ------------------------------------------------------------

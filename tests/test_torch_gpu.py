@@ -1495,3 +1495,100 @@ def test_world1_sharded_prefill_and_decode_equal(cuda, world1):
                 c_shard, t)
             assert torch.equal(local_tree({"l": l1})["l"], l0)
             tok = l0[:, -1].float().argmax(-1)[:, None]
+
+
+# -- the partition layer: two ranks sharing the card ------------------------
+
+def _mesh_grid_small():
+    from repro_torch.nmp.scenarios import Scenario, seed_variants
+    from repro_torch.nmp.traces import make_trace
+    grid = []
+    for app in ("KM", "PR"):
+        tr = make_trace(app, n_ops=512)
+        grid += seed_variants(Scenario(name=f"{app}/aimm", trace=tr,
+                                       mapper="aimm", episodes=2),
+                              seeds=(0, 1, 2))
+        grid += [Scenario(name=f"{app}/none", trace=tr, mapper="none")]
+    return grid
+
+
+def _two_tenants():
+    from repro_torch.nmp.scenarios import tenant_fleet
+    return tenant_fleet(n_tenants=2, apps=("KM", "SC"), n_phases=2,
+                        n_ops_per_app=512)
+
+
+def _mesh_runs(dev):
+    """The small grid under 2x1 and 1x2 (one rank's shape "1x1" alone) and
+    a 2-tenant server on 2 slots: metrics, actions and the kernels'
+    launches."""
+    import os
+    from chip_smoke import aimm_launches, reset_aimm_launches, served_record
+    from repro_torch.nmp.config import NMPConfig
+    from repro_torch.nmp.serving import MappingServer
+    from repro_torch.nmp.sweep import run_grid
+    cfg = NMPConfig()
+    out = {}
+    for shape in ("2x1", "1x2"):
+        if os.environ.get("REPRO_DIST_COORD"):
+            os.environ["REPRO_SWEEP_MESH"] = shape
+        reset_aimm_launches()
+        res = run_grid(_mesh_grid_small(), cfg, device=dev)
+        out[shape] = (res.metrics, res.actions, res.mesh_shape,
+                      aimm_launches())
+    srv = MappingServer(cfg, n_slots=2, device=dev)
+    for tid, stream in _two_tenants().items():
+        srv.submit(tid, stream)
+    srv.run()
+    out["server"] = served_record(srv)
+    return out
+
+
+def _gpu_mesh_worker(rank, port, out_dir):
+    import os
+    import pickle
+    for k in ("REPRO_SWEEP_MESH", "REPRO_SWEEP_DEVICES", "LOCAL_RANK"):
+        os.environ.pop(k, None)
+    os.environ.update(REPRO_DIST_COORD=f"127.0.0.1:{port}",
+                      REPRO_DIST_NPROCS="2", REPRO_DIST_RANK=str(rank))
+    from repro_torch.nmp import partition
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = _mesh_runs(partition.rank_device("cuda"))
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def test_two_ranks_on_the_card_equal_one(cuda, tmp_path):
+    """Two rank processes sharing the card (a gloo group on localhost): the
+    small grid under 2x1 and 1x2 and a 2-tenant server, every metric and
+    per-epoch action `==` to one rank on the card, each rank launching the
+    AIMM kernels."""
+    import pickle
+    import socket
+    import torch.multiprocessing as mp
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    one = _mesh_runs(cuda)
+    mp.spawn(_gpu_mesh_worker, args=(port, str(tmp_path)), nprocs=2,
+             join=True)
+    for rank in range(2):
+        with open(tmp_path / f"rank{rank}.pkl", "rb") as f:
+            got = pickle.load(f)
+        for shape in ("2x1", "1x2"):
+            m, a, mesh_shape, launches = got[shape]
+            assert tuple(mesh_shape) == (int(shape[0]), int(shape[2]))
+            assert set(m) == set(one[shape][0])
+            for k, v in one[shape][0].items():
+                assert np.array_equal(m[k], v), (rank, shape, k)
+            assert np.array_equal(a, one[shape][1]), (rank, shape)
+            for k in ("fused_epoch", "dueling_qnet", "threefry",
+                      "batched_linear"):
+                assert launches[k] > 0, (rank, shape, k)
+        srv, want = got["server"], one["server"]
+        assert srv["stats"]["n_devices"] == 2
+        for tid, phases in want["tenants"].items():
+            for (gm, ga), (wm, wa) in zip(srv["tenants"][tid], phases):
+                for k, v in wm.items():
+                    assert np.array_equal(gm[k], v), (rank, tid, k)
+                assert np.array_equal(ga, wa), (rank, tid)

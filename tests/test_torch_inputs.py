@@ -234,3 +234,13 @@ def test_random_neighbor_draws_legal_neighbours(name):
     far = t_actions.far_target(cube[:C], topo.far)
     assert np.array_equal(far.numpy(), j_topo.get_topology(
         JCfg(topology=name)).far)
+
+
+def test_area_and_action_names_match_reference():
+    from repro.core.actions import ACTION_NAMES as J_NAMES
+    from repro.core.actions import N_ACTIONS as J_N
+    from repro.nmp.config import AREA_MM2 as J_AREA
+    from repro_torch.core.actions import ACTION_NAMES, N_ACTIONS
+    from repro_torch.nmp.config import AREA_MM2
+    assert AREA_MM2 == J_AREA and list(AREA_MM2) == list(J_AREA)
+    assert ACTION_NAMES == J_NAMES and len(ACTION_NAMES) == N_ACTIONS == J_N

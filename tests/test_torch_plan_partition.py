@@ -2,9 +2,10 @@
 (`nmp/plan.py`, `nmp/partition.py`) against the live JAX reference, on the
 CPU: the same grouping, seed folding, envelope, order, padding and mesh
 decisions (the pattern of tests/test_plan_partition.py), the knobs'
-validation, and the port's one-device placement: an explicit request for
-more than one device raises NotImplementedError (multi-GPU placement is
-not ported yet)."""
+validation, and a lone process's placement: it runs on one device, and an
+explicit request for more raises a ValueError naming the REPRO_DIST_*
+knobs (the port's mesh spans the ranks of a process group, one card each;
+tests/test_torch_fleet.py runs it)."""
 import dataclasses
 
 import numpy as np
@@ -242,27 +243,34 @@ def test_auto_mesh_shape_matches_reference(n, groups):
 
 
 def test_request_for_several_devices_raises(monkeypatch):
-    """Four visible GPUs: with nothing set the sweep runs on the caller's
-    one device; an explicit request for more raises NotImplementedError
-    naming ROADMAP.md's multi-GPU item."""
+    """Four visible GPUs in a lone process (no process group): with nothing
+    set, or "all", the sweep runs on the caller's one device (the group has
+    one rank); an explicit request for more raises a ValueError naming the
+    REPRO_DIST_* knobs, and never runs on one."""
+    from repro_torch.nmp.sweep import run_grid
     four = [torch.device("cpu")] * 4
     monkeypatch.setattr(t_part, "visible_devices", lambda device: four)
+    monkeypatch.delenv("REPRO_DIST_COORD", raising=False)
     monkeypatch.delenv("REPRO_SWEEP_DEVICES", raising=False)
     monkeypatch.delenv("REPRO_SWEEP_MESH", raising=False)
     assert t_part.placement("cpu") == torch.device("cpu")
+    monkeypatch.setenv("REPRO_SWEEP_DEVICES", "all")
+    assert t_part.sweep_devices("cpu") == [0]
+    assert t_part.build_mesh(device="cpu") is None
+    one = [TSc(name="a", trace=t_make_trace("KM", n_ops=128))]
+    res = run_grid(one, TCfg(), device="cpu")
+    assert (res.n_devices, res.mesh_shape) == (1, (1, 1))
     for knob, val in (("REPRO_SWEEP_DEVICES", "2"),
-                      ("REPRO_SWEEP_DEVICES", "all"),
+                      ("REPRO_SWEEP_DEVICES", "4"),
                       ("REPRO_SWEEP_MESH", "2x2")):
         monkeypatch.setenv(knob, val)
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
+        with pytest.raises(ValueError, match="REPRO_DIST_COORD"):
             t_part.placement("cpu")
-        from repro_torch.nmp.sweep import run_grid
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            run_grid([TSc(name="a", trace=t_make_trace("KM", n_ops=128))],
-                     TCfg(), device="cpu")
+        with pytest.raises(ValueError, match="REPRO_DIST_NPROCS"):
+            run_grid(one, TCfg(), device="cpu")
         monkeypatch.delenv(knob)
     monkeypatch.setenv("REPRO_SWEEP_DEVICES", "1")
     monkeypatch.setenv("REPRO_SWEEP_MESH", "1x1")
     assert t_part.placement("cpu") == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        t_part.build_mesh(four)
+    with pytest.raises(ValueError, match="REPRO_DIST_RANK"):
+        t_part.build_mesh([0, 1, 2, 3])
