@@ -154,7 +154,8 @@ Phases (each prints its lines; the run exits 0 only if every phase passes):
     just after.
  9. profile: torch.profiler over one warm prefill forward and one serving
     loop of minitron-8b, mamba2-370m, whisper-large-v3 and
-    llama-3.2-vision-11b (busy share, top kernels by device time).
+    llama-3.2-vision-11b at a quarter of their depth (ZOO_PROFILE_LAYERS;
+    busy share, top kernels by device time).
 9b. training: `[train-kernels]`, the flash and SSD backward kernels
     against autograd through their plain versions at minitron-8b's and
     mamba2-370m's shapes (flash in bf16 and f32 within GRAD_BARS, SSD
@@ -178,6 +179,15 @@ Phases (each prints its lines; the run exits 0 only if every phase passes):
     phi3-medium-14b (8 of 40) through `launch/train.py`, and the flash
     backward at their shapes, whisper-large-v3's decoder and
     deepseek-moe-16b's.
+    Then `[shard]`, the sharded steps on a (1, 1) mesh of a world-1 nccl
+    group against the unsharded ones; `[train-mesh]`, `launch/train.py`'s
+    `train` in its own world-1 nccl group, so on a (1, 1) mesh of DTensor
+    params, optimizer state, batch and gradients: mamba2-370m with the
+    restart drill and minitron-8b (4 layers, int8 moments) for 3 steps,
+    each step's loss torch.equal to `[train]`'s, the restored state
+    torch.equal to the saved one, the launches `step_launches`' (a mesh of
+    several cards needs several cards: NCCL refuses two ranks on one);
+    then `[dryrun]`.
 9c. `[roofline]`: every training cell's and prefill's measured warm step
     against the card's Roofline bound of its own cut config and shape
     (fails below it), the training cells' model_flops share (`==`
@@ -1322,6 +1332,11 @@ def phase_zoo_kernels(dev) -> list[dict]:
 
 ZOO_ARCHS = ("minitron-8b", "mamba2-370m", "whisper-large-v3",
              "llama-3.2-vision-11b")
+# [zoo-profile]'s depth: a quarter of each arch's (whole super-blocks, an
+# encoder cut alike), which keeps every layer kind and the command within
+# its time budget; the full depths run in [zoo] and [zoo-model].
+ZOO_PROFILE_LAYERS = {"minitron-8b": 8, "mamba2-370m": 12,
+                      "whisper-large-v3": 8, "llama-3.2-vision-11b": 10}
 # The zoo's main path: (arch, layers or None for the published depth,
 # prefill S).  mixtral-8x22b (141 B parameters, ~282 GB of bf16 weights)
 # runs at full width with its depth cut to 2 layers, at S 8192 so that
@@ -2732,14 +2747,13 @@ def phase_profile(dev) -> None:
 def phase_zoo_profile(dev) -> None:
     """torch.profiler over one warm prefill forward (B 1, S 4096; whisper
     448 tokens over 1500 frames) and one serving loop of each of
-    ZOO_ARCHS, after their timed runs: device busy share, launches, and
-    the top kernels by device time."""
+    ZOO_ARCHS at its ZOO_PROFILE_LAYERS depth, after their timed runs:
+    device busy share, launches, and the top kernels by device time."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
     from repro_torch.models import build_model
     for arch in ZOO_ARCHS:
-        cfg = get_config(arch)
+        cfg = zoo_config(arch, ZOO_PROFILE_LAYERS[arch])
         model = build_model(cfg, dev)
         params, _ = model.init(0)
         batch = zoo_batch(dev, cfg, WHISPER_TOKENS if cfg.encoder is not None
@@ -2752,7 +2766,9 @@ def phase_zoo_profile(dev) -> None:
                                                      device=dev))))
         for what, (wall, rows) in runs:
             dev_us = sum(r[0] for r in rows)
-            log(f"[zoo-profile] {arch} {what}: wall {wall * 1e3:.1f} ms "
+            log(f"[zoo-profile] {arch} ({cfg.n_layers} of "
+                f"{get_config_layers(arch)} layers) {what}: wall "
+                f"{wall * 1e3:.1f} ms "
                 f"(profiler on), device kernels {dev_us / 1e3:.2f} ms in "
                 f"{sum(r[1] for r in rows)} launches, busy share "
                 f"{dev_us / 1e6 / wall:.4f}")
@@ -3262,21 +3278,26 @@ def restore_spy():
     list yielded (the check runs through both layout conversions, the disk
     and the copy back onto the device)."""
     import torch
-    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.sharding.context import is_dtensor
     from repro_torch.train import loop
     to_disk, load_into = loop._to_disk, loop._load_into
     saved, results = [], []
 
-    def spy_to_disk(model_cfg, params, opt_state):
+    def whole(params, opt_state):
+        """The state's leaves, whole (a DTensor's full tensor)."""
+        return [t.full_tensor() if is_dtensor(t) else t
+                for t in tree_leaves([params, opt_state])]
+
+    def spy_to_disk(model_cfg, params, opt_state, *rest):
         if not saved:
-            saved.append(tree_leaves(tree_map(
-                lambda t: t.detach().to("cpu", copy=True),
-                [params, opt_state])))
-        return to_disk(model_cfg, params, opt_state)
+            saved.append([t.detach().to("cpu", copy=True)
+                          for t in whole(params, opt_state)])
+        return to_disk(model_cfg, params, opt_state, *rest)
 
     def spy_load_into(params, opt_state, tree):
         load_into(params, opt_state, tree)
-        got = tree_leaves([params, opt_state])
+        got = whole(params, opt_state)
         results.append(bool(saved) and len(got) == len(saved[0]) and all(
             torch.equal(g, w.to(g.device)) for g, w in zip(got, saved[0])))
 
@@ -3812,6 +3833,113 @@ def phase_shard(dev) -> dict[str, int]:
             f"logits {sorted(set(worst))}, tokens ==, caches {v_cache}")
         del params, dparams, c_plain, c_shard, model
         torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return total
+
+
+# [train-mesh]: launch/train.py's `train` on a (1, 1) mesh of a world-1 nccl
+# group (DTensor params, optimizer state, batch and gradients), each cell
+# beside [train]'s run of the same arch: (arch, layers, int8 moments,
+# steps, the restart drill with checkpoints)
+TRAIN_MESH_RUNS = (("mamba2-370m", None, False, TRAIN_STEPS, True),
+                   ("minitron-8b", 4, True, 3, False))
+
+
+def dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def phase_train_mesh(dev, train_archs: dict) -> dict[str, int]:
+    """[train-mesh]: TRAIN_MESH_RUNS through `launch/train.py`'s `train` in
+    a world-1 nccl group, so on a (1, 1) mesh: the params placed by
+    `param_specs`, the optimizer state by `opt_state_specs`, the batch a
+    DTensor of `batch_specs`' placements, the gradients held to
+    `param_specs`, the checkpoints gathered whole by rank 0 and read back
+    into the local shards.  The kernels' counts set to 0 just before each
+    cell and read just after: `step_launches` of the steps run.  Each
+    step's loss torch.equal to `[train]`'s for the same arch and step in
+    this run (or, where an op decomposes differently under a DTensor,
+    within the bf16 bar, the steps named); the drill's restored state
+    torch.equal to the one saved at step 2 (`restore_spy`).  Returns the
+    launches over the phase."""
+    import shutil
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import axis_sizes
+    from repro_torch.launch.train import train
+    ckpt_root = ROOT / "build" / "train_mesh_ckpt"
+    card = card_line()
+    total = {}
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        for arch, layers, quantized, steps, drill in TRAIN_MESH_RUNS:
+            shutil.rmtree(ckpt_root, ignore_errors=True)
+            reset_zoo_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with restore_spy() as restored:
+                res = train(arch, steps=steps, seq=TRAIN_SEQ,
+                            global_batch=TRAIN_BATCH,
+                            microbatches=TRAIN_MICROBATCHES,
+                            device=str(dev), layers=layers,
+                            fail_at=(TRAIN_FAIL_AT,) if drill else (),
+                            checkpoint_every=2 if drill else 0, keep=1,
+                            quantized_opt=quantized, ckpt_dir=str(ckpt_root),
+                            log=lambda m, a=arch: log(f"[train-mesh] {a}: "
+                                                      f"{m}"))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            counts = zoo_launches()
+            ckpt_gb = dir_bytes(ckpt_root) / 1e9
+            shutil.rmtree(ckpt_root, ignore_errors=True)
+            cfg, L = res["cfg"], res["losses"]
+            mesh = axis_sizes(res["mesh"]) if res["mesh"] is not None else {}
+            if mesh != {"data": 1, "model": 1}:
+                raise AssertionError(f"[train-mesh] {arch}: mesh {mesh}")
+            want = step_launches(cfg, len(L))
+            if counts != want:
+                raise AssertionError(f"[train-mesh] {arch} launched "
+                                     f"{counts}, expected {want}")
+            if restored != ([True] if drill else []):
+                raise AssertionError(f"[train-mesh] {arch}: the restart "
+                                     f"read back a state that differs from "
+                                     f"the one saved at step 2: {restored}")
+            if drill and (res["restarts"] != 1 or L[2] != L[3]):
+                raise AssertionError(f"[train-mesh] {arch}: restarts "
+                                     f"{res['restarts']}, losses {L}")
+            ref = train_archs[arch]["losses"][:len(L)]
+            if len(ref) != len(L):
+                raise AssertionError(f"[train-mesh] {arch}: {len(L)} steps "
+                                     f"against [train]'s {len(ref)}")
+            v_loss = held_equal(
+                {f"step {i}": torch.tensor(x) for i, x in enumerate(L)},
+                {f"step {i}": torch.tensor(x) for i, x in enumerate(ref)},
+                f"[train-mesh] {arch} loss")
+            times = res["step_times"]
+            step_s = sorted(times[1:])[len(times[1:]) // 2]
+            log(f"[train-mesh] {arch} ({cfg.n_layers} layers, "
+                f"{'int8' if quantized else 'f32'} moments, remat "
+                f"{cfg.remat}), (1, 1) mesh, S {TRAIN_SEQ}, batch "
+                f"{TRAIN_BATCH} in {TRAIN_MICROBATCHES} microbatches, "
+                f"{steps} steps{', a failure before step 3' if drill else ''}"
+                f": losses {[round(x, 4) for x in L]} against [train]'s: "
+                f"{v_loss}"
+                f"{'; the restored state torch.equal to the saved' if drill else ''}"
+                f"; warm step {step_s:.4f} s (steps "
+                f"{[round(t, 4) for t in times]}; [train]'s "
+                f"{train_archs[arch]['step_s']:.4f}), peak "
+                f"{peak / 2**30:.2f} GiB, checkpoint {ckpt_gb:.3f} GB, wall "
+                f"{wall:.1f} s; launches {json.dumps(counts)} == "
+                f"step_launches ({launch_words(want, len(L))}) [{card}]")
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            del res
+            torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
     return total
@@ -4450,6 +4578,9 @@ def main() -> int:
     shard_counts = timed(phase_shard, dev)
     for name, n in shard_counts.items():
         launches[name] = launches.get(name, 0) + n
+    mesh_train_counts = timed(phase_train_mesh, dev, train_archs)
+    for name, n in mesh_train_counts.items():
+        launches[name] = launches.get(name, 0) + n
     timed(phase_dryrun, train_archs)
     timed(phase_roofline, train_archs, zoo_archs)
     timed(phase_examples, dev)
@@ -4484,6 +4615,9 @@ def main() -> int:
         if shard_counts.get(name):
             # the sharded steps on the (1, 1) mesh
             k["launches_shard"] = shard_counts[name]
+        if mesh_train_counts.get(name):
+            # launch/train.py on the (1, 1) mesh
+            k["launches_train_mesh"] = mesh_train_counts[name]
         if train_counts.get(name):
             # the training cells' run (forward with the LSE store, and the
             # backward kernels)

@@ -17,13 +17,30 @@ process group, as the reference's touches no device state.
   axis_sizes(mesh)                 {axis name: size} of either
   fake_world(n)                    a `fake`-backend group of n ranks in this
                                    one process (the dry run)
+  join_group(device_type)          join the group the REPRO_DIST_* knobs
+                                   name, one process per card
+
+The knobs (one process per card, the same command on every rank):
+
+  REPRO_DIST_COORD      the group's rendezvous address (host:port, rank 0's
+                        TCP store); unset = one process, no group.
+  REPRO_DIST_NPROCS     number of processes in the group (with _COORD).
+  REPRO_DIST_RANK       this process's rank in 0..NPROCS-1 (with _COORD).
 """
 from __future__ import annotations
 
+import datetime
 import math
+import os
 from typing import NamedTuple
 
 import torch
+
+ENV_COORD = "REPRO_DIST_COORD"
+ENV_NPROCS = "REPRO_DIST_NPROCS"
+ENV_RANK = "REPRO_DIST_RANK"
+DIST_KNOBS = f"{ENV_COORD}, {ENV_NPROCS} and {ENV_RANK}"
+DIST_TIMEOUT_S = 600             # the group's timeout for a collective
 
 
 class AbstractMesh(NamedTuple):
@@ -117,3 +134,59 @@ def fake_world(n: int) -> None:
             return
         dist.destroy_process_group()
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+
+
+def card_index(rank: int) -> int:
+    """The card of a rank's process: LOCAL_RANK where it is set, else rank
+    mod the visible cards (ranks share a card where there are fewer)."""
+    local = os.environ.get("LOCAL_RANK", "").strip()
+    return int(local) if local else rank % torch.cuda.device_count()
+
+
+def join_group(device_type: str = "cuda") -> bool:
+    """Join the process group named by REPRO_DIST_COORD / REPRO_DIST_NPROCS
+    / REPRO_DIST_RANK over TCP.  For the card (`device_type` "cuda") the
+    default group is `gloo` for CPU tensors and `nccl` for CUDA tensors,
+    this process on its card (`card_index`); for the CPU it is `gloo`.
+    Where the process already holds a default group, its world size and
+    rank must be the knobs'.  False (nothing joined) when REPRO_DIST_COORD
+    is unset."""
+    coord = os.environ.get(ENV_COORD, "").strip()
+    if not coord:
+        return False
+    try:
+        nprocs = int(os.environ[ENV_NPROCS])
+        rank = int(os.environ[ENV_RANK])
+    except KeyError as e:
+        raise ValueError(
+            f"{ENV_COORD}={coord!r} is set but {e.args[0]} is not; "
+            f"multi-host runs need {ENV_NPROCS} and {ENV_RANK}") from None
+    except ValueError:
+        raise ValueError(
+            f"{ENV_NPROCS}/{ENV_RANK} must be integers (got "
+            f"{os.environ.get(ENV_NPROCS)!r}/{os.environ.get(ENV_RANK)!r})"
+        ) from None
+    if not 0 <= rank < nprocs:
+        raise ValueError(f"{ENV_RANK}={rank} outside 0..{nprocs - 1} "
+                         f"({ENV_NPROCS}={nprocs})")
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        if device_type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError("join_group: 'cuda' asked for but "
+                                   "torch.cuda.is_available() is False")
+            torch.cuda.set_device(card_index(rank))
+            backend = "cpu:gloo,cuda:nccl"
+        else:
+            backend = "gloo"
+        url = coord if "://" in coord else f"tcp://{coord}"
+        dist.init_process_group(
+            backend, init_method=url, world_size=nprocs, rank=rank,
+            timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    elif (dist.get_world_size(), dist.get_rank()) != (nprocs, rank):
+        raise ValueError(
+            f"{ENV_NPROCS}={nprocs}/{ENV_RANK}={rank} disagree with this "
+            f"process's group (world {dist.get_world_size()}, rank "
+            f"{dist.get_rank()})")
+    return True
+

@@ -60,16 +60,13 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.launch.mesh import (DIST_KNOBS, DIST_TIMEOUT_S, card_index,
+                                     join_group)
 
 LANE_AXIS = "lanes"
 SEED_AXIS = "seeds"
 _ENV_DEVICES = "REPRO_SWEEP_DEVICES"
 _ENV_MESH = "REPRO_SWEEP_MESH"
-_ENV_COORD = "REPRO_DIST_COORD"
-_ENV_NPROCS = "REPRO_DIST_NPROCS"
-_ENV_RANK = "REPRO_DIST_RANK"
-DIST_KNOBS = f"{_ENV_COORD}, {_ENV_NPROCS} and {_ENV_RANK}"
-DIST_TIMEOUT_S = 600             # the gloo group's timeout for a collective
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,44 +86,20 @@ _group: _Group | None = None
 
 def maybe_init_distributed() -> bool:
     """Join the process group named by REPRO_DIST_COORD / REPRO_DIST_NPROCS
-    / REPRO_DIST_RANK (a `gloo` group over TCP, or, where the process
-    already holds a default group of that size and rank, a `gloo` group
-    beside it).  A no-op (returns False) when REPRO_DIST_COORD is unset,
-    and idempotent once joined."""
+    / REPRO_DIST_RANK (`launch.mesh.join_group`: a `gloo` group over TCP,
+    or, where the process already holds a default group of that size and
+    rank, a `gloo` group beside it).  A no-op (returns False) when
+    REPRO_DIST_COORD is unset, and idempotent once joined."""
     global _group
     if _group is not None:
         return True
-    coord = os.environ.get(_ENV_COORD, "").strip()
-    if not coord:
+    if not join_group("cpu"):
         return False
-    try:
-        nprocs = int(os.environ[_ENV_NPROCS])
-        rank = int(os.environ[_ENV_RANK])
-    except KeyError as e:
-        raise ValueError(
-            f"{_ENV_COORD}={coord!r} is set but {e.args[0]} is not; "
-            f"multi-host runs need {_ENV_NPROCS} and {_ENV_RANK}") from None
-    except ValueError:
-        raise ValueError(
-            f"{_ENV_NPROCS}/{_ENV_RANK} must be integers (got "
-            f"{os.environ.get(_ENV_NPROCS)!r}/{os.environ.get(_ENV_RANK)!r})"
-        ) from None
-    if not 0 <= rank < nprocs:
-        raise ValueError(f"{_ENV_RANK}={rank} outside 0..{nprocs - 1} "
-                         f"({_ENV_NPROCS}={nprocs})")
     import torch.distributed as dist
-    timeout = datetime.timedelta(seconds=DIST_TIMEOUT_S)
-    if not dist.is_initialized():
-        url = coord if "://" in coord else f"tcp://{coord}"
-        dist.init_process_group("gloo", init_method=url, world_size=nprocs,
-                                rank=rank, timeout=timeout)
-    elif (dist.get_world_size(), dist.get_rank()) != (nprocs, rank):
-        raise ValueError(
-            f"{_ENV_NPROCS}={nprocs}/{_ENV_RANK}={rank} disagree with this "
-            f"process's group (world {dist.get_world_size()}, rank "
-            f"{dist.get_rank()})")
+    nprocs, rank = dist.get_world_size(), dist.get_rank()
     gloo = (dist.group.WORLD if dist.get_backend() == "gloo"
-            else dist.new_group(backend="gloo", timeout=timeout))
+            else dist.new_group(backend="gloo", timeout=datetime.timedelta(
+                seconds=DIST_TIMEOUT_S)))
     hosts = [None] * nprocs
     dist.all_gather_object(hosts, socket.gethostname(), group=gloo)
     _group = _Group(world=nprocs, rank=rank, gloo=gloo,
@@ -199,8 +172,7 @@ def rank_device(device: str | torch.device = "cuda") -> torch.device:
     n_world, rank = world()
     if dev.type != "cuda" or dev.index is not None or n_world == 1:
         return dev
-    local = os.environ.get("LOCAL_RANK", "").strip()
-    idx = int(local) if local else rank % torch.cuda.device_count()
+    idx = card_index(rank)
     torch.cuda.set_device(idx)
     return torch.device("cuda", idx)
 

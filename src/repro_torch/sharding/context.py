@@ -148,6 +148,18 @@ def batch_heads_placements(mesh, batch: int, head_dim: int | None = None):
     return tuple(out)
 
 
+def row_block(mesh, placements) -> tuple[int, int]:
+    """(this rank's block, blocks) of a tensor's rows (dim 0) under
+    `placements` on `mesh`: the mesh dims that shard dim 0, major to minor
+    (ranks apart along the others hold the same rows)."""
+    index, n = 0, 1
+    for i, p in enumerate(placements):
+        if p.is_shard(0):
+            index = index * mesh.size(i) + mesh.get_local_rank(i)
+            n *= mesh.size(i)
+    return index, n
+
+
 def on_local_shards(fn, args: tuple, in_placements: tuple, out_placements,
                     grad_placements: tuple | None = None):
     """fn over the local shards of DTensor `args`, each first redistributed

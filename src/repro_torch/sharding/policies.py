@@ -471,6 +471,20 @@ def distribute(tree: Tree, shardings: Tree, mesh) -> Tree:
                  tree, shardings)
 
 
+def local_slice(full: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's shard of `full` (the whole tensor, held by this rank)
+    under `placements` on `mesh`, as `distribute` would keep it, taken
+    without a collective: each mesh dim that shards a tensor dim splits it
+    in its turn, major to minor (a view of `full`)."""
+    out = full
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            parts = torch.chunk(out, mesh.size(i), dim=p.dim)
+            k = mesh.get_local_rank(i)
+            out = parts[k] if k < len(parts) else out.narrow(p.dim, 0, 0)
+    return out
+
+
 def meta_dtensors(shapes: Tree, shardings: Tree, mesh) -> Tree:
     """Each leaf of a tree of meta tensors as a DTensor whose local shard
     is a meta tensor of the shard's shape (nothing allocated): the dry

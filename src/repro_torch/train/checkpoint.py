@@ -246,16 +246,30 @@ class CheckpointManager:
         return None
 
     def restore(self, template: Tree, step: int | None = None,
-                device: str | torch.device = "cuda", host_id: int = 0
+                device: str | torch.device = "cuda", host_id: int = 0,
+                shardings: Tree | None = None, mesh=None
                 ) -> tuple[Tree, dict]:
         """Restore onto `template`'s structure, every leaf a tensor on
-        `device` (the reference's `shardings`: one device here).
+        `device`; or, given `shardings` (a tree of `policies.Sharding`
+        over `template`) and the `mesh` they place on, every leaf a DTensor
+        of its placements there, this rank keeping its own slice of the
+        whole array that every rank reads (`policies.local_slice`, moved
+        to the mesh's device; no collective): the reference's resharding
+        restore, onto any mesh whatever mesh wrote the checkpoint.
 
         An explicitly requested corrupt `step` raises
         `CheckpointCorruptError`.  With `step=None`, corrupt steps are
         skipped newest-first until an intact one restores (the count is
         `fallback_steps_skipped` in the returned info dict)."""
-        dev = resolve_device(device)
+        if shardings is not None:
+            if mesh is None:
+                raise ValueError("restore: shardings need the mesh they "
+                                 "place on")
+            dev = (torch.device("cuda", torch.cuda.current_device())
+                   if mesh.device_type == "cuda"
+                   else torch.device(mesh.device_type))
+        else:
+            dev = resolve_device(device)
         explicit = step is not None
         steps = [step] if explicit else list(reversed(self.all_steps()))
         if not steps:
@@ -266,7 +280,12 @@ class CheckpointManager:
         last_err: Exception | None = None
         for s in steps:
             try:
-                tree, info = self._restore_step(template, s, dev, host_id)
+                # with shardings: whole on the host, each rank's slice moved
+                tree, info = self._restore_step(
+                    template, s, dev if shardings is None
+                    else torch.device("cpu"), host_id)
+                if shardings is not None:
+                    tree = _placed(tree, shardings, mesh, dev)
                 info["fallback_steps_skipped"] = skipped
                 return tree, info
             except CheckpointCorruptError as e:
@@ -291,3 +310,18 @@ class CheckpointManager:
             leaves[key] = torch.as_tensor(a).to(device)
         tree = unflatten(template, leaves)
         return tree, {"step": meta["step"], **meta["extras"]}
+
+
+def _placed(tree: Tree, shardings: Tree, mesh, device) -> Tree:
+    """A restored tree's whole host tensors as DTensors of their
+    shardings' placements, each rank's slice on `device`."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.sharding.policies import _walk, local_slice
+
+    def one(_, full, sh):
+        local = local_slice(full, mesh, sh.placements).to(
+            device, copy=True, memory_format=torch.contiguous_format)
+        return DTensor.from_local(local, mesh, sh.placements,
+                                  run_check=False, shape=full.shape,
+                                  stride=full.stride())
+    return _walk(one, tree, shardings)

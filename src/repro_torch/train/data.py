@@ -5,7 +5,8 @@ exactly its shard of any step without coordination, and a run resumed at
 step k sees the same global batch bit for bit.  The stream has learnable
 structure (a periodic pattern 75% of the time), so a small model's loss
 falls visibly.  The blocks are made with numpy, as the reference's, and
-handed out as torch tensors on an explicit device.
+handed out as torch tensors on an explicit device, or on a mesh as
+DTensors whose local shards each rank makes for itself.
 """
 from __future__ import annotations
 
@@ -57,16 +58,26 @@ def host_shard(cfg: DataConfig, step: int, host_id: int, n_hosts: int
 
 class SyntheticDataset:
     """Iterator over {"tokens", "labels"} batches, deterministic in (seed,
-    step): int64 tensors of (B / n_hosts, seq) on `device`."""
+    step): int64 tensors of (B / n_hosts, seq) on `device`.  On a `mesh`,
+    each leaf is a DTensor of the global (B, seq) in `placements` (the
+    batch's, `policies.batch_specs`), and this rank makes the rows of its
+    data coordinate, `host_shard(cfg, step, index, blocks)`
+    (`sharding.context.row_block`)."""
 
     def __init__(self, cfg: DataConfig, start_step: int = 0,
                  host_id: int = 0, n_hosts: int = 1,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", mesh=None,
+                 placements: tuple | None = None):
         self.cfg = cfg
         self.step = start_step
         self.host_id = host_id
         self.n_hosts = n_hosts
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.placements = placements
+        if mesh is not None:
+            from repro_torch.sharding.context import row_block
+            self.host_id, self.n_hosts = row_block(mesh, placements)
 
     def __iter__(self):
         return self
@@ -76,7 +87,17 @@ class SyntheticDataset:
                                             self.n_hosts).astype(np.int64))
         self.step += 1
         block = block.to(self.device)
-        return {"tokens": block[:, :-1], "labels": block[:, 1:]}
+        batch = {"tokens": block[:, :-1], "labels": block[:, 1:]}
+        if self.mesh is None:
+            return batch
+        from torch.distributed.tensor import DTensor
+        shape = (self.cfg.global_batch, self.cfg.seq)
+        # contiguous: a DTensor's view rules read its global strides
+        return {k: DTensor.from_local(v.contiguous(), self.mesh,
+                                      self.placements,
+                                      run_check=False, shape=shape,
+                                      stride=(self.cfg.seq, 1))
+                for k, v in batch.items()}
 
     def state(self) -> dict:
         return {"step": self.step}

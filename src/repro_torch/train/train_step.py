@@ -20,7 +20,6 @@ vocab-sharded head (`chunked_ce_loss`).
 """
 from __future__ import annotations
 
-import math
 from typing import Any, Callable
 
 import torch
@@ -30,7 +29,7 @@ from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.kernels import costs
 from repro_torch.models.model import Model
 from repro_torch.sharding.context import (batch_heads_placements, is_dtensor,
-                                          on_local_shards)
+                                          on_local_shards, row_block)
 from repro_torch.train.compression import compress_decompress
 from repro_torch.train.optimizer import Optimizer, global_norm
 
@@ -272,9 +271,7 @@ def _rows(v, lo: int, n: int):
         return DTensor.from_local(local[lo:lo + n], mesh, pl,
                                   run_check=False)
     from torch.distributed.tensor import Replicate
-    block = 0
-    for i in cut:                   # major to minor, in mesh order
-        block = block * mesh.size(i) + mesh.get_local_rank(i)
+    block, dp = row_block(mesh, pl)
     n_loc = local.shape[0]
     start = block * n_loc
     a, b = max(lo, start), min(lo + n, start + n_loc)
@@ -286,7 +283,6 @@ def _rows(v, lo: int, n: int):
     whole = torch.empty(shape, device="meta")
     got = DTensor.from_local(out, mesh, partial, run_check=False,
                              shape=whole.shape, stride=whole.stride())
-    dp = math.prod(mesh.size(i) for i in cut)
     return got.redistribute(mesh, pl if n % dp == 0 else tuple(
         Replicate() if i in cut else p for i, p in enumerate(pl)))
 

@@ -460,6 +460,7 @@ def test_moe_lb_loss_term_on_the_reference_routes(monkeypatch):
         return dispatch(params, x, cfg, swiglu)
     monkeypatch.setattr(jax_moe, "_moe_dispatch", recording)
     jloss, jaux = j_make_loss_fn(jm)(jp, jb)
+    jax.effects_barrier()       # every recorded route is in `routes`
     with routes.replay():
         loss, aux = make_loss_fn(m)(p, tb)
     routes.check("deepseek-moe smoke")
@@ -646,5 +647,6 @@ def test_launch_train_cli_on_cpu(tmp_path):
     argv = ["--arch", "mamba2-370m", "--smoke", "--steps", "4", "--device",
             "cpu", "--ckpt-dir", str(tmp_path / "cli")]
     assert launch_train.main(argv) == 0
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(ValueError, match="REPRO_DIST_COORD, "
+                       "REPRO_DIST_NPROCS and REPRO_DIST_RANK"):
         launch_train.main(argv + ["--data-parallel", "2"])
