@@ -24,11 +24,20 @@ Phases (each prints its lines; the run exits 0 only if every phase passes):
     uniform, randint and choice (neighbour-validity weights; also at
     B = 45), torch.equal, graph-timed with the inputs outside L2 beside
     the bytes bound in 32-bit words and in the int64 key layout;
-    the TD step's batch-invariant products and sums
-    (`csrc/batched_linear.cu`) at G = 45 agents within 1e-5 of their plain
-    versions, agent 0 alone equal bit for bit to agent 0 of 45, and a
-    whole TD step's wall, host issue and device time at G = 1 and 45,
-    kernels against plain torch in turns;
+    the TD step's kernels (`[batched_linear]`): `td_grad`
+    (`csrc/td_grad.cu`, forward, loss and backward in one launch) at G 1,
+    3 and 45 agents and state 106, 24 and 298 within rtol 1e-5 of its
+    plain versions (the card path before it, and plain torch), two runs
+    and agent 0 alone equal bit for bit, agents not ready exactly 0;
+    `adamw_lanes` (`csrc/adamw_lanes.cu`, the clipped AdamW step in one
+    launch) torch.equal to the card path's update at G 1, 3 and 45; both
+    graph-timed beside their bound and their plain versions' device time;
+    the batch-invariant products and sums (`csrc/batched_linear.cu`, now
+    the TD step of shapes td_grad does not cover) at G = 45 within 1e-5
+    of their plain versions, agent 0 alone equal bit for bit to agent 0 of
+    45; a whole TD step's wall, host
+    issue and device time and launches at G = 1 and 45, the new kernels,
+    the card path before them and plain torch in turns;
     then kernels 1-3 at the batched engine's widths on the figure grid
     (shared stage with the TOM fold at B = 15 lanes, route stage and
     fused launch at B = 45 cells, qnet at G = 45), equal to their plain
@@ -92,8 +101,8 @@ Phases (each prints its lines; the run exits 0 only if every phase passes):
  5d. the planning layer (`[plan]`): shape_applicable, model_flops,
     memory_bytes and the card's Roofline for every arch x shape; the
     mapper's dueling_qnet at state 24 (N 1 and 64) within 1e-4 and its TD
-    step's batched_linear products at K 24 within 1e-5 of their plain
-    versions; then its main path, `core/sharding_mapper.search` for every
+    step's td_grad at state 24 as `[batched_linear]` holds it; then its
+    main path, `core/sharding_mapper.search` for every
     arch at train_4k on a (16, 16) mesh of H100s (300 steps, seed 0)
     beside `exhaustive_best`, and jamba-1.5-large-398b's OOM escape on
     (8, 8), the AIMM kernels' counts set to 0 just before and read just
@@ -698,16 +707,17 @@ def phase_sweep_widths(dev, floor: float) -> dict[str, dict]:
     return out
 
 
-def td_agents(dev, G: int):
+def td_agents(dev, G: int, hidden: tuple[int, ...] = (128, 128)):
     """G fresh agents of the paper's Q network (state 106, hidden 128 x 2,
-    8 actions) with full replays of random transitions, so a TD step
-    samples, trains and updates every agent."""
+    8 actions; another hidden shape if given) with full replays of random
+    transitions, so a TD step samples, trains and updates every agent."""
     import dataclasses
     import torch
     from repro_torch.core import agent as agent_mod
     from repro_torch.nmp.config import NMPConfig
     from repro_torch.nmp.engine import default_agent_cfg
     cfg = default_agent_cfg(NMPConfig())
+    cfg = cfg._replace(dqn=dataclasses.replace(cfg.dqn, hidden=hidden))
     ag = agent_mod.cold_start(torch.arange(G, device=dev), cfg)
     rb = ag.replay
     gen = torch.Generator(device=dev)
@@ -721,26 +731,50 @@ def td_agents(dev, G: int):
     return ag.replace(replay=rb), cfg
 
 
-def td_step_times(dev, G: int, plain: bool) -> dict:
-    """One TD step (`agent.train`: minibatch draw, Q forward, autograd
-    backward, clipped Adam) for G agents, eager: the wall per step over 30
-    steps ending in a synchronize, the host's issue time per step (the same
-    loop timed without the synchronize: the host is the bound when it is
-    close to the wall), the device's kernel time per step from
-    torch.profiler, and the launches of the TD step's own kernels.  With
-    `plain` the Q layers and the gradient norm are the plain torch versions
-    (cuBLAS bmm, torch sums: the parent's TD step)."""
+# the TD step's three ways on the card: the port's kernels (one td_grad and
+# one adamw_lanes launch), the card path before them (autograd over
+# batched_linear's products, its sq_norm and update_lanes' torch ops: the
+# two kernels' plain versions on the card), and that with cuBLAS products
+# and torch sums in place of batched_linear (all plain torch)
+TD_PATHS = ("kernels", "card", "plain")
+# the TD step's state widths: Table 1, the sharding mapper, the 8x8 mesh
+TD_STATES = (106, 24, 298)
+
+
+@contextlib.contextmanager
+def td_path(mode: str):
+    """Run the TD step (`dqn.td_loss_and_grads`, `update_lanes`) the
+    TD_PATHS way `mode` within the block."""
+    from repro_torch.kernels.adamw_lanes import ops as aops
+    from repro_torch.kernels.adamw_lanes import ref as aref
+    from repro_torch.kernels.batched_linear import ref as lref
+    from repro_torch.kernels.td_grad import ops as gops
+    from repro_torch.kernels.td_grad import ref as gref
+    if mode not in TD_PATHS:
+        raise ValueError(f"td_path: {mode!r} not in {TD_PATHS}")
+    saved = gops.td_grad, aops.adamw_lanes, gref.linear, aref.sq_norm
+    if mode != "kernels":
+        gops.td_grad, aops.adamw_lanes = gref.td_grad, aref.adamw_lanes
+    if mode == "plain":
+        gref.linear, aref.sq_norm = lref.linear, lref.sq_norm
+    try:
+        yield
+    finally:
+        gops.td_grad, aops.adamw_lanes, gref.linear, aref.sq_norm = saved
+
+
+def td_step_times(dev, G: int, mode: str) -> dict:
+    """One TD step (`agent.train`: minibatch draw, targets, loss and
+    gradients, clipped Adam) for G agents, eager, the TD_PATHS way `mode`:
+    the wall per step over 30 steps ending in a synchronize, the host's
+    issue time per step (the same loop timed without the synchronize: the
+    host is the bound when it is close to the wall), the device's kernel
+    time and launches per step from torch.profiler, and one step's
+    launches of the TD step's own kernels."""
     import torch
     from repro_torch.core import agent as agent_mod
-    from repro_torch.core import dqn
-    from repro_torch.kernels.batched_linear import ops as lops
-    from repro_torch.kernels.batched_linear import ref as lref
-    from repro_torch.train import optimizer
     ag, cfg = td_agents(dev, G)
-    saved = dqn.linear, optimizer.sq_norm
-    if plain:
-        dqn.linear, optimizer.sq_norm = lref.linear, lref.sq_norm
-    try:
+    with td_path(mode):
         step = lambda: agent_mod.train(ag, cfg)
         for _ in range(5):
             step()
@@ -752,34 +786,265 @@ def td_step_times(dev, G: int, plain: bool) -> dict:
         issue = (time.perf_counter() - t0) / n
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / n
-        before = lops.launches["batched_linear"]
+        ops = aimm_kernel_ops()
+        before = [dict(o.launches) for o in ops]
         step()
-        kern = lops.launches["batched_linear"] - before
+        kern = {k: v - b[k] for o, b in zip(ops, before)
+                for k, v in o.launches.items() if v - b[k]}
         _, rows = profiled(lambda: [step() for _ in range(10)])
-    finally:
-        dqn.linear, optimizer.sq_norm = saved
     return dict(wall_ms=wall * 1e3, issue_ms=issue * 1e3,
                 device_ms=sum(r[0] for r in rows) / 10 / 1e3,
                 launches=sum(r[1] for r in rows) / 10, kernel_launches=kern)
 
 
-def phase_batched_linear(dev, floor: float) -> dict:
-    """The TD step's batch-invariant products and sums on the card, at the
-    grid's learned group (G = 45 agents, 64 replay rows, state 106, hidden
-    128): the first layer's forward (product and bias, one launch), its
-    input gradient, its weight and bias gradients (one launch) and the
-    gradient norm over the Q network's 8 leaves (one launch), each within
-    rtol 1e-5 of its plain version (cuBLAS / torch sums, another order) and
-    agent 0's result at G = 45 equal bit for bit to the same agent alone
-    (G = 1): the property the kernels exist for.  Graph-timed beside the
-    plain version and, for the forward, one library call (torch.baddbmm).
-    Then one whole TD step at G = 1 and G = 45, kernels and plain in turns
-    (kernels, plain, plain, kernels): wall, host issue and device time per
-    step, so the host's share of the step is measured, not guessed."""
+def td_inputs(dev, G: int, S: int, ready=None):
+    """G agents of the paper's Q network at state S (biases random, weights
+    off the seeded init by noise, so the agents differ) and a minibatch for
+    `td_grad`: s (G, 64, S), a, y, w (a fifth of the rows masked) and
+    `ready` (given, else every third agent from the second not ready),
+    the rows of an agent not ready masked as `train_step` masks them."""
     import torch
+    from repro_torch.core import dqn, prng
+    cfg = dqn.DQNConfig(state_dim=S)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1000 * S + G)
+    rnd = lambda *sh: torch.randn(sh, generator=gen, device=dev)
+    params = dqn.init_params(prng.PRNGKey(S, dev), cfg, G, dev)
+    params = {k: v + (0.1 if k.startswith("b") else 0.02) * rnd(*v.shape)
+              for k, v in params.items()}
+    if ready is None:
+        ready = torch.ones(G, device=dev)
+        ready[1::3] = 0.0
+    w = (torch.rand((G, 64), generator=gen, device=dev) < 0.8).to(
+        torch.float32) * ready[:, None]
+    a = torch.randint(0, cfg.n_actions, (G, 64), generator=gen, device=dev,
+                      dtype=torch.int32)
+    return params, (rnd(G, 64, S), a, rnd(G, 64), w, ready, cfg)
+
+
+def _loss_and_leaves(res) -> list:
+    return [("loss", res[0])] + list(res[1].items())
+
+
+def hold_td_grad(dev, G: int, S: int, ready=None) -> dict:
+    """`td_grad` for G agents at state S against its plain version on the
+    same inputs, on the card the card path (td_grad/ref.py over
+    batched_linear) and all plain torch (cuBLAS): the loss and every
+    gradient leaf within rtol 1e-5 and atol 1e-5 x the plain leaf's max
+    |value| (another order of the same float32 sums); two runs torch.equal;
+    the gradients of agents not ready exactly 0; agent 0 alone torch.equal
+    to agent 0 of G.  Returns the largest differences, and whether the
+    kernel's results are torch.equal to the card path's."""
+    import torch
+    from repro_torch.kernels.td_grad import ops as gops
+    from repro_torch.kernels.td_grad import ref as gref
+    params, args = td_inputs(dev, G, S, ready)
+    got = _loss_and_leaves(gops.td_grad(params, *args))
+    again = _loss_and_leaves(gops.td_grad(params, *args))
+    if not all(torch.equal(a_, b_) for (_, a_), (_, b_) in zip(got, again)):
+        raise AssertionError(f"td_grad G={G} S={S}: two runs differ")
+    card = _loss_and_leaves(gref.td_grad(params, *args))
+    with td_path("plain"):
+        plain = _loss_and_leaves(gref.td_grad(params, *args))
+    rec = {}
+    for label, want in (("card", card), ("plain", plain)):
+        errs = {}
+        for (k, g_), (_, w_) in zip(got, want):
+            errs[k] = (g_ - w_).abs().max().item()
+            atol = 1e-5 * w_.abs().max().item()
+            if not torch.allclose(g_, w_, rtol=1e-5, atol=atol):
+                raise AssertionError(
+                    f"td_grad G={G} S={S} {k}: beyond rtol 1e-5, atol "
+                    f"{atol:.3g} of the {label} path (max abs err "
+                    f"{errs[k]:.3g})")
+        rec[label] = errs
+    rec["equal_card"] = {k: torch.equal(g_, w_)
+                         for (k, g_), (_, w_) in zip(got, card)}
+    off = args[4] == 0
+    if any(g_[off].any() for _, g_ in got[1:]):
+        raise AssertionError(f"td_grad G={G} S={S}: an agent not ready has "
+                             f"a non-zero gradient")
+    if G > 1:
+        alone = _loss_and_leaves(gops.td_grad(
+            {k: v[:1] for k, v in params.items()},
+            *(t[:1] for t in args[:5]), args[5]))
+        if not all(torch.equal(a_[0], g_[0])
+                   for (_, a_), (_, g_) in zip(alone, got)):
+            raise AssertionError(f"td_grad S={S}: agent 0 alone differs "
+                                 f"from agent 0 of {G}")
+    return rec
+
+
+def adamw_case(dev, G: int):
+    """(grads, state, params, step) of G agents of the paper's network for
+    the agents' AdamW (`adamw(lr, grad_clip=1.0)` with a (G,) step): every
+    third agent from the second has zero gradients (not ready)."""
+    import torch
+    from repro_torch.core import dqn
+    params, args = td_inputs(dev, G, 106)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(G)
+    rnd = lambda t, sc: sc * torch.randn(t.shape, generator=gen, device=dev)
+    grads = {k: rnd(v, 0.3) * args[4].reshape((-1,) + (1,) * (v.dim() - 1))
+             for k, v in params.items()}
+    state = {"m": {k: rnd(v, 1e-3) for k, v in params.items()},
+             "v": {k: rnd(v, 1e-3).square() for k, v in params.items()}}
+    step = torch.arange(G, device=dev, dtype=torch.int32) * 5 + 3
+    return grads, state, params, step, dqn.DQNConfig(state_dim=106)
+
+
+def hold_adamw_lanes(dev, G: int) -> float:
+    """`adamw_lanes` through `update_lanes` (the agents' clipped AdamW) for
+    G agents: new params, m and v torch.equal to the card path's (the
+    batched_linear norm and the torch ops) for the same gradients, and
+    within rtol 1e-5 (atol 1e-5 x the leaf's max) of all plain torch (the
+    norm's sums in torch's order).  Returns the largest difference to all
+    plain torch."""
+    import torch
+    from repro_torch.train.optimizer import adamw
+    grads, state, params, step, cfg = adamw_case(dev, G)
+    opt = adamw(cfg.lr, grad_clip=cfg.grad_clip)
+    outs = {}
+    for mode in TD_PATHS:
+        with td_path(mode):
+            p, s = opt.update(grads, state, params, step)
+        outs[mode] = [p[k] for k in p] + [s[w][k] for w in ("m", "v")
+                                           for k in p]
+    if not all(torch.equal(a_, b_) for a_, b_ in zip(outs["kernels"],
+                                                     outs["card"])):
+        raise AssertionError(f"adamw_lanes G={G}: differs from the card "
+                             f"path's update")
+    err = max_abs_err(outs["kernels"], outs["plain"])
+    for a_, b_ in zip(outs["kernels"], outs["plain"]):
+        if not torch.allclose(a_, b_, rtol=1e-5,
+                              atol=1e-5 * b_.abs().max().item()):
+            raise AssertionError(f"adamw_lanes G={G}: beyond 1e-5 of all "
+                                 f"plain torch ({err:.3g})")
+    return err
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """The device's kernel time per call of fn (eager), summed from
+    torch.profiler over `reps` warm calls."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    _, rows = profiled(lambda: [fn() for _ in range(reps)])
+    return sum(r[0] for r in rows) / reps / 1e3
+
+
+def td_grad_cost(G: int, S: int, N: int = 64, H: int = 128,
+                 A: int = 8) -> tuple[float, float]:
+    """(bytes, FLOP) one td_grad launch must move and do: the weights,
+    minibatch, targets, row weights, actions and `ready` read once, the
+    loss and the gradients written once; the forward, head and dueling
+    combine, and the backward products (dW0, dW1, dh1, the head's)."""
+    n_par = S * H + H + H * H + H + H * (A + 1) + A + 1
+    nbytes = G * 4 * (2 * n_par + N * S + 3 * N + 1 + 1)
+    fwd = N * (S * H + H * H + H * (A + 1))
+    bwd = S * H * N + H * H * N + N * H * H + 2 * H * (A + 1) * N
+    return nbytes, G * 2 * (fwd + bwd)
+
+
+def phase_batched_linear(dev, floor: float) -> list[dict]:
+    """The TD step's kernels on the card.  `td_grad` (forward, loss and
+    backward in one launch) at G 1, 3 and 45 agents and state 106, 24 and
+    the 8x8 mesh's 298, and with every agent not ready (`hold_td_grad`);
+    `adamw_lanes` (the clipped AdamW step in one launch) at G 1, 3 and 45
+    with agents not ready (`hold_adamw_lanes`); each graph-timed at the
+    grid's learned group (G = 45, state 106) and alone (G = 1) beside its
+    bound, the launch floor and the device time of its plain versions on
+    the card (the card path and all plain torch, from torch.profiler).
+    Then `batched_linear`'s batch-invariant products and sums (the TD
+    step's for network shapes td_grad does not cover) at G = 45: the first
+    layer's forward, its input gradient, its weight and bias gradients and
+    the gradient norm over 8 leaves, each within rtol 1e-5 of its plain
+    version and agent 0's result at G = 45 equal bit for bit to the same
+    agent alone, graph-timed beside the plain version and one library call
+    where there is one.
+    Last, one whole TD step at G = 1 and G = 45 the three TD_PATHS ways in
+    turns (kernels, card, plain, plain, card, kernels): wall, host issue
+    and device time and launches per step."""
+    import torch
+    from repro_torch.kernels.adamw_lanes import ops as aops
+    from repro_torch.kernels.adamw_lanes import ref as aref
     from repro_torch.kernels.batched_linear import ops as lops
     from repro_torch.kernels.batched_linear import ref as lref
+    from repro_torch.kernels.td_grad import ops as gops
+    from repro_torch.kernels.td_grad import ref as gref
     G, N, S_, H = GRID_AIMM_LANES * len(GRID_SEEDS), 64, 106, 128
+
+    # ---- td_grad ----
+    held = {}
+    for S in TD_STATES:
+        for g_ in (1, 3, G):
+            held[(g_, S)] = hold_td_grad(dev, g_, S)
+    held["ready 0"] = hold_td_grad(dev, 3, S_, torch.zeros(3, device=dev))
+    worst = {lab: max(max(r[lab].values()) for r in held.values())
+             for lab in ("card", "plain")}
+    unequal = sorted({(k, key) for key, r in held.items()
+                      for k, eq in r["equal_card"].items() if not eq},
+                     key=str)
+    log(f"[batched_linear] td_grad at G 1/3/{G} x S {TD_STATES} and every "
+        f"agent not ready: within rtol 1e-5, atol 1e-5 x max|leaf| of the "
+        f"card path (max abs err {worst['card']:.3g}) and of plain torch "
+        f"({worst['plain']:.3g}); two runs torch.equal; agents not ready "
+        f"exactly 0; agent 0 alone == agent 0 of 3 and of {G}")
+    if unequal:
+        big = {f"{k} {key}": held[key]["card"][k] for k, key in unequal}
+        top = sorted(big.items(), key=lambda kv: -kv[1])[:6]
+        log(f"[batched_linear] td_grad against the card path: not "
+            f"torch.equal in {len(unequal)} (leaf, case) pairs; largest "
+            f"differences {top}; at G={G} S={S_}: "
+            f"{json.dumps(held[(G, S_)]['card'])}")
+    else:
+        log("[batched_linear] td_grad against the card path: loss and "
+            "every gradient torch.equal in every case")
+    td_rec = {}
+    for g_ in (G, 1):
+        params, args = td_inputs(dev, g_, S_)
+        k_ms = graph_ms(lambda: gops.td_grad(params, *args))
+        card_ms = device_ms(lambda: gref.td_grad(params, *args))
+        with td_path("plain"):
+            plain_ms = device_ms(lambda: gref.td_grad(params, *args))
+        b_ms, b_by = bound(*td_grad_cost(g_, S_))
+        td_rec[g_] = dict(ms=k_ms, plain_ms=plain_ms, card_ms=card_ms,
+                          bound_ms=b_ms, bound_by=b_by)
+        log(f"[batched_linear] td_grad G={g_} S={S_}: kernel {k_ms:.5f} "
+            f"ms/launch (graph); device time of the card path (batched_"
+            f"linear + autograd) {card_ms:.5f} ms, of plain torch "
+            f"{plain_ms:.5f} ms (profiler); bound {b_ms:.6f} ms ({b_by}), "
+            f"launch floor {floor:.5f} ms")
+
+    # ---- adamw_lanes ----
+    a_err = {g_: hold_adamw_lanes(dev, g_) for g_ in (1, 3, G)}
+    log(f"[batched_linear] adamw_lanes at G 1/3/{G} (every third agent not "
+        f"ready): new params, m and v torch.equal to the card path's; max "
+        f"abs err to plain torch {max(a_err.values()):.3g}")
+    ad_rec = {}
+    for g_ in (G, 1):
+        grads, state, params, step, cfg = adamw_case(dev, g_)
+        t = step.to(torch.float32) + 1.0
+        call = (grads, state["m"], state["v"], params, 1 - torch.pow(0.9, t),
+                1 - torch.pow(0.999, t), torch.full_like(t, cfg.lr))
+        kw = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
+                  grad_clip=cfg.grad_clip)
+        k_ms = graph_ms(lambda: aops.adamw_lanes(*call, **kw))
+        card_ms = device_ms(lambda: aref.adamw_lanes(*call, **kw))
+        with td_path("plain"):
+            plain_ms = device_ms(lambda: aref.adamw_lanes(*call, **kw))
+        n = sum(v[0].numel() for v in params.values())
+        b_ms, b_by = bound(g_ * (28 * n + 12), g_ * 18 * n)
+        ad_rec[g_] = dict(ms=k_ms, plain_ms=plain_ms, card_ms=card_ms,
+                          bound_ms=b_ms, bound_by=b_by)
+        log(f"[batched_linear] adamw_lanes G={g_} ({n} values an agent): "
+            f"kernel {k_ms:.5f} ms/launch (graph); device time of the card "
+            f"path (sq_norm + torch ops) {card_ms:.5f} ms, of plain torch "
+            f"{plain_ms:.5f} ms (profiler); bound {b_ms:.6f} ms ({b_by}), "
+            f"launch floor {floor:.5f} ms")
+
+    # ---- batched_linear: the products of shapes td_grad does not cover ----
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
     rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
@@ -815,9 +1080,6 @@ def phase_batched_linear(dev, floor: float) -> dict:
                    for a_, g_ in zip(_tensors(alone), _tensors(got))):
             raise AssertionError(f"batched_linear {name}: agent 0 alone "
                                  f"differs from agent 0 of {G}")
-        plain_alone = plain(*(t[:1] for t in args))
-        plain_inv = all(torch.equal(a_[0], g_[0]) for a_, g_ in zip(
-            _tensors(plain_alone), _tensors(want)))
         k_ms = graph_ms(lambda: kern(*args))
         p_ms = graph_ms(lambda: plain(*args))
         b_ms, b_by = bound(G * nbytes, G * flops)
@@ -825,11 +1087,10 @@ def phase_batched_linear(dev, floor: float) -> dict:
                          max_abs_err=max_abs_err(got, want))
         log(f"[batched_linear] {name} G={G}: within 1e-5 of plain (max abs "
             f"err {rec[name]['max_abs_err']:.3g}), agent 0 alone == agent 0"
-            f" of {G} (plain: {'==' if plain_inv else 'differs'}); kernel "
-            f"{k_ms:.5f} ms/launch (graph), plain {p_ms:.5f} ms, bound "
-            f"{b_ms:.6f} ms ({b_by}), launch floor {floor:.5f} ms")
+            f" of {G}; kernel {k_ms:.5f} ms/launch (graph), plain "
+            f"{p_ms:.5f} ms, bound {b_ms:.6f} ms ({b_by}), launch floor "
+            f"{floor:.5f} ms")
     lib_ms = graph_ms(lambda: torch.baddbmm(bias[:, None, :], x, w))
-    log(f"[batched_linear] fwd G={G}: library torch.baddbmm {lib_ms:.5f} ms")
     # the input and weight gradients' products as one library call each
     # (dW alone: no single call also sums db, nor takes the norm of 8
     # leaves)
@@ -837,40 +1098,60 @@ def phase_batched_linear(dev, floor: float) -> dict:
     lib_dw = graph_ms(lambda: torch.bmm(x.transpose(1, 2), dy))
     rec["dx"]["library_ms"] = lib_dx
     rec["dw_db"]["library_dw_ms"] = lib_dw
-    log(f"[batched_linear] dx G={G}: library torch.bmm {lib_dx:.5f} ms; "
-        f"dW alone: torch.bmm {lib_dw:.5f} ms (no single library call "
-        f"computes dW + db, or the norm over 8 leaves)")
-    # host cost of one wrapper call against one torch call, G = 1 (eager:
-    # both host-bound at this size)
-    x1, w1, b1 = x[:1], w[:1], bias[:1]
-    host_k = eager_ms(lambda: lops.bgemm(x1, w1, b1))
-    host_t = eager_ms(lambda: torch.baddbmm(b1[:, None, :], x1, w1))
-    log(f"[batched_linear] one eager call at G=1 (host-bound): kernel "
-        f"wrapper {host_k:.5f} ms, torch.baddbmm {host_t:.5f} ms")
+    log(f"[batched_linear] library calls G={G}: fwd torch.baddbmm "
+        f"{lib_ms:.5f} ms, dx torch.bmm {lib_dx:.5f} ms; dW alone: "
+        f"torch.bmm {lib_dw:.5f} ms (no single library call computes dW + "
+        f"db, or the norm over 8 leaves)")
+    # ---- the whole TD step, the three ways in turns ----
     td = {}
     for g_ in (1, G):
-        for plain in (False, True, True, False):
-            r = td_step_times(dev, g_, plain)
-            td.setdefault((g_, plain), []).append(r)
-            log(f"[batched_linear] TD step G={g_} "
-                f"{'plain torch' if plain else 'kernels'}: wall "
+        for mode in TD_PATHS + TD_PATHS[::-1]:
+            r = td_step_times(dev, g_, mode)
+            td.setdefault((g_, mode), []).append(r)
+            log(f"[batched_linear] TD step G={g_} {mode}: wall "
                 f"{r['wall_ms']:.4f} ms/step, host issue {r['issue_ms']:.4f} "
                 f"ms, device {r['device_ms']:.4f} ms in {r['launches']:.0f} "
-                f"launches ({r['kernel_launches']} batched_linear)")
+                f"launches ({json.dumps(r['kernel_launches'])})")
+    steps = {f"td_G{g_}_{mode}_{k}": [r[k] for r in rs]
+             for (g_, mode), rs in td.items()
+             for k in ("wall_ms", "issue_ms", "device_ms", "launches")}
+    none_xla = ("none: XLA's {} of the TD step (src/repro/core/dqn.py "
+                "td_loss under jax.value_and_grad, src/repro/core/agent.py:"
+                "181-200), no pallas_call")
     first = rec["fwd"]
-    return dict(
+    bl = dict(
         name="batched_linear", route="cuda",
         source="src/repro_torch/csrc/batched_linear.cu",
-        replaces="none: XLA's dot_general and reductions of the TD step "
-                 "(src/repro/core/dqn.py td_loss under jax.value_and_grad), "
-                 "no pallas_call",
+        replaces=none_xla.format("dot_general and reductions"),
         **first, library_ms=lib_ms, launch_floor_ms=floor,
-        host_call_ms=host_k, host_call_torch_ms=host_t,
+        path="the TD step of networks td_grad does not cover; no main "
+             "path trains one (they train the paper's network through "
+             "td_grad), so its launches are 0 and it stays as the card "
+             "path before td_grad, the yardstick td_grad and adamw_lanes "
+             "are held to",
         **{f"{m}_{k}": v for m, r in rec.items() for k, v in r.items()
-           if m != "fwd"},
-        **{f"td_G{g_}_{'plain' if p else 'kernels'}_{k}":
-           [r[k] for r in rs] for (g_, p), rs in td.items()
-           for k in ("wall_ms", "issue_ms", "device_ms")})
+           if m != "fwd"})
+    tg = dict(
+        name="td_grad", route="cuda", source="src/repro_torch/csrc/td_grad.cu",
+        replaces=none_xla.format("dot_general, reductions and autodiff"),
+        max_abs_err=worst["plain"], **td_rec[G], library_ms=None,
+        library_note="no single PyTorch call computes a network's forward, "
+                     "loss and backward",
+        max_abs_err_card_path=worst["card"],
+        torch_equal_card_path=not unequal, launch_floor_ms=floor,
+        **{f"G1_{k}": v for k, v in td_rec[1].items()}, **steps)
+    ad = dict(
+        name="adamw_lanes", route="cuda",
+        source="src/repro_torch/csrc/adamw_lanes.cu",
+        replaces="none: XLA's clipped AdamW of the TD step "
+                 "(src/repro/train/optimizer.py adamw, vmapped by "
+                 "src/repro/core/agent.py:196), no pallas_call",
+        max_abs_err=max(a_err.values()), **ad_rec[G], library_ms=None,
+        library_note="no single PyTorch call clips each agent's gradients "
+                     "by its own norm and updates them",
+        torch_equal_card_path=True, launch_floor_ms=floor,
+        **{f"G1_{k}": v for k, v in ad_rec[1].items()})
+    return [bl, tg, ad]
 
 
 def cold_graph_ms(fn, inputs: list, reps: int = 24) -> float:
@@ -1685,7 +1966,7 @@ def phase_main_path(dev) -> dict[str, int]:
     import torch
     from repro_torch.kernels.dueling_qnet import ops as qops
     from repro_torch.kernels.epoch_fused import ops as eops
-    from repro_torch.kernels.batched_linear import ops as lops
+    from repro_torch.kernels.td_grad import ops as gops
     from repro_torch.kernels.threefry import ops as tops
     from repro_torch.nmp.config import NMPConfig
     from repro_torch.nmp.engine import run_episode, run_program
@@ -1695,10 +1976,7 @@ def phase_main_path(dev) -> dict[str, int]:
     tr = make_trace("BP", n_ops=BP_OPS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    eops.reset_launches()
-    qops.reset_launches()
-    tops.reset_launches()
-    lops.reset_launches()
+    reset_aimm_launches()
     t0 = time.perf_counter()
     results = run_program(tr, cfg, "bnmp", "aimm", episodes=2, seed=0,
                           device=dev)
@@ -1710,8 +1988,9 @@ def phase_main_path(dev) -> dict[str, int]:
     tom = run_episode(tr, cfg, "pei", "tom", seed=0, device=dev)
     torch.cuda.synchronize()
     t_tom = time.perf_counter() - t0
-    launches = {**eops.launches, **qops.launches, **tops.launches,
-                **lops.launches}
+    launches = {}
+    for ops in aimm_kernel_ops():
+        launches.update(ops.launches)
     peak = torch.cuda.max_memory_allocated()
 
     epochs = 0
@@ -1746,7 +2025,9 @@ def phase_main_path(dev) -> dict[str, int]:
                  launches_standalone=launches["tom_scores"],
                  launches_folded=launches["tom_scores_folded"]),
              "threefry": {f"launches_{m}": c for m, c in
-                          sorted(tops.launches_by_mode.items())}}
+                          sorted(tops.launches_by_mode.items())},
+             "td_grad": {f"launches_{k.replace('=', '').replace(' ', '_')}":
+                         c for k, c in sorted(gops.launches_by_shape.items())}}
     log(f"[main] launches: {json.dumps(launches)}; by shape "
         f"{json.dumps(split)}")
     tom_epochs = int(tom.metrics["valid"].shape[0])
@@ -1759,7 +2040,10 @@ def phase_main_path(dev) -> dict[str, int]:
     # PEI + TOM episode draws nothing
     assert threefry_prog > 0, launches
     assert launches["threefry"] == threefry_prog, launches
-    assert launches["batched_linear"] > 0, launches
+    # the TD step: one td_grad and one adamw_lanes launch a step, no
+    # batched_linear product (the paper's network is the kernel's shape)
+    assert launches["td_grad"] == launches["adamw_lanes"] > 0, launches
+    assert launches["batched_linear"] == 0, launches
     rates = {"bnmp/aimm": 2 * 128 / t_prog, "pei/tom": 128 / t_tom}
     # the TOM scorer's count on the main path: its scorings in any form
     launches["tom_scores"] += launches.pop("tom_scores_folded")
@@ -1866,10 +2150,6 @@ def phase_grid(dev, rates: dict) -> tuple[dict, dict]:
     import math
     import numpy as np
     import torch
-    from repro_torch.kernels.dueling_qnet import ops as qops
-    from repro_torch.kernels.epoch_fused import ops as eops
-    from repro_torch.kernels.batched_linear import ops as lops
-    from repro_torch.kernels.threefry import ops as tops
     from repro_torch.nmp.config import NMPConfig
     from repro_torch.nmp.sweep import run_grid, run_grid_serial
     cfg = NMPConfig()
@@ -1877,24 +2157,23 @@ def phase_grid(dev, rates: dict) -> tuple[dict, dict]:
     assert len(grid) == 135, len(grid)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for ops in (eops, qops, tops, lops):
-        ops.reset_launches()
+    reset_aimm_launches()
     t0 = time.perf_counter()
     res = run_grid(grid, cfg, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {**eops.launches, **qops.launches, **tops.launches,
-                **lops.launches}
-    shapes = {"fused_epoch": dict(eops.launches_by_shape),
-              "dueling_qnet": dict(qops.launches_by_shape),
-              "threefry": dict(tops.launches_by_shape),
-              "batched_linear": dict(lops.launches_by_shape)}
+    launches, shapes = {}, {}
+    for ops in aimm_kernel_ops():
+        launches.update(ops.launches)
+        name = next(iter(ops.launches))
+        if name != "batched_linear":
+            shapes[name] = dict(ops.launches_by_shape)
     peak = torch.cuda.max_memory_allocated()
-    for k in ("fused_epoch", "dueling_qnet", "threefry", "batched_linear",
-              "tom_scores_folded"):
+    for k in AIMM_PATH_KERNELS + ("tom_scores_folded",):
         if not launches[k] > 0:
             raise AssertionError(f"run_grid launched no {k}: {launches}")
-    assert launches["tom_scores"] == 0, launches
+    assert launches["tom_scores"] == 0 == launches["batched_linear"], \
+        launches
     m = res.metrics
     delivered = 0
     for i, sc in enumerate(grid):
@@ -1979,11 +2258,19 @@ DRILL_N_OPS = 1024
 
 
 def aimm_kernel_ops():
+    from repro_torch.kernels.adamw_lanes import ops as aops
     from repro_torch.kernels.batched_linear import ops as lops
     from repro_torch.kernels.dueling_qnet import ops as qops
     from repro_torch.kernels.epoch_fused import ops as eops
+    from repro_torch.kernels.td_grad import ops as gops
     from repro_torch.kernels.threefry import ops as tops
-    return eops, qops, tops, lops
+    return eops, qops, tops, lops, gops, aops
+
+
+# the kernels every learned AIMM path launches (the TD step's products
+# `batched_linear` only for network shapes `td_grad` does not cover)
+AIMM_PATH_KERNELS = ("fused_epoch", "dueling_qnet", "threefry", "td_grad",
+                     "adamw_lanes")
 
 
 def reset_aimm_launches() -> None:
@@ -2055,8 +2342,7 @@ def phase_continual(dev) -> dict[str, int]:
         wall = time.perf_counter() - t0
         launches = aimm_launches()
         peak = torch.cuda.max_memory_allocated()
-        for k in ("fused_epoch", "dueling_qnet", "threefry",
-                  "batched_linear"):
+        for k in AIMM_PATH_KERNELS:
             if not launches[k] > 0:
                 raise AssertionError(f"run_stream launched no {k}: "
                                      f"{launches}")
@@ -2204,7 +2490,7 @@ def phase_serving(dev) -> dict[str, int]:
     launches = aimm_launches()
     peak = torch.cuda.max_memory_allocated()
     st = srv.stats()
-    for k in ("fused_epoch", "dueling_qnet", "threefry", "batched_linear"):
+    for k in AIMM_PATH_KERNELS:
         if not launches[k] > 0:
             raise AssertionError(f"serving launched no {k}: {launches}")
     if st["tenants_done"] != FLEET_TENANTS or st["phases_served"] != (
@@ -2683,8 +2969,7 @@ def phase_mesh(dev) -> dict[str, dict]:
     log(f"[mesh] launches by rank (grid shapes, stream and fleet): "
         f"{json.dumps(by_rank)} ({card})")
     for r, counts in by_rank.items():
-        for k in ("fused_epoch", "dueling_qnet", "threefry",
-                  "batched_linear"):
+        for k in AIMM_PATH_KERNELS:
             if not counts.get(k):
                 raise AssertionError(f"[mesh] {r} launched no {k}")
     return by_rank
@@ -4220,14 +4505,12 @@ def hold_search(arch: str, card, card_rec, cpu, cpu_rec) -> str:
 
 def plan_kernels(dev) -> None:
     """The mapper's kernels at its own widths: the dueling_qnet at state
-    24 (G 1, N 1 and 64) within 1e-4 of its plain version, and the TD
-    step's batched_linear products at K 24 (G 1, 64 replay rows, hidden
-    128) within 1e-5 of theirs."""
+    24 (G 1, N 1 and 64) within 1e-4 of its plain version, and its TD
+    step's td_grad at state 24 (G 1, 64 replay rows, hidden 128) held as
+    `hold_td_grad` holds it."""
     import torch
     from repro_torch.core import dqn, prng
     from repro_torch.core.sharding_mapper import STATE_DIM, search_agent_cfg
-    from repro_torch.kernels.batched_linear import ops as lops
-    from repro_torch.kernels.batched_linear import ref as lref
     from repro_torch.kernels.dueling_qnet import ops as qops
     from repro_torch.kernels.dueling_qnet.ref import dueling_qnet_ref
     acfg = search_agent_cfg()
@@ -4248,27 +4531,13 @@ def plan_kernels(dev) -> None:
         if not torch.allclose(got, want, rtol=1e-4, atol=1e-4):
             raise AssertionError(f"dueling_qnet S={STATE_DIM} N={n} beyond "
                                  f"1e-4 of its plain version: {errs[n]}")
-    N, K, H = acfg.dqn.batch_size, STATE_DIM, acfg.dqn.hidden[0]
-    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
-    x, w, dy, bias = rnd(1, N, K), rnd(1, K, H) * 0.1, rnd(1, N, H), rnd(1, H)
-    lerrs = {}
-    for name, kern, plain, args in (
-            ("fwd", lops.bgemm, lref.bgemm, (x, w, bias)),
-            ("dx", lambda a, b: lops.bgemm(a, b.transpose(1, 2)),
-             lambda a, b: lref.bgemm(a, b.transpose(1, 2)), (dy, w)),
-            ("dw_db", lambda a, b: lops.bgemm_colsum(a.transpose(1, 2), b),
-             lambda a, b: lref.bgemm_colsum(a.transpose(1, 2), b), (x, dy))):
-        got, want = kern(*args), plain(*args)
-        lerrs[name] = max_abs_err(got, want)
-        if not all(torch.allclose(g, v, rtol=1e-5, atol=1e-5)
-                   for g, v in zip(_tensors(got), _tensors(want))):
-            raise AssertionError(f"batched_linear {name} at K {K} beyond "
-                                 f"1e-5 of its plain version: {lerrs[name]}")
+    td = hold_td_grad(dev, 1, STATE_DIM)
     log(f"[plan] the mapper's widths: dueling_qnet S={STATE_DIM} hidden "
         f"{acfg.dqn.hidden} A={acfg.dqn.n_actions} within 1e-4 of plain "
-        f"(max abs err N=1 {errs[1]:.3g}, N=64 {errs[64]:.3g}); "
-        f"batched_linear at K {K}, {N} rows, hidden {H} within 1e-5 ("
-        + ", ".join(f"{n} {e:.3g}" for n, e in lerrs.items()) + ")")
+        f"(max abs err N=1 {errs[1]:.3g}, N=64 {errs[64]:.3g}); td_grad at "
+        f"S {STATE_DIM} within rtol 1e-5 of the card path (max abs err "
+        f"{max(td['card'].values()):.3g}) and of plain torch "
+        f"({max(td['plain'].values()):.3g})")
 
 
 def phase_plan(dev) -> dict[str, int]:
@@ -4554,7 +4823,7 @@ def main() -> int:
     kernels = timed(phase_kernels, dev)
     floor = kernels[0]["launch_floor_ms"]
     kernels.append(timed(phase_prng, dev, floor))
-    kernels.append(timed(phase_batched_linear, dev, floor))
+    kernels += timed(phase_batched_linear, dev, floor)
     widths = timed(phase_sweep_widths, dev, floor)
     timed(phase_cells, dev)
     launches, split, rates = timed(phase_main_path, dev)

@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
 """Time the 135-cell figure grid of `chip_smoke.py` (`run_grid` on the
-paper's Table-1 system) under two settings of one knob, in turns on one
-card: A, B, B, A after one warm run, each run ending in
-`torch.cuda.synchronize()`.
+paper's Table-1 system) under the settings of one knob, in turns on one
+card: A, B, B, A (A, B, C, C, B, A for three) after one warm run, each
+run ending in `torch.cuda.synchronize()`.
 
     python3 grid_in_turns.py [--vary land td_step]
 
 `land`: REPRO_SWEEP_LAND=async (A, the default) against sync (B); every
-run's metrics must equal the warm run's.  `td_step`: the TD step's
-batch-invariant kernels (A, `kernels/batched_linear`) against the plain
-torch versions (B: cuBLAS batched matmuls and torch sums, the order that
-made a grid's learned cells part from their serial runs); only the wall
-is read for B.  Grid walls are host-bound and spread between machines,
-so the two settings are compared only inside one call.  It prints one
+run's metrics must equal the warm run's.  `td_step`: the TD step the three
+`chip_smoke.TD_PATHS` ways: the port's kernels (A: one `td_grad` and one
+`adamw_lanes` launch a step), the card path before them (B: autograd over
+`batched_linear`'s batch-invariant products, its norm and the optimizer's
+torch ops) and plain torch (C: cuBLAS batched matmuls and torch sums, the
+order that made a grid's learned cells part from their serial runs); A's
+metrics must equal the warm run's, only the wall is read for B and C.
+Grid walls are host-bound and spread between machines, so the settings
+are compared only inside one call.  It prints one
 line per run and a JSON object of the walls as its last line; it needs a
 CUDA card.
 """
@@ -25,7 +28,7 @@ import os
 import sys
 import time
 
-from chip_smoke import card_line, figure_grid
+from chip_smoke import TD_PATHS, card_line, figure_grid, td_path
 
 
 @contextlib.contextmanager
@@ -41,22 +44,8 @@ def land(mode: str):
             os.environ["REPRO_SWEEP_LAND"] = knob
 
 
-@contextlib.contextmanager
-def td_step(which: str):
-    from repro_torch.core import dqn
-    from repro_torch.kernels.batched_linear import ref
-    from repro_torch.train import optimizer
-    saved = dqn.linear, optimizer.sq_norm
-    if which == "plain":
-        dqn.linear, optimizer.sq_norm = ref.linear, ref.sq_norm
-    try:
-        yield
-    finally:
-        dqn.linear, optimizer.sq_norm = saved
-
-
 KNOBS = {"land": (land, ("async", "sync"), True),
-         "td_step": (td_step, ("kernels", "plain"), False)}
+         "td_step": (td_path, TD_PATHS, False)}
 
 
 def main() -> int:
@@ -77,8 +66,9 @@ def main() -> int:
     first = run_grid(grid, cfg, device=dev).metrics           # warm
     walls = {}
     for name in args.vary:
-        ctx, (a, b), same = KNOBS[name]
-        for setting in (a, b, b, a):
+        ctx, settings, same = KNOBS[name]
+        a = settings[0]
+        for setting in settings + settings[::-1]:
             with ctx(setting):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()

@@ -322,15 +322,9 @@ def train_step(agent: AgentState, cfg: AgentConfig,
     ready_f = ready.to(torch.float32)
     batch = dict(batch, w=batch["w"] * ready_f[:, None])
 
-    keys = list(agent.params)
-    with torch.enable_grad():
-        leaves = {k: agent.params[k].detach().requires_grad_(True)
-                  for k in keys}
-        loss = dqn.td_loss(leaves, agent.target_params, batch, cfg.dqn)
-        grads = torch.autograd.grad(loss.sum(), [leaves[k] for k in keys])
-    loss = loss.detach()
+    loss, grads = dqn.td_loss_and_grads(agent.params, agent.target_params,
+                                        batch, cfg.dqn, ready_f)
     shape = lambda g: (-1,) + (1,) * (g.dim() - 1)
-    grads = {k: g * ready_f.reshape(shape(g)) for k, g in zip(keys, grads)}
     new_params, new_opt = opt.update(grads, agent.opt_state, agent.params,
                                      agent.train_steps)
     train_steps = agent.train_steps + ready.to(torch.int32)

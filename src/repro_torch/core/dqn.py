@@ -3,12 +3,16 @@ paper §4.3, Fig. 4-3): Q(s, a) = V(s) + A(s, a) - mean_a A(s, a).
 
 Parameters are a dict of tensors with a leading agent axis G (the
 reference's per-lane vmap written out): w0 (G, S, H1), b0 (G, H1), ...
-`q_values` (the gradient path) is torch.matmul on the CPU, as the reference
+`q_values` (the gradient path, defined with the loss in
+`kernels/td_grad/ref.py`) is torch.matmul on the CPU, as the reference
 leaves it to XLA, and on the card the batch-invariant products of
 `kernels/batched_linear` (an agent's gradients the same bits at any agent
 count G); `q_values_infer` (act and TD targets, no gradient) goes through
-the fused dueling-qnet kernel on the card.  TF32 is kept off for those
-matmuls (`torch.backends.cuda.matmul.allow_tf32 = False`, set by
+the fused dueling-qnet kernel on the card.  `td_loss_and_grads`, the TD
+step, runs the paper's network on the card as one `kernels/td_grad` launch
+(forward, loss and backward) and any other shape, and the CPU, as
+autograd over `q_values`.  TF32 is kept off for those matmuls
+(`torch.backends.cuda.matmul.allow_tf32 = False`, set by
 `repro_torch.nmp.engine.run_episode` on entry), so they are full float32.
 """
 from __future__ import annotations
@@ -19,8 +23,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import prng
-from repro_torch.kernels.batched_linear.ops import linear
 from repro_torch.kernels.dueling_qnet.ops import qnet_forward
+from repro_torch.kernels.td_grad import ops as td_grad_ops
+from repro_torch.kernels.td_grad import ref as td_grad_ref
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,19 +107,8 @@ def q_values(params: dict, state: torch.Tensor,
              cfg: DQNConfig) -> torch.Tensor:
     """Q for states (G, S) -> (G, A) or (G, N, S) -> (G, N, A)."""
     squeeze = state.dim() == 2
-    x = state.to(torch.float32)
-    if squeeze:
-        x = x[:, None, :]
-    i = 0
-    while f"w{i}" in params:
-        x = torch.clamp(linear(x, params[f"w{i}"], params[f"b{i}"]), min=0.0)
-        i += 1
-    if cfg.dueling:
-        v = linear(x, params["w_v"], params["b_v"])               # (G, N, 1)
-        a = linear(x, params["w_a"], params["b_a"])               # (G, N, A)
-        q = v + a - a.mean(dim=-1, keepdim=True)
-    else:
-        q = linear(x, params["w_q"], params["b_q"])
+    q = td_grad_ref.q_values(params, state[:, None, :] if squeeze else state,
+                             cfg.dueling)
     return q[:, 0] if squeeze else q
 
 
@@ -138,13 +132,11 @@ def q_values_infer(params: dict, state: torch.Tensor,
     return q[:, 0] if squeeze else q
 
 
-def td_loss(params: dict, target_params: dict, batch: dict,
-            cfg: DQNConfig) -> torch.Tensor:
-    """(G,) squared TD error per agent (paper eq. 3), double-DQN target if
-    cfg.double.  Only Q(s, a) carries gradients; the target values and the
-    double-DQN argmax go through `q_values_infer`."""
-    q = q_values(params, batch["s"], cfg)                        # (G, N, A)
-    q_sa = q.gather(2, batch["a"].long()[:, :, None])[:, :, 0]
+def td_targets(params: dict, target_params: dict, batch: dict,
+               cfg: DQNConfig) -> torch.Tensor:
+    """(G, N) TD targets r + gamma (1 - done) Q_target(s2, a*), a* the
+    online network's argmax if cfg.double, else the target's max; through
+    `q_values_infer`, no gradient."""
     q_next_t = q_values_infer(target_params, batch["s2"], cfg)
     if cfg.double:
         q_next_o = q_values_infer(params, batch["s2"], cfg)
@@ -152,7 +144,35 @@ def td_loss(params: dict, target_params: dict, batch: dict,
         q_next = q_next_t.gather(2, a_star[:, :, None])[:, :, 0]
     else:
         q_next = q_next_t.max(dim=-1).values
-    y = batch["r"] + cfg.gamma * (1.0 - batch["done"]) * q_next
-    err = (y - q_sa) * batch["w"]      # `w` masks invalid (not-yet-filled) rows
-    return (torch.square(err).sum(dim=1)
-            / torch.clamp(batch["w"].sum(dim=1), min=1.0))
+    return batch["r"] + cfg.gamma * (1.0 - batch["done"]) * q_next
+
+
+def td_error(params: dict, s: torch.Tensor, a: torch.Tensor,
+             y: torch.Tensor, w: torch.Tensor,
+             cfg: DQNConfig) -> torch.Tensor:
+    """(G,) squared TD error per agent (paper eq. 3) of Q(s, a) against the
+    targets y (G, N), rows weighted by w (G, N): sum(((y - Q(s, a)) w)^2)
+    / max(sum(w), 1)."""
+    return td_grad_ref.td_error(params, s, a, y, w, cfg.dueling)
+
+
+def td_loss(params: dict, target_params: dict, batch: dict,
+            cfg: DQNConfig) -> torch.Tensor:
+    """(G,) squared TD error per agent (paper eq. 3), double-DQN target if
+    cfg.double.  Only Q(s, a) carries gradients; the target values and the
+    double-DQN argmax go through `q_values_infer`."""
+    y = td_targets(params, target_params, batch, cfg)
+    return td_error(params, batch["s"], batch["a"], y, batch["w"], cfg)
+
+
+def td_loss_and_grads(params: dict, target_params: dict, batch: dict,
+                      cfg: DQNConfig, ready: torch.Tensor
+                      ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """`td_loss` (G,) and its gradient for every leaf, each times `ready`
+    (G,) float32.  The targets are `td_targets`'; the rest is one
+    `td_grad` launch on the card where the kernel covers the network
+    (`td_grad.ops.covers`), else autograd (`td_grad/ref.py`)."""
+    y = td_targets(params, target_params, batch, cfg)
+    td_grad = (td_grad_ops.td_grad if td_grad_ops.covers(params, batch["s"])
+               else td_grad_ref.td_grad)
+    return td_grad(params, batch["s"], batch["a"], y, batch["w"], ready, cfg)

@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("epoch_fused", "dueling_qnet", "flash_attention", "ssd_scan",
            "threefry", "batched_linear", "flash_attention_bwd",
-           "ssd_scan_bwd")
+           "ssd_scan_bwd", "td_grad", "adamw_lanes")
 
 # sm_90a (Hopper) for every source.  -fmad=false (no a*b+c contraction)
 # only where a contract is exact: the epoch core's EMA decay then +1.0 adds
@@ -38,7 +38,8 @@ EXACT_FLAGS = ("-fmad=false",)
 SOURCE_FLAGS = {"epoch_fused": EXACT_FLAGS, "dueling_qnet": (),
                 "flash_attention": (), "ssd_scan": (),
                 "threefry": EXACT_FLAGS, "batched_linear": EXACT_FLAGS,
-                "flash_attention_bwd": (), "ssd_scan_bwd": ()}
+                "flash_attention_bwd": (), "ssd_scan_bwd": (),
+                "td_grad": EXACT_FLAGS, "adamw_lanes": EXACT_FLAGS}
 
 
 def nvcc_flags(name: str) -> tuple[str, ...]:

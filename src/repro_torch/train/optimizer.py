@@ -24,10 +24,10 @@ shard them.
 `adamw` has two forms, told apart by the rank of `step`.  With a 0-d step
 (the trainer's) it is the reference's: one global norm over every leaf
 clips the gradients.  With a (B,) step it is the agent's: every leaf of a
-flat dict carries a leading agent axis B, each agent clips by its own norm
-(`lane_global_norm`, one `batched_linear.sq_norm` launch on the card), as
-the reference's per-lane vmap does; that form is unchanged from the agent's
-port and held `==` by its tests.
+flat dict carries a leading agent axis B, each agent clips by its own norm,
+as the reference's per-lane vmap does (`kernels/adamw_lanes`: the plain
+torch ops on the CPU, held `==` by the agent's tests, and on the card one
+launch computing the same bits).
 """
 from __future__ import annotations
 
@@ -37,7 +37,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch.core.tree import tree_leaves, tree_map
-from repro_torch.kernels.batched_linear.ops import sq_norm
+from repro_torch.kernels.adamw_lanes import ops as adamw_lanes_ops
 from repro_torch.sharding.context import is_dtensor
 
 Tree = Any
@@ -127,14 +127,6 @@ def on_shards(p, g, moments: list, fn) -> None:
         p.to_local().copy_(p_u.redistribute(mesh, p.placements).to_local())
 
 
-def lane_global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
-    """(B,) global L2 norm of each agent's leaves, summed in the reference's
-    leaf order (sorted keys, as jax.tree flattens a dict), as one
-    `batched_linear.sq_norm`: on the card one launch whose order does not
-    depend on the number of agents B."""
-    return sq_norm([tree[k].to(torch.float32) for k in sorted(tree)])
-
-
 def _clip_scale(grads: Tree, grad_clip: float):
     """The reference's global-norm clip factor of the gradients (float32),
     or None without clipping."""
@@ -194,30 +186,13 @@ def adamw(lr: float | Callable = 1e-3, b1: float = 0.9, b2: float = 0.999,
         return params, state
 
     def update_lanes(grads, state, params, step):
-        grads = {k: g.to(torch.float32) for k, g in grads.items()}
-        if grad_clip > 0:
-            gnorm = lane_global_norm(grads)
-            scale = torch.clamp(grad_clip / (gnorm + 1e-9), max=1.0)
-            grads = {k: g * scale.reshape((-1,) + (1,) * (g.dim() - 1))
-                     for k, g in grads.items()}
         t = step.to(torch.float32) + 1.0
         lr_t = sched(step)
         bc1 = 1 - torch.pow(b1, t)
         bc2 = 1 - torch.pow(b2, t)
-        new_p, new_m, new_v = {}, {}, {}
-        for k, p in params.items():
-            g = grads[k]
-            shape = (-1,) + (1,) * (g.dim() - 1)
-            m = b1 * state["m"][k] + (1 - b1) * g
-            v = b2 * state["v"][k] + (1 - b2) * g * g
-            mh = m / bc1.reshape(shape)
-            vh = v / bc2.reshape(shape)
-            delta = mh / (torch.sqrt(vh) + eps)
-            if weight_decay:
-                delta = delta + weight_decay * p.to(torch.float32)
-            new_p[k] = (p.to(torch.float32)
-                        - lr_t.reshape(shape) * delta).to(p.dtype)
-            new_m[k], new_v[k] = m, v
+        new_p, new_m, new_v = adamw_lanes_ops.adamw_lanes(
+            grads, state["m"], state["v"], params, bc1, bc2, lr_t, b1=b1,
+            b2=b2, eps=eps, weight_decay=weight_decay, grad_clip=grad_clip)
         return new_p, {"m": new_m, "v": new_v}
 
     def update(grads, state, params, step):

@@ -16,7 +16,8 @@ def test_every_source_has_its_flags():
         assert (build.CSRC / f"{name}.cu").exists(), name
 
 
-@pytest.mark.parametrize("name", ["epoch_fused", "threefry", "batched_linear"])
+@pytest.mark.parametrize("name", ["epoch_fused", "threefry", "batched_linear",
+                                  "td_grad", "adamw_lanes"])
 def test_exact_kernels_keep_fmad_false(name):
     assert "-fmad=false" in build.nvcc_flags(name)
 
@@ -51,6 +52,11 @@ def test_library_path_follows_the_sources_own_flags(name, monkeypatch):
 @pytest.mark.parametrize("name", ["flash_attention", "flash_attention_bwd"])
 def test_attention_sources_include_the_shared_header(name):
     assert build.CSRC / "hopper_wgmma.cuh" in build.sources_of(name)
+
+
+@pytest.mark.parametrize("name", ["dueling_qnet", "td_grad", "adamw_lanes"])
+def test_bulk_copy_sources_include_the_shared_header(name):
+    assert build.CSRC / "hopper_async.cuh" in build.sources_of(name)
 
 
 def test_library_path_follows_every_included_header(tmp_path, monkeypatch):

@@ -8,13 +8,15 @@ Every test here needs the card: the `cuda` fixture skips it, with a reason,
 where there is none (decided when the test runs, never at import, so every
 pytest-xdist worker collects the same tests).  Bars: the epoch kernels are
 equal to their plain versions (`torch.equal`, the exact contract of the
-epoch core); the dueling-qnet kernel is within rtol/atol 1e-4.
+epoch core); the dueling-qnet kernel is within rtol/atol 1e-4; the TD
+step's `td_grad` within rtol 1e-5 (atol 1e-5 x the leaf's max) of its
+plain versions and `adamw_lanes` `torch.equal` to the card path's update.
 """
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import epoch_inputs
+from chip_smoke import AIMM_PATH_KERNELS, epoch_inputs
 
 pytestmark = pytest.mark.gpu
 
@@ -384,18 +386,23 @@ def test_deterministic_cell_on_card_matches_cpu(cuda):
 
 
 def test_learned_aimm_episode_launches_every_kernel(cuda):
+    from repro_torch.kernels.adamw_lanes import ops as aops
+    from repro_torch.kernels.batched_linear import ops as lops
     from repro_torch.kernels.dueling_qnet import ops as qops
     from repro_torch.kernels.epoch_fused import ops as eops
+    from repro_torch.kernels.td_grad import ops as gops
     from repro_torch.nmp.config import NMPConfig
     from repro_torch.nmp.engine import run_episode
     from repro_torch.nmp.traces import make_trace
-    eops.reset_launches()
-    qops.reset_launches()
+    for ops in (eops, qops, gops, aops, lops):
+        ops.reset_launches()
     res = run_episode(make_trace("KM", n_ops=1024), NMPConfig(), "bnmp",
                       "aimm", seed=1, device=cuda)
     assert float(res.env.ops_done) == 1024
     assert eops.launches["fused_epoch"] == 8
     assert qops.launches["dueling_qnet"] == 3 * 8
+    assert gops.launches["td_grad"] == aops.launches["adamw_lanes"] == 8
+    assert lops.launches["batched_linear"] == 0
 
 
 # ---------------------------------------------------------------------------
@@ -759,6 +766,92 @@ def test_batched_linear_kernels_equal_plain_and_batch_invariant(cuda, G):
     torch.testing.assert_close(y, yp, rtol=1e-5, atol=1e-5)
     for g_, w_ in zip(grads, want):
         torch.testing.assert_close(g_, w_, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("G", [1, 3, 45])
+@pytest.mark.parametrize("S", [106, 24, 298])
+def test_td_grad_within_bar_and_batch_invariant(cuda, S, G):
+    """The TD step's forward, loss and backward in one launch within rtol
+    1e-5 (atol 1e-5 x the leaf's max) of the card path before it
+    (td_grad/ref.py over batched_linear) and of plain torch, two runs
+    torch.equal, agents not ready exactly 0, agent 0 alone torch.equal to
+    agent 0 of G (chip_smoke.hold_td_grad)."""
+    from chip_smoke import hold_td_grad
+    from repro_torch.kernels.td_grad import ops
+    before = ops.launches["td_grad"]
+    hold_td_grad(cuda, G, S)
+    assert ops.launches["td_grad"] == before + (3 if G > 1 else 2)
+
+
+def test_td_grad_every_agent_not_ready_is_zero(cuda):
+    from chip_smoke import hold_td_grad
+    hold_td_grad(cuda, 3, 106, torch.zeros(3, device=cuda))
+
+
+@pytest.mark.parametrize("G", [1, 3, 45])
+def test_adamw_lanes_equals_card_path(cuda, G):
+    """The clipped AdamW step in one launch: new params, m and v
+    torch.equal to the card path's (batched_linear's norm and the torch
+    ops) for the same gradients, every third agent not ready."""
+    from chip_smoke import hold_adamw_lanes
+    from repro_torch.kernels.adamw_lanes import ops
+    before = ops.launches["adamw_lanes"]
+    hold_adamw_lanes(cuda, G)
+    assert ops.launches["adamw_lanes"] == before + 1
+
+
+@pytest.mark.parametrize("G", [1, 45])
+def test_td_step_launches_each_kernel_once(cuda, G):
+    """`agent.train` at the paper's network: one td_grad and one
+    adamw_lanes launch, no batched_linear product, two dueling_qnet
+    launches (the targets)."""
+    from chip_smoke import aimm_kernel_ops, td_agents
+    from repro_torch.core import agent as agent_mod
+    ag, cfg = td_agents(cuda, G)
+    ops = aimm_kernel_ops()
+    before = [dict(o.launches) for o in ops]
+    out = agent_mod.train(ag, cfg)
+    got = {k: v - b[k] for o, b in zip(ops, before)
+           for k, v in o.launches.items() if v - b[k]}
+    assert got == {"td_grad": 1, "adamw_lanes": 1, "dueling_qnet": 2,
+                   "threefry": got["threefry"]}
+    assert torch.isfinite(out.loss_ema).all()
+
+
+def test_td_step_uncovered_shape_takes_the_card_path(cuda):
+    """A network td_grad does not cover (hidden 96 / 64) trains through
+    autograd over batched_linear's products, and its update through
+    adamw_lanes; its loss and new parameters match the CPU's within rtol
+    1e-5 (atol 1e-5 x the leaf's max)."""
+    from chip_smoke import aimm_kernel_ops, td_agents
+    from repro_torch.core import agent as agent_mod
+    ag, cfg = td_agents(cuda, 3, hidden=(96, 64))
+    ops = aimm_kernel_ops()
+    before = [dict(o.launches) for o in ops]
+    out = agent_mod.train(ag, cfg)
+    got = {k: v - b[k] for o, b in zip(ops, before)
+           for k, v in o.launches.items() if v - b[k]}
+    assert "td_grad" not in got and got["batched_linear"] > 0
+    assert got["adamw_lanes"] == 1
+    ag_cpu = ag.replace(**{f: _to_cpu(getattr(ag, f)) for f in (
+        "params", "target_params", "opt_state", "replay", "step",
+        "train_steps", "loss_ema", "global_step", "rng")})
+    want = agent_mod.train(ag_cpu, cfg)
+    torch.testing.assert_close(out.loss_ema.cpu(), want.loss_ema, rtol=1e-5,
+                               atol=1e-6)
+    for k, p in want.params.items():
+        torch.testing.assert_close(out.params[k].cpu(), p, rtol=1e-5,
+                                   atol=1e-5 * p.abs().max().item())
+
+
+def _to_cpu(x):
+    import dataclasses
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, dict):
+        return {k: _to_cpu(v) for k, v in x.items()}
+    return dataclasses.replace(x, **{f.name: _to_cpu(getattr(x, f.name))
+                                     for f in dataclasses.fields(x)})
 
 
 def test_learned_grid_equals_serial_on_card(cuda):
@@ -1329,15 +1422,16 @@ def test_sharding_search_on_card_equals_cpu(cuda, arch):
     from chip_smoke import hold_search, recording_acts
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.core.sharding_mapper import search
-    from repro_torch.kernels.batched_linear import ops as lops
+    from repro_torch.kernels.adamw_lanes import ops as aops
     from repro_torch.kernels.dueling_qnet import ops as qops
+    from repro_torch.kernels.td_grad import ops as gops
     from repro_torch.kernels.threefry import ops as tops
-    for ops in (lops, qops, tops):
+    for ops in (gops, aops, qops, tops):
         ops.reset_launches()
     cfg = get_config(arch)
     card = search(cfg, SHAPES["train_4k"], steps=60, seed=0, device="cuda")
     assert qops.launches["dueling_qnet"] > 0
-    assert lops.launches["batched_linear"] > 0
+    assert gops.launches["td_grad"] == aops.launches["adamw_lanes"] > 0
     assert tops.launches["threefry"] > 0
     runs = {}
     for d in ("cuda", "cpu"):
@@ -1582,8 +1676,7 @@ def test_two_ranks_on_the_card_equal_one(cuda, tmp_path):
             for k, v in one[shape][0].items():
                 assert np.array_equal(m[k], v), (rank, shape, k)
             assert np.array_equal(a, one[shape][1]), (rank, shape)
-            for k in ("fused_epoch", "dueling_qnet", "threefry",
-                      "batched_linear"):
+            for k in AIMM_PATH_KERNELS:
                 assert launches[k] > 0, (rank, shape, k)
         srv, want = got["server"], one["server"]
         assert srv["stats"]["n_devices"] == 2

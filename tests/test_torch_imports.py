@@ -53,6 +53,8 @@ def test_port_has_files_to_scan():
                  "kernels/threefry/ops.py", "kernels/threefry/ref.py",
                  "kernels/batched_linear/ops.py",
                  "kernels/batched_linear/ref.py",
+                 "kernels/td_grad/ops.py", "kernels/td_grad/ref.py",
+                 "kernels/adamw_lanes/ops.py", "kernels/adamw_lanes/ref.py",
                  "nmp/scenarios.py", "nmp/plan.py", "nmp/partition.py",
                  "nmp/sweep.py", "configs/aimm_nmp.py",
                  "nmp/continual.py", "nmp/serving.py", "nmp/faults.py",
@@ -75,7 +77,8 @@ def test_port_has_files_to_scan():
     assert {p.name for p in (PORT / "csrc").glob("*.cu")} == {
         "epoch_fused.cu", "dueling_qnet.cu", "flash_attention.cu",
         "ssd_scan.cu", "threefry.cu", "batched_linear.cu",
-        "flash_attention_bwd.cu", "ssd_scan_bwd.cu"}
+        "flash_attention_bwd.cu", "ssd_scan_bwd.cu", "td_grad.cu",
+        "adamw_lanes.cu"}
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -84,6 +87,22 @@ def test_port_imports_neither_jax_nor_reference(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+
+
+@pytest.mark.parametrize("path", sorted((PORT / "kernels").rglob("*.py")),
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_kernels_import_no_module_that_imports_them(path):
+    """A kernel module may use a helper of the layers above it, but never
+    one that imports that kernel's package back: no import cycle, so each
+    kernel package loads on its own."""
+    package = ".".join(path.relative_to(PORT.parent).parts[:3])
+    for mod in _imported_modules(path):
+        if mod.split(".")[0] != "repro_torch" or mod.startswith(
+                "repro_torch.kernels"):
+            continue
+        dep = PORT.parent / (mod.replace(".", "/") + ".py")
+        back = [m for m in _imported_modules(dep) if m.startswith(package)]
+        assert not back, (path, mod, back)
 
 
 @pytest.mark.parametrize("path", OPS_FILES,
