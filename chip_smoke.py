@@ -23,7 +23,8 @@ Phases (each prints its lines; the run exits 0 only if every phase passes):
     the engine) against its plain version on 2^20 keys: split, bits,
     uniform, randint and choice (neighbour-validity weights; also at
     B = 45), torch.equal, graph-timed with the inputs outside L2 beside
-    the bytes bound in 32-bit words and in the int64 key layout;
+    the bound (the bytes in 32-bit words, or in the int64 key layout, or
+    the hashes' integer instructions at the INT32 issue rate);
     the TD step's kernels (`[batched_linear]`): `td_grad`
     (`csrc/td_grad.cu`, forward, loss and backward in one launch) at G 1,
     3 and 45 agents and state 106, 24 and 298 within rtol 1e-5 of its
@@ -173,7 +174,16 @@ Phases (each prints its lines; the run exits 0 only if every phase passes):
     layers, whisper-large-v3's encoder and cross attention,
     llama-3.2-vision-11b's cross attention, mixtral-8x22b's window at S
     8192), each in f32 at a small shape, two runs torch.equal, timed
-    beside the bound and SDPA's backward, hd 32 and 16 raising;
+    beside the bound and SDPA's backward; and at the smoke configs' hd 16
+    and 32 (bf16 on mma.sync, f32 on CUDA cores) at each mask, and bf16
+    timed at minitron-8b's shape cut to each width beside a bound with
+    the exp2 term;
+    `[train-smoke]`, the reference's documented `launch.train --smoke`
+    through `launch/train.py`'s `train` on the card for the eight archs
+    whose reference command runs (TRAIN_SMOKE_RUNS: minitron-8b 50 steps,
+    the rest 3, at S 128 and global batch 4), finite losses, each run's
+    launches `step_launches`, then every arch's smoke step card vs CPU
+    (TRAIN_SMOKE_CPU);
     `[train-cpu]`, one step's loss and every gradient leaf card vs CPU at
     full width (TRAIN_CPU_RUNS; MoE on the card's routes); `[train]`,
     the training main path: minitron-8b (4 layers, int8 moments) and
@@ -227,6 +237,12 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 TF32_OPS_PER_S = 495e12        # H100 SXM TF32 tensor cores, dense
+H100_SMS = 132
+# results a clock per SM at compute capability 9.0 (CUDA C++ Programming
+# Guide, arithmetic instruction throughput): exp2 on the SFU (MUFU), and
+# 32-bit integer add, logic and shift
+EX2_PER_CLOCK_SM = 16
+INT32_PER_CLOCK_SM = 64
 BP_OPS = 16384                 # paper-scale trace length
 W = 128
 # the figure grid (benchmarks/common.py figure_grid) with three seeds
@@ -374,6 +390,14 @@ def eager_ms(fn, reps: int = 200) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reads it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    return float(out.stdout.split()[0]) * 1e6
 
 
 def launch_floor_ms(dev) -> float:
@@ -1222,6 +1246,12 @@ def phase_prng(dev, floor: float) -> dict:
                    lambda k, h, p: tref.choice(k, p), 1,
                    (16 + 4 * D, 8), (8 + 4 * D, 4)),
     }
+    # the hashes' integer work at the INT32 rate on 132 SMs at the card's
+    # max SM clock: a hash is 20 rounds of add, rotate and xor (60) and the
+    # key schedule's ~10 adds and xors (csrc/threefry.cu), 70 instructions
+    # (the source's header rounds it to ~90)
+    clock = max_sm_clock_hz()
+    int32_per_s = INT32_PER_CLOCK_SM * H100_SMS * clock
     rec = {}
     for mode, (kern, plain, hashes, lay, words) in draws.items():
         for j, args in enumerate(sets[:2]):
@@ -1230,16 +1260,25 @@ def phase_prng(dev, floor: float) -> dict:
                                      f"plain version (input set {j})")
         k_ms = cold_graph_ms(kern, sets)
         p_ms = cold_graph_ms(plain, sets, reps=6)
-        ops_n = n * (hashes * 90 + (2 * D if mode == "choice" else 0))
-        b_ms, b_by = bound(n * sum(words), ops_n)
-        l_ms, _ = bound(n * sum(lay), ops_n)
+        int_ms = n * hashes * 70 / int32_per_s * 1e3
+        f_ms = n * (2 * D if mode == "choice" else 0) / F32_OPS_PER_S * 1e3
+        ops_ms = int_ms + f_ms
+        w_ms = n * sum(words) / HBM_BYTES_PER_S * 1e3
+        l_ms = max(n * sum(lay) / HBM_BYTES_PER_S * 1e3, ops_ms)
+        b_ms, b_by = max((w_ms, "bytes"), (ops_ms, "operations"))
         log(f"[prng] threefry {mode} on 2^20 keys: equal; kernel {k_ms:.5f} "
             f"ms/launch (graph, inputs and outputs outside L2), plain "
-            f"{p_ms:.5f} ms, bound {b_ms:.6f} ms ({b_by}, {n * sum(words)} B "
-            f"as 32-bit words), {l_ms:.6f} ms in the int64 key layout "
-            f"({n * sum(lay)} B), launch floor {floor:.5f} ms")
+            f"{p_ms:.5f} ms, bound {b_ms:.6f} ms ({b_by}: {n * sum(words)} B "
+            f"as 32-bit words {w_ms:.6f} ms; {n * hashes * 70:.4g} integer "
+            f"instructions, 70 a hash x {hashes} a key, at "
+            f"{INT32_PER_CLOCK_SM} a clock per SM x {H100_SMS} SMs x "
+            f"{clock / 1e9:.3f} GHz {int_ms:.6f} ms"
+            f"{f', float work {f_ms:.6f} ms' if f_ms else ''}), "
+            f"{l_ms:.6f} ms in the int64 key layout ({n * sum(lay)} B), "
+            f"launch floor {floor:.5f} ms")
         rec[mode] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                         bound_by=b_by, bound_int64_layout_ms=l_ms)
+                         bound_by=b_by, bound_int64_layout_ms=l_ms,
+                         bound_int32_ms=int_ms)
     # choice at the grid's learned group: 45 keys, one launch each
     k45 = prng.split(prng.PRNGKey(45, dev), 45)
     p45 = neighbour_weights(dev, 45)
@@ -1249,7 +1288,10 @@ def phase_prng(dev, floor: float) -> dict:
                              "plain version")
     c45_ms = graph_ms(lambda: tops.choice(k45, p45))
     c45_plain = graph_ms(lambda: tref.choice(k45, p45))
-    c45_b, c45_by = bound(45 * (8 + 4 * D + 4), 45 * (90 + 2 * D))
+    c45_b, c45_by = max(
+        (45 * (8 + 4 * D + 4) / HBM_BYTES_PER_S * 1e3, "bytes"),
+        ((45 * 70 / int32_per_s + 45 * 2 * D / F32_OPS_PER_S) * 1e3,
+         "operations"))
     log(f"[prng] threefry choice at B = 45: equal (draws "
         f"{got.tolist()[:8]}...); kernel {c45_ms:.5f} ms/launch (graph), "
         f"plain {c45_plain:.5f} ms, bound {c45_b:.7f} ms ({c45_by}), launch "
@@ -1658,15 +1700,14 @@ def zoo_tokens(dev, cfg, seq: int, seed: int = 0, batch: int = ZOO_BATCH):
                          device=dev)
 
 
-def zoo_batch(dev, cfg, seq: int, seed: int = 0,
-              batch: int = ZOO_BATCH) -> dict:
+def zoo_batch(dev, cfg, seq: int, seed: int = 0, batch: int = ZOO_BATCH,
+              frames: int = WHISPER_FRAMES) -> dict:
     """The prefill batch of `cfg` on `dev`: tokens (B, seq), plus the
     stubbed frontend's output in bf16 from the seed: whisper's enc_frames
-    (B, 1500, D), llama-vision's img_embed (B, n_img_tokens, D)."""
+    (B, frames, D), llama-vision's img_embed (B, n_img_tokens, D)."""
     import torch
     out = {"tokens": zoo_tokens(dev, cfg, seq, seed, batch)}
-    n_mem = (WHISPER_FRAMES if cfg.encoder is not None else
-             cfg.n_img_tokens)
+    n_mem = frames if cfg.encoder is not None else cfg.n_img_tokens
     if n_mem:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed + 1)
@@ -1676,11 +1717,11 @@ def zoo_batch(dev, cfg, seq: int, seed: int = 0,
     return out
 
 
-def zoo_train_batch(dev, cfg, seq: int, seed: int,
-                    batch: int = ZOO_BATCH) -> dict:
+def zoo_train_batch(dev, cfg, seq: int, seed: int, batch: int = ZOO_BATCH,
+                    frames: int = WHISPER_FRAMES) -> dict:
     """`zoo_batch` of seq + 1 tokens as a training batch: tokens and
     labels (B, seq), the next token's."""
-    out = zoo_batch(dev, cfg, seq + 1, seed, batch)
+    out = zoo_batch(dev, cfg, seq + 1, seed, batch, frames)
     tokens = out.pop("tokens")
     out.update(tokens=tokens[:, :-1], labels=tokens[:, 1:])
     return out
@@ -1700,12 +1741,16 @@ def zoo_config(arch: str, layers: int | None):
     return dataclasses.replace(cfg, n_layers=layers)
 
 
-def per_forward(cfg) -> dict[str, int]:
+def per_forward(cfg, seq: int | None = None) -> dict[str, int]:
     """Kernel launches one prefill forward of `cfg` makes: flash once per
     attention layer (a leading dense block is one), twice per 'C' layer
-    (its self-attention and its cross attention) and once per encoder
-    layer, the SSD scan once per Mamba layer; no backward."""
-    n_attn = sum(mx in "AGWLB" for mx, _ in cfg.pattern) + 2 * sum(
+    (its self-attention and its cross attention; once where the decoder's
+    `seq` queries are at most DECODE_MAX_Q, whose cross attention is dense
+    `attend`) and once per encoder layer, the SSD scan once per Mamba
+    layer; no backward."""
+    from repro_torch.models.attention import DECODE_MAX_Q
+    cross = 1 if seq is None or seq > DECODE_MAX_Q else 0
+    n_attn = sum(mx in "AGWLB" for mx, _ in cfg.pattern) + (1 + cross) * sum(
         mx == "C" for mx, _ in cfg.pattern)
     n_enc = cfg.encoder.n_layers if cfg.encoder is not None else 0
     n_ssd = sum(mx == "M" for mx, _ in cfg.pattern)
@@ -3162,6 +3207,17 @@ TRAIN_FLASH_F32 = (("window", 1, 700, 700, 4, 2, 128, True, 100),
                    ("hd 256 window", 1, 500, 500, 4, 2, 256, True, 128))
 
 
+# The flash backward at the smoke configs' head dims, 16 and 32 (bf16 on
+# mma.sync, f32 on CUDA cores), each mask at the shapes of
+# tests/test_torch_backward.py's cases: (label, B, S, S_kv, H, K, causal,
+# window); then bf16 timed at minitron-8b's attention shape cut to each
+# width.
+TRAIN_FLASH_SMOKE = (("causal", 1, 1024, 1024, 4, 2, True, 0),
+                     ("window 32", 1, 1024, 1024, 4, 2, True, 32),
+                     ("S_kv < S", 1, 1000, 300, 4, 2, False, 0),
+                     ("S_kv > S", 1, 300, 1000, 4, 2, False, 0),
+                     ("ragged S", 2, 1000, 1000, 4, 2, True, 0))
+TRAIN_FLASH_SMOKE_HDS = (16, 32)
 def flash_grads_plain(q, k, v, do, causal: bool = True, window: int = 0):
     """`attention_grads_ref` one KV head's query heads at a time, so the f32
     scores and their gradients of S 8192 stay a few GB: dq, dk, dv."""
@@ -3327,6 +3383,117 @@ def train_flash_f32(dev) -> float:
     return worst
 
 
+def train_flash_smoke_widths(dev) -> dict:
+    """The flash backward at hd 16 and 32 (TRAIN_FLASH_SMOKE_HDS): bf16
+    (mma.sync) and f32 (CUDA cores) at each of TRAIN_FLASH_SMOKE's masks
+    against the plain autograd within GRAD_BARS, one launch a backward, two
+    runs torch.equal; then bf16 graph-timed at minitron-8b's attention
+    shape (B 1, S 4096, H 32, K 8, causal) cut to each width, beside its
+    bound (the larger of the bytes, the five products at the bf16
+    tensor-core rate and one exp2 a visible pair at the SFU's rate at the
+    card's maximum SM clock), the launch floor, the plain autograd and
+    SDPA's backward.  Returns {"max_abs_err": {dtype hd: x}, "timed": {hd:
+    record}}."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import (
+        GRAD_BARS, attention_grads_ref, attention_ref, compare_grad)
+    worst = {}
+    for dtype, dname in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        for hd in TRAIN_FLASH_SMOKE_HDS:
+            for label, B, S, S_kv, H, K, causal, window in TRAIN_FLASH_SMOKE:
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(S + S_kv + hd + window)
+                q, k, v, do = (torch.randn((B, n_s, n, hd), generator=gen,
+                                           device=dev).to(dtype)
+                               for n_s, n in ((S, H), (S_kv, K), (S_kv, K),
+                                              (S, H)))
+                flash = lambda q, k, v: fops.gqa_flash_attention_kv(
+                    q, k, v, causal=causal, window=window)
+                what = f"flash backward {dname} hd {hd} {label}"
+                before = fops.launches["flash_attention_bwd"]
+                runs = [_kernel_grads(flash, (q, k, v), do)
+                        for _ in range(2)]
+                torch.cuda.synchronize()
+                if fops.launches["flash_attention_bwd"] != before + 2:
+                    raise AssertionError(f"{what}: launches {fops.launches}")
+                if not all_equal(runs[0], runs[1]):
+                    raise AssertionError(f"{what}: two card runs differ")
+                _, *want = attention_grads_ref(q, k, v, do, causal=causal,
+                                               window=window)
+                cmps = {n: compare_grad(g, w) for n, g, w in
+                        zip(("dq", "dk", "dv"), runs[0], want)}
+                if not all(c["ok"] for c in cmps.values()):
+                    raise AssertionError(f"{what} beyond {GRAD_BARS[dtype]}"
+                                         f": {cmps}")
+                err = max(c["max_abs_err"] for c in cmps.values())
+                key = f"{dname} hd {hd}"
+                worst[key] = max(worst.get(key, 0.0), err)
+                log(f"[train-kernels] flash_attention_bwd {dname} hd {hd} "
+                    f"{label}: B={B} S={S} S_kv={S_kv} H={H} K={K} "
+                    f"causal={causal} window={window}: "
+                    + ", ".join(f"{n} max abs err {c['max_abs_err']:.3g} "
+                                f"rel L2 {c['rel_l2']:.3g}"
+                                for n, c in cmps.items())
+                    + "; one launch a backward, two runs torch.equal")
+    a = get_config("minitron-8b").attn
+    H, K, S = a.n_heads, a.n_kv, ZOO_SEQ
+    floor = launch_floor_ms(dev)
+    clock = max_sm_clock_hz()
+    ex2_per_s = EX2_PER_CLOCK_SM * H100_SMS * clock
+    timed = {}
+    for hd in TRAIN_FLASH_SMOKE_HDS:
+        scale = hd ** -0.5
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(hd)
+        q, k, v, do = (torch.randn((1, S, n, hd), generator=gen,
+                                   device=dev).bfloat16()
+                       for n in (H, K, K, H))
+        lse = torch.empty((1, H, S), dtype=torch.float32, device=dev)
+        o = fops._forward(q, k, v, scale, True, 0, lse)
+        k_ms = graph_ms(lambda: fops.flash_backward(q, k, v, o, lse, do,
+                                                    scale), 20)
+
+        def plain_fb():
+            attention_grads_ref(q, k, v, do)
+
+        def plain_f():
+            kk, vv = (t.repeat_interleave(H // K, dim=2) for t in (k, v))
+            attention_ref(q.transpose(1, 2), kk.transpose(1, 2),
+                          vv.transpose(1, 2))
+        p_ms = event_ms(plain_fb, 2) - event_ms(plain_f, 2)
+        lib_ms, lib = sdpa_backward_ms(q, k, v, do, True, 0)
+        pairs = H * visible_pairs(S, 0)
+        flops = 2.5 * 4 * hd * pairs        # five products, 10 hd a pair
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (q, k, v, o, do, lse, q, k, v))  # + dq, dk, dv
+        p_bound, by = bound(nbytes, flops, BF16_OPS_PER_S)
+        exp_ms = pairs / ex2_per_s * 1e3
+        b_ms = max(p_bound, exp_ms)
+        term = "exp2" if exp_ms >= p_bound else (
+            "products" if by == "operations" else "bytes")
+        b_by = "bytes" if term == "bytes" else "operations"
+        log(f"[train-kernels] flash_attention_bwd bf16 hd {hd}: B=1 S={S} "
+            f"H={H} K={K} causal, {pairs} visible pairs: kernel "
+            f"{k_ms:.4f} ms/launch (graph), launch floor {floor:.5f} ms, "
+            f"plain {p_ms:.4f} ms, {lib} {lib_ms:.4f} ms; bound "
+            f"{b_ms:.4f} ms ({term}: one exp2 a pair {exp_ms:.4f} ms at "
+            f"{EX2_PER_CLOCK_SM} a clock per SM x {H100_SMS} SMs x "
+            f"{clock / 1e9:.3f} GHz, the card's max SM clock; products "
+            f"{flops / BF16_OPS_PER_S * 1e3:.4f} ms, {flops:.4g} FLOP at "
+            f"989 TFLOP/s; bytes {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms); "
+            f"{k_ms / b_ms:.2f}x the bound")
+        timed[hd] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                         bound_by=b_by, bound_term=term, exp_ms=exp_ms,
+                         products_ms=flops / BF16_OPS_PER_S * 1e3,
+                         sm_clock_ghz=clock / 1e9, launch_floor_ms=floor,
+                         library_ms=lib_ms, library=lib)
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    return {"max_abs_err": worst, "timed": timed}
+
+
 def _flash_bwd_inputs(dev, dtype, seed: int = 0):
     """q, k, v and an output cotangent at minitron-8b's attention shape."""
     import torch
@@ -3358,8 +3525,8 @@ def phase_train_kernels(dev) -> list[dict]:
     variants at the zoo's full shapes (TRAIN_FLASH_SHAPES: a window, non-
     causal, S_kv != S, hd 256) within GRAD_BARS of the plain autograd one
     KV-head group at a time, two runs torch.equal, timed beside the bound
-    and SDPA's backward, and each in f32 at a small shape; hd 32 and 16
-    raise."""
+    and SDPA's backward, and each in f32 at a small shape; and at the
+    smoke configs' hd 16 and 32 (`train_flash_smoke_widths`)."""
     from contextlib import nullcontext
     import torch
     import torch.nn.functional as F
@@ -3460,23 +3627,7 @@ def phase_train_kernels(dev) -> list[dict]:
     variants = [train_flash_shape(dev, *shape) for shape in
                 TRAIN_FLASH_SHAPES]
     f32_err = train_flash_f32(dev)
-    # the head dims not ported (the smoke widths): the forward runs, the
-    # backward raises
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(5)
-    for d in (32, 16):
-        q = torch.randn((1, 200, 4, d), generator=gen, device=dev).bfloat16()
-        kv = torch.randn((1, 200, 2, d), generator=gen, device=dev
-                         ).bfloat16()
-        q.requires_grad_()
-        out = fops.gqa_flash_attention_kv(q, kv, kv)
-        try:
-            out.sum().backward()
-        except NotImplementedError:
-            continue
-        raise AssertionError(f"flash backward hd {d}: did not raise")
-    log("[train-kernels] flash backward at hd 32 and 16: each forward ran, "
-        "each backward raised NotImplementedError")
+    smoke = train_flash_smoke_widths(dev)
     results.append(dict(
         name="flash_attention_bwd", route="cuda",
         source="src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -3484,7 +3635,8 @@ def phase_train_kernels(dev) -> list[dict]:
                  "attend / :92 attend_chunked (jax.value_and_grad, "
                  "src/repro/train/train_step.py:541)",
         **frec["bf16"], f32={k: v for k, v in frec["f32"].items()},
-        variants=variants, f32_variants_max_abs_err=f32_err))
+        variants=variants, f32_variants_max_abs_err=f32_err,
+        smoke_widths=smoke))
 
     # ---- SSD scan backward ----
     cfg = get_config("mamba2-370m")
@@ -3554,6 +3706,100 @@ def phase_train_kernels(dev) -> list[dict]:
     return results
 
 
+# [train-smoke]: the reference's documented command, `python -m
+# repro.launch.train --arch minitron-8b --smoke --steps 50`, on the card
+# through `launch/train.py`'s `train` for every arch whose reference command
+# runs (whisper's and llama-vision's data pipeline yields no frontend input,
+# so their reference command fails; they take the card-vs-CPU step below):
+# (arch, steps), each smoke config at its own width and depth, uncut, at the
+# reference's defaults (--seq 128, --global-batch 4, one microbatch).
+TRAIN_SMOKE_RUNS = (("minitron-8b", 50), ("mamba2-370m", 3),
+                    ("gemma3-12b", 3), ("deepseek-moe-16b", 3),
+                    ("qwen3-32b", 3), ("phi3-medium-14b", 3),
+                    ("mixtral-8x22b", 3), ("jamba-1.5-large-398b", 3))
+TRAIN_SMOKE_SEQ = 128
+TRAIN_SMOKE_BATCH = 4
+# card vs CPU: every arch's smoke config, B 4, S 128 (whisper: its dec_seq
+# tokens over 128 frames; llama-vision over its n_img_tokens)
+TRAIN_SMOKE_CPU = ("minitron-8b", "mamba2-370m", "gemma3-12b",
+                   "deepseek-moe-16b", "qwen3-32b", "phi3-medium-14b",
+                   "mixtral-8x22b", "jamba-1.5-large-398b",
+                   "whisper-large-v3", "llama-3.2-vision-11b")
+# jamba's smoke leaves are held to 5e-2 relative L2, the bar its CPU test
+# against the reference and mamba2-370m's take (tests/test_torch_train_
+# smoke.py, test_torch_train.py): its Mamba leaves' sums over every
+# position (d_skip, dt_bias, conv) move by a few percent where bf16 rounds
+# at other places, and cross the elementwise bar there too
+TRAIN_SMOKE_REL_L2 = {"jamba-1.5-large-398b": 5e-2}
+# and in float32 within the CPU tests' float32 bar against the reference
+TRAIN_SMOKE_F32_REL_L2 = 1e-4
+
+
+def phase_train_smoke(dev) -> dict[str, int]:
+    """[train-smoke]: TRAIN_SMOKE_RUNS through `launch/train.py`'s `train`
+    on the card at the reference's defaults, the kernels' counts set to 0
+    just before each run and read just after: finite losses, no restart,
+    and each run's launches `step_launches(cfg, steps, 1)` (the flash
+    backward once per attention layer, microbatch and step); then
+    TRAIN_SMOKE_CPU's card step against the CPU's (`card_vs_cpu_step`:
+    the MoE archs' card step twice torch.equal).  Returns the runs'
+    launches, summed."""
+    import dataclasses
+    import shutil
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    total = {}
+    for arch, steps in TRAIN_SMOKE_RUNS:
+        ck = ROOT / "build" / "train_smoke_ckpt" / arch
+        shutil.rmtree(ck, ignore_errors=True)
+        reset_zoo_launches()
+        t0 = time.perf_counter()
+        res = train(arch, smoke=True, steps=steps, seq=TRAIN_SMOKE_SEQ,
+                    global_batch=TRAIN_SMOKE_BATCH, ckpt_dir=str(ck),
+                    device="cuda", log=lambda m: None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = zoo_launches()
+        shutil.rmtree(ck, ignore_errors=True)
+        cfg, losses = res["cfg"], res["losses"]
+        want = step_launches(cfg, steps, 1)
+        if counts != want:
+            raise AssertionError(f"[train-smoke] {arch} launched {counts}, "
+                                 f"expected {want}")
+        if res["restarts"] or len(losses) != steps or not all(
+                x == x and abs(x) < float("inf") for x in losses):
+            raise AssertionError(f"[train-smoke] {arch}: restarts "
+                                 f"{res['restarts']}, losses {losses}")
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+        log(f"[train-smoke] {arch} (launch/train.py train, smoke, "
+            f"{cfg.n_layers} layers, d_model {cfg.d_model}, hd "
+            f"{cfg.attn.head_dim}, remat {cfg.remat}): {steps} steps at S "
+            f"{TRAIN_SMOKE_SEQ}, global batch {TRAIN_SMOKE_BATCH}; losses "
+            f"first {losses[0]:.4f} last {losses[-1]:.4f}, all finite; wall "
+            f"{wall:.2f} s ({wall / steps * 1e3:.1f} ms a step, checkpoints "
+            f"included); launches {json.dumps(counts)} = "
+            f"{launch_words(want, steps)}")
+    for arch in TRAIN_SMOKE_CPU:
+        cfg = dataclasses.replace(get_config(arch, smoke=True), remat="none")
+        seq = (cfg.encoder.dec_seq if cfg.encoder is not None
+               else TRAIN_SMOKE_SEQ)
+        batch = zoo_train_batch(dev, cfg, seq, seed=1,
+                                batch=TRAIN_SMOKE_BATCH,
+                                frames=TRAIN_SMOKE_SEQ)
+        card_vs_cpu_step(dev, cfg, batch, "[train-smoke]",
+                         f"{arch} smoke card vs CPU",
+                         TRAIN_SMOKE_REL_L2.get(arch))
+        if arch in TRAIN_SMOKE_REL_L2:
+            # the same step in float32: the bf16 spread is rounding
+            with float32_models():
+                card_vs_cpu_step(dev, cfg, batch, "[train-smoke]",
+                                 f"{arch} smoke card vs CPU in float32",
+                                 TRAIN_SMOKE_F32_REL_L2, f32=True)
+    return total
+
+
 @contextlib.contextmanager
 def restore_spy():
     """Within the block, `train_loop`'s first checkpoint also keeps a host
@@ -3593,20 +3839,21 @@ def restore_spy():
         loop._to_disk, loop._load_into = to_disk, load_into
 
 
-def step_launches(cfg, steps: int) -> dict[str, int]:
+def step_launches(cfg, steps: int, microbatches: int = TRAIN_MICROBATCHES,
+                  seq: int | None = None) -> dict[str, int]:
     """Kernel launches of `steps` training steps of `cfg`: each microbatch
     runs `per_forward(cfg)` forward launches, each with its backward, and
     with remat (`cfg.remat` not "none") each super-block's forward
     launches (the encoder's too) once more in the backward's re-forward
     (the leading dense blocks are outside the super-blocks)."""
-    per = per_forward(cfg)
+    per = per_forward(cfg, seq)
     out = {}
     for name in ("flash_attention", "ssd_scan"):
-        n = per[name] * TRAIN_MICROBATCHES * steps
+        n = per[name] * microbatches * steps
         again = 0
         if cfg.remat != "none":
             lead = cfg.first_k_dense if name == "flash_attention" else 0
-            again = (per[name] - lead) * TRAIN_MICROBATCHES * steps
+            again = (per[name] - lead) * microbatches * steps
         out[name], out[f"{name}_bwd"] = n + again, n
     return out
 
@@ -4361,15 +4608,48 @@ def hold_bf16_on_card(got, want, what: str) -> float:
     return float((g - w).abs().max()) / max(top, 1e-30)
 
 
-def phase_train_card_vs_cpu(dev) -> None:
-    """TRAIN_CPU_RUNS at full width, B 1: one step's loss and every
-    gradient leaf (no optimizer step) on the card (kernels forward and
-    backward) against the port's CPU path (plain versions, autograd) on
-    the same weights, tokens and stubbed frontend output, within the zoo's
-    bf16 bar (the leaves compared on the card); MoE layers on the card's
-    routes (`RouteReplay`, at least 95% of the CPU's own top-k the same),
-    and an MoE model's card step twice, torch.equal.  Without remat (the
-    `[train]` cells run the configs' "block")."""
+def leaf_errors(got, want) -> tuple[float, float]:
+    """A card gradient leaf against the CPU's, on the card: the worst
+    |got - want| / (atol + rtol |want|) at the zoo's bf16 bar (at most 1
+    where the bar holds) and the relative L2."""
+    import torch
+    from repro_torch.testing import BF16_RTOL
+    g, w = got.double(), want.to(got.device).double()
+    d = (g - w).abs()
+    top = float(w.abs().max())
+    ratio = float((d / (BF16_RTOL * top + BF16_RTOL * w.abs()
+                        ).clamp_min(1e-300)).max())
+    return ratio, float((g - w).norm() / w.norm().clamp_min(1e-300))
+
+
+@contextlib.contextmanager
+def float32_models():
+    """Within the block the models compute in float32 (the port's
+    `models.model.DTYPE`, as the CPU tests patch it; the weights are cast
+    by the caller)."""
+    import torch
+    from repro_torch.models import model as model_mod
+    old = model_mod.DTYPE
+    model_mod.DTYPE = torch.float32
+    try:
+        yield
+    finally:
+        model_mod.DTYPE = old
+
+
+def card_vs_cpu_step(dev, cfg, batch, tag: str, what: str,
+                     rel_l2: float | None = None, f32: bool = False) -> None:
+    """One step's loss and every gradient leaf (no optimizer step) of `cfg`
+    on the card (kernels forward and backward) against the port's CPU path
+    (plain versions, autograd) on the same weights (seed 1) and `batch`,
+    within the zoo's bf16 bar (the leaves compared on the card), the card
+    step's launches those of one step, forward and backward
+    (`step_launches`); MoE layers on the card's routes (`RouteReplay`, at
+    least 95% of the CPU's own top-k the same), and an MoE model's card
+    step twice, torch.equal.  With `rel_l2`, each leaf within that
+    relative L2 instead of the elementwise bar (the elementwise ratio is
+    logged); with `f32`, weights and activations in float32
+    (`float32_models`).  Logs one line under `tag`."""
     import torch
     from repro_torch.core.tree import leaf_paths, tree_leaves, tree_unflatten
     from repro_torch.models import build_model
@@ -4382,53 +4662,83 @@ def phase_train_card_vs_cpu(dev) -> None:
         return loss, tree_unflatten(params, list(torch.autograd.grad(
             loss, leaves)))
 
+    card, cpu = build_model(cfg, dev), build_model(cfg, "cpu")
+    params, _ = card.init(1)
+    if f32:
+        params = tree_unflatten(params, [t.float()
+                                         for t in tree_leaves(params)])
+    routes = RouteReplay()
+    reset_zoo_launches()
+    with routes.record():
+        loss_card, g_card = value_and_grad(card, params, batch)
+    torch.cuda.synchronize()
+    counts = zoo_launches()
+    want = step_launches(cfg, 1, 1, batch["tokens"].shape[1])
+    if counts != want:
+        raise AssertionError(f"{tag} {what}: the card step launched "
+                             f"{counts}, expected {want}")
+    twice = ""
+    if cfg.moe is not None and not f32:     # (the bf16 step's run is held)
+        again = value_and_grad(card, params, batch)
+        if not all_equal((loss_card, *tree_leaves(g_card)),
+                         (again[0], *tree_leaves(again[1]))):
+            raise AssertionError(f"{tag} {what}: two card steps differ")
+        twice = "; the card step twice torch.equal"
+        del again
+    t0 = time.perf_counter()
+    with routes.replay():
+        loss_cpu, g_cpu = value_and_grad(cpu, tree_to(params, "cpu"),
+                                         tree_to(batch, "cpu"))
+    t_cpu = time.perf_counter() - t0
+    agree = routes.check(what)
+    verdict = hold_bf16(loss_card.detach(), loss_cpu.detach(),
+                        f"{what} loss")
+    pairs = list(zip(leaf_paths(g_card), leaf_paths(g_cpu)))
+    if rel_l2 is None:
+        worst = max((hold_bf16_on_card(gc, gp, f"{what} gradient {k}"), k)
+                    for (k, gc), (_, gp) in pairs)
+        held = (f"within the bar (worst max abs / max |CPU| "
+                f"{worst[0]:.3g} at {worst[1]})")
+    else:
+        errs = {k: leaf_errors(gc, gp) for (k, gc), (_, gp) in pairs}
+        over = {k: e for k, e in errs.items() if e[1] > rel_l2}
+        if over:
+            raise AssertionError(f"{what}: gradient leaves beyond "
+                                 f"{rel_l2} relative L2: {over}")
+        r_ratio = max((e[0], k) for k, e in errs.items())
+        r_l2 = max((e[1], k) for k, e in errs.items())
+        n_over = sum(e[0] > 1 for e in errs.values())
+        held = (f"within {rel_l2} relative L2 (worst {r_l2[0]:.3g} at "
+                f"{r_l2[1]}; elementwise bar ratio worst {r_ratio[0]:.3g} at "
+                f"{r_ratio[1]}, {n_over} leaves over 1)")
+    mem = {k: tuple(v.shape) for k, v in batch.items()
+           if k not in ("tokens", "labels")}
+    log(f"{tag} {what}"
+        f"{' (encoder too)' if cfg.encoder is not None else ''}, B "
+        f"{batch['tokens'].shape[0]}, S {batch['tokens'].shape[1]}"
+        f"{f', memory {mem}' if mem else ''}: loss card "
+        f"{float(loss_card.detach()):.5f} vs CPU "
+        f"{float(loss_cpu.detach()):.5f} "
+        f"({verdict}); every one of {len(tree_leaves(g_cpu))} gradient "
+        f"leaves {held}; {agree}{twice}; card launches "
+        f"{json.dumps(counts)}; CPU step {t_cpu:.1f} s")
+    del params, g_card, g_cpu, card, cpu
+    torch.cuda.empty_cache()
+
+
+def phase_train_card_vs_cpu(dev) -> None:
+    """TRAIN_CPU_RUNS at full width, B 1 (`card_vs_cpu_step`), on the
+    stubbed frontend's output where the arch has one.  Without remat (the
+    `[train]` cells run the configs' "block")."""
     import dataclasses
     for arch, layers, seq in TRAIN_CPU_RUNS:
         # remat "none": remat changes no value (tests/test_torch_distributed
         # holds the modes ==), and the CPU side's re-forward would cost
         # ~30% more of this phase's wall
         cfg = dataclasses.replace(zoo_config(arch, layers), remat="none")
-        card, cpu = build_model(cfg, dev), build_model(cfg, "cpu")
-        params, _ = card.init(1)
         batch = zoo_train_batch(dev, cfg, seq, seed=1)
-        routes = RouteReplay()
-        reset_zoo_launches()
-        with routes.record():
-            loss_card, g_card = value_and_grad(card, params, batch)
-        torch.cuda.synchronize()
-        counts = zoo_launches()
-        twice = ""
-        if cfg.moe is not None:
-            again = value_and_grad(card, params, batch)
-            if not all_equal((loss_card, *tree_leaves(g_card)),
-                             (again[0], *tree_leaves(again[1]))):
-                raise AssertionError(f"{arch}: two card steps differ")
-            twice = "; the card step twice torch.equal"
-            del again
-        t0 = time.perf_counter()
-        with routes.replay():
-            loss_cpu, g_cpu = value_and_grad(cpu, tree_to(params, "cpu"),
-                                             tree_to(batch, "cpu"))
-        t_cpu = time.perf_counter() - t0
-        agree = routes.check(f"{arch} depth {layers}")
-        verdict = hold_bf16(loss_card.detach(), loss_cpu.detach(),
-                            f"{arch} loss")
-        worst = max((hold_bf16_on_card(gc, gp, f"{arch} gradient {k}"), k)
-                    for (k, gc), (_, gp) in zip(leaf_paths(g_card),
-                                                leaf_paths(g_cpu)))
-        mem = {k: tuple(v.shape) for k, v in batch.items()
-               if k not in ("tokens", "labels")}
-        log(f"[train-cpu] {arch} depth {layers}"
-            f"{' (encoder too)' if cfg.encoder is not None else ''}, B 1, "
-            f"S {seq}{f', memory {mem}' if mem else ''}, full width: loss "
-            f"card {float(loss_card.detach()):.5f} vs CPU "
-            f"{float(loss_cpu.detach()):.5f} "
-            f"({verdict}); every one of {len(tree_leaves(g_cpu))} gradient "
-            f"leaves within the bar (worst max abs / max |CPU| "
-            f"{worst[0]:.3g} at {worst[1]}); {agree}{twice}; card launches "
-            f"{json.dumps(counts)}; CPU step {t_cpu:.1f} s")
-        del params, g_card, g_cpu, card, cpu, batch
-        torch.cuda.empty_cache()
+        card_vs_cpu_step(dev, cfg, batch, "[train-cpu]",
+                         f"{arch} depth {layers}, full width")
 
 
 # ---------------------------------------------------------------------------
@@ -4840,6 +5150,9 @@ def main() -> int:
     launches.update(zoo_counts)
     timed(phase_zoo_profile, dev)
     kernels += timed(phase_train_kernels, dev)
+    smoke_counts = timed(phase_train_smoke, dev)
+    for name, n in smoke_counts.items():
+        launches[name] = launches.get(name, 0) + n
     timed(phase_train_card_vs_cpu, dev)
     train_counts, train_archs = timed(phase_train, dev)
     for name, n in train_counts.items():
@@ -4887,6 +5200,9 @@ def main() -> int:
         if mesh_train_counts.get(name):
             # launch/train.py on the (1, 1) mesh
             k["launches_train_mesh"] = mesh_train_counts[name]
+        if smoke_counts.get(name):
+            # launch/train.py --smoke for every arch with attention
+            k["launches_train_smoke"] = smoke_counts[name]
         if train_counts.get(name):
             # the training cells' run (forward with the LSE store, and the
             # backward kernels)

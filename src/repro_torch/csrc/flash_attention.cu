@@ -76,10 +76,10 @@
 // rows past S_kv with zeros), so a ragged S or S_kv needs no padding here:
 // query tiles run to S, key tiles to S_kv.
 //
-// Training (`flash_attention_lse_launch`): the wgmma and f32 kernels also
-// store each row's log-sum-exp m + log l (natural units, (B, H, S) f32),
-// from which the backward kernels (flash_attention_bwd.cu) recompute P, at
-// hd 64, 128 and 256, causal or not, with or without a window.  The store
+// Training (`flash_attention_lse_launch`): all three kernels also store
+// each row's log-sum-exp m + log l (natural units, (B, H, S) f32), from
+// which the backward kernels (flash_attention_bwd.cu) recompute P, at every
+// head dim, causal or not, with or without a window.  The store
 // is a compile-time flag (kLse), a separate instantiation as the window is,
 // so prefill, which passes no LSE, runs the code it ran before.
 
@@ -89,6 +89,7 @@
 #include <stdint.h>
 
 #include "hopper_wgmma.cuh"
+#include "mma_sync.cuh"
 
 namespace {
 
@@ -123,65 +124,15 @@ constexpr int kThreads = 128;  // four warps
 
 constexpr int kBKV16 = 64;     // keys per tile
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8 and receives, of matrix i in r[i], the pair
-// (row l / 4, columns 2 (l % 4), +1) -- with .trans, the pair (rows 2 (l % 4),
-// +1, column l / 4) of the stored matrix.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
-               "[%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-               "{%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-// 16-byte global -> shared copy that bypasses the registers; src_size 0
-// (valid false) fills the 16 bytes with zeros and reads nothing.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// Fragment layout of m16n8k16 (PTX ISA, "Matrix Fragments for mma.m16n8k16"),
-// with g = lane / 4 and t = lane % 4:
-//   A (16 x 16, row): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
-//                     a3 (g+8, 2t+8..)
-//   B (16 x 8, col):  b0 (k 2t..2t+1, n g), b1 (k 2t+8..2t+9, n g)
-//   C (16 x 8):       c0,c1 (g, 2t..2t+1), c2,c3 (g+8, 2t..2t+1)
-template <int HD, bool kWindow>
+// The fragment layouts of m16n8k16: mma_sync.cuh.
+template <int HD, bool kWindow, bool kLse>
 __global__ void __launch_bounds__(kThreads)
 flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
                   __nv_bfloat16* __restrict__ o, int S, int Skv, int H,
-                  int K, float scale, int causal, int window) {
+                  int K, float scale, int causal, int window,
+                  float* __restrict__ lse) {
   constexpr int KC = HD / 16;   // k-steps of q.k^T over the head dim
   constexpr int NT = HD / 8;    // 8-wide column tiles of the output
   constexpr int LD = HD + 8;    // padded smem row: conflict-free fragments
@@ -352,6 +303,15 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  if constexpr (kLse) {
+    // the row's log-sum-exp of the scaled scores, natural units (m is in
+    // log2 units): what the backward recomputes P from
+    if (t == 0) {
+      float* lb = lse + ((size_t)b * H + h) * S;
+      if (r0 < S) lb[r0] = m0 * 0.6931471805599453f + logf(l0);
+      if (r1 < S) lb[r1] = m1 * 0.6931471805599453f + logf(l1);
+    }
+  }
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
     const int c = n * 8 + 2 * t;
@@ -820,27 +780,27 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   return (int)cudaGetLastError();
 }
 
-template <int HD, bool kWindow>
+template <int HD, bool kWindow, bool kLse = false>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
                 int S, int Skv, int H, int K, float scale, int causal,
-                int window, cudaStream_t stream, float*) {
+                int window, cudaStream_t stream, float* lse) {
   constexpr size_t smem = 4 * (size_t)kBKV16 * (HD + 8) * sizeof(uint16_t);
   // once per instantiation, outside any CUDA-graph capture that follows
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_bf16_kernel<HD, kWindow>,
+        flash_bf16_kernel<HD, kWindow, kLse>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   dim3 grid(B * H, (S + kBQ - 1) / kBQ);
-  flash_bf16_kernel<HD, kWindow><<<grid, kThreads, smem, stream>>>(
+  flash_bf16_kernel<HD, kWindow, kLse><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S,
-      Skv, H, K, scale, causal, window);
+      Skv, H, K, scale, causal, window, lse);
   return (int)cudaGetLastError();
 }
 
@@ -956,9 +916,9 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
 // log-sum-exp lse (B, H, S) float32 of the scaled scores, which the
 // backward (flash_attention_bwd.cu) recomputes P from.  Every variant the
 // backward takes: causal or not, a window or none, S_kv of its own (non-
-// causal), scale > 0; kernel 0 (f32) or 2 (wgmma), hd 64, 128 or 256.  A
-// separate instantiation (kLse), so the prefill path above runs the code it
-// ran before the store existed.
+// causal), scale > 0; kernel 0 (f32, hd 16-256), 1 (mma.sync, hd 16, 32) or
+// 2 (wgmma, hd 64, 128, 256).  A separate instantiation (kLse), so the
+// prefill path above runs the code it ran before the store existed.
 int flash_attention_lse_launch(const void* q, const void* k, const void* v,
                                void* o, void* lse, int B, int S, int S_kv,
                                int H, int K, int hd, float scale, int causal,
@@ -972,6 +932,10 @@ int flash_attention_lse_launch(const void* q, const void* k, const void* v,
 #define REPRO_LSE_ARGS q, k, v, o, B, S, S_kv, H, K, scale, causal, window, \
                        stream, l
   switch (kernel * 1000 + hd) {
+    case 16: return launch_windowed<launch_f32<16, false, true>,
+                                    launch_f32<16, true, true>>(REPRO_LSE_ARGS);
+    case 32: return launch_windowed<launch_f32<32, false, true>,
+                                    launch_f32<32, true, true>>(REPRO_LSE_ARGS);
     case 64: return launch_windowed<launch_f32<64, false, true>,
                                     launch_f32<64, true, true>>(REPRO_LSE_ARGS);
     case 128: return launch_windowed<launch_f32<128, false, true>,
@@ -979,6 +943,12 @@ int flash_attention_lse_launch(const void* q, const void* k, const void* v,
         REPRO_LSE_ARGS);
     case 256: return launch_windowed<launch_f32<256, false, true>,
                                      launch_f32<256, true, true>>(
+        REPRO_LSE_ARGS);
+    case 1016: return launch_windowed<launch_bf16<16, false, true>,
+                                      launch_bf16<16, true, true>>(
+        REPRO_LSE_ARGS);
+    case 1032: return launch_windowed<launch_bf16<32, false, true>,
+                                      launch_bf16<32, true, true>>(
         REPRO_LSE_ARGS);
     case 2064: return launch_windowed<launch_wgmma<64, true, false, true>,
                                       launch_wgmma<64, true, true, true>>(

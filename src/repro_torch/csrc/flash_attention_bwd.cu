@@ -18,15 +18,15 @@
 // j > i (S_kv == S), a window > 0 (causal only) also hides j <= i - window,
 // and keys at or past S_kv and queries at or past S take no part.  Non-
 // causal attention (the encoder's, S_kv == S, and cross attention, S_kv !=
-// S either way) hides nothing but the ragged ends.  hd 64, 128 or 256; the
-// wrapper (ops.py) raises NotImplementedError for hd 16 and 32.
+// S either way) hides nothing but the ragged ends.  Every head dim the
+// forward takes: hd 16, 32, 64, 128 or 256.
 //
 // Bound on this card: five products over the visible (query, key) pairs,
 // 2.5x the forward's FLOP, bound by operations at the bf16 tensor-core rate;
 // at minitron-8b's shape (B 1, S 4096, H 32, K 8, hd 128, causal) 2.5 x
 // 1.374e11 FLOP, 0.347 ms, against ~0.14 GB of q, k, v, o, dO, lse in and
-// dq, dk, dv out (0.04 ms).  Two kernels, chosen by dtype as the forward's
-// `kernel_for` chooses (a dtype rule, not a fallback):
+// dq, dk, dv out (0.04 ms).  Three designs, chosen by dtype and head dim as
+// the forward's `kernel_for` chooses (a shape rule, not a fallback):
 //
 // bf16: wgmma fed by TMA (`flash_bwd_dkdv_kernel` or, at hd 256,
 // `flash_bwd_dkdv_split_kernel`, and `flash_bwd_dq_kernel`, after
@@ -103,18 +103,41 @@
 // Deterministic: no float atomics.  Every gradient element is owned by
 // one warpgroup, which adds the query (or key) tiles in a fixed order.
 //
+// bf16 at hd 16 and 32 (the smoke configs' widths): mma.sync m16n8k16 with
+// ldmatrix fragments and a cp.async ring (mma_sync.cuh), the forward's
+// `flash_bf16_kernel` design; a 64-column TMA panel would be
+// mostly padding at these widths, and hd 16 is a single k16 step.  The
+// same prep pass, then `flash_bwd_mma_dkdv_kernel` per (batch, query head,
+// 64 keys), four warps of 16 keys holding K, V as A fragments and dK, dV in
+// f32 registers while the head's Q / dO rows stream through in steps of
+// 64 (with GQA, float32 partials of each query head, which
+// `flash_bwd_gqa_sum_kernel` adds over the group in head order), and
+// `flash_bwd_mma_dq_kernel` per (batch, head, 64 query rows), four warps of
+// 16 rows holding Q, dO, lse, D and dQ while 64-key K / V tiles stream
+// through; the element mask runs in a branch of its own, on the tiles
+// that need it only (inline, its predicates were most of a step's
+// instructions, SASS of the loop).  The arithmetic is the wgmma kernels'
+// (P and dS rounded to bf16 for their products, S and dP in f32 from bf16
+// operands), so the same emulation holds it.  Bound: at these widths the
+// products are few (10 hd FLOP a visible pair: 0.043 ms at hd 16, 0.087
+// at hd 32 at minitron-8b's shape cut to that width, 2.685e8 pairs) and
+// the exponentials are the limit at hd 16: one exp2 a pair at the SFU's 16
+// a clock per SM (compute capability 9.0) on 132 SMs at the card's 1.98
+// GHz maximum SM clock, 4.18e12 a second, 0.064 ms; the two passes compute
+// P twice, so this design's own floor is ~0.128 ms there.
 // f32: CUDA-core FMAs (`flash_bwd_f32_dkdv_kernel`, `flash_bwd_f32_dq_kernel`,
 // after `flash_bwd_d_kernel`), the first design of this source: 32 x 32
 // shared-memory tiles, the same two passes and the same mask, every product
 // in f32 (the f32 bar is 2e-5, which TF32 would not meet); at hd 256 its
-// tiles take 140 KB of dynamic shared memory.  No training path on the card
-// runs f32 attention.
+// tiles take 140 KB of dynamic shared memory, at hd 16 a thread's columns
+// are one (t % 16).  No training path on the card runs f32 attention.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "hopper_wgmma.cuh"
+#include "mma_sync.cuh"
 
 namespace {
 
@@ -638,7 +661,9 @@ flash_bwd_prep_kernel(const __nv_bfloat16* __restrict__ o,
                       const float* __restrict__ lse, float* __restrict__ Dp,
                       float* __restrict__ Lp, int B, int S, int S_pad,
                       int H) {
-  constexpr int PER = HD / 32;   // columns per lane: 2, 4 or 8
+  // columns per lane: 2 (hd 16, 32 and 64: lanes past hd / 2 add 0), 4
+  // or 8
+  constexpr int PER = HD > 64 ? HD / 32 : 2;
   const long long rowid = ((long long)blockIdx.x * 256 + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (rowid >= (long long)B * S_pad * H) return;   // whole warps leave
@@ -648,14 +673,16 @@ flash_bwd_prep_kernel(const __nv_bfloat16* __restrict__ o,
   float acc = 0.f, l2 = 0.f;
   if (s < S) {
     const size_t off = (((size_t)b * S + s) * H + h) * HD + PER * lane;
+    if (PER * lane < HD) {
 #pragma unroll
-    for (int i = 0; i < PER; i += 2) {
-      const float2 x = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(o + off + i));
-      const float2 y = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(dO + off + i));
-      acc = fmaf(x.x, y.x, acc);
-      acc = fmaf(x.y, y.y, acc);
+      for (int i = 0; i < PER; i += 2) {
+        const float2 x = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(o + off + i));
+        const float2 y = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(dO + off + i));
+        acc = fmaf(x.x, y.x, acc);
+        acc = fmaf(x.y, y.y, acc);
+      }
     }
     l2 = lse[((size_t)b * H + h) * S + s] * kLog2e;
   }
@@ -1103,6 +1130,436 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                  qw0, sh.S, scale);
 }
 
+// ---------------------------------------------------------------------------
+// bf16, hd 16 and 32: mma.sync
+// ---------------------------------------------------------------------------
+
+constexpr int kMRows = 64;       // keys of a dK / dV block, rows of a dQ
+                                 // block: four warps of 16
+constexpr int kMStep = 64;       // query rows of a dK / dV step, keys of a
+                                 // dQ step
+constexpr int kMThreads = 128;
+constexpr int kMStages = 3;      // cp.async ring: one barrier a step
+// Blocks an SM should hold: at hd 16 ptxas then keeps a thread at 128
+// registers (four blocks, 16 warps an SM: ~7% faster at minitron-8b's
+// shape, on an H100 80GB HBM3 at 700 W, in turns); at hd 32 that cap ran
+// slower.
+__host__ __device__ constexpr int mma_min_blocks(int hd) {
+  return hd <= 16 ? 4 : 1;
+}
+
+// Rows r0 and r1 = r0 + 8 of one head of a (.., rows, heads, HD) bf16
+// tensor (`src` at its batch and head, rows `stride` apart) as the A
+// fragments of the HD / 16 k-steps over the head dim; rows at or past `n`
+// are zeros.
+template <int HD>
+__device__ __forceinline__ void load_a_rows(uint32_t (&a)[HD / 16][4],
+                                            const __nv_bfloat16* src,
+                                            size_t stride, int r0, int n) {
+  const int t = threadIdx.x & 3, r1 = r0 + 8;
+#pragma unroll
+  for (int kc = 0; kc < HD / 16; ++kc) {
+    const int c = kc * 16 + 2 * t;
+    const uint32_t* p0 =
+        reinterpret_cast<const uint32_t*>(src + (size_t)r0 * stride + c);
+    const uint32_t* p1 =
+        reinterpret_cast<const uint32_t*>(src + (size_t)r1 * stride + c);
+    a[kc][0] = r0 < n ? p0[0] : 0u;
+    a[kc][1] = r1 < n ? p1[0] : 0u;
+    a[kc][2] = r0 < n ? p0[4] : 0u;
+    a[kc][3] = r1 < n ? p1[4] : 0u;
+  }
+}
+
+// kMStep rows (r0 ..) of one head into a shared tile of rows of HD + 8
+// (conflict-free ldmatrix), by cp.async; rows at or past `n` are zeros.
+template <int HD>
+__device__ __forceinline__ void copy_rows(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src,
+                                          size_t stride, int r0, int n) {
+  constexpr int LD = HD + 8, VEC = HD / 8;   // 16-byte vectors a row
+  for (int i = threadIdx.x; i < kMStep * VEC; i += kMThreads) {
+    const int r = i / VEC, c = (i % VEC) * 8;
+    const bool in = r0 + r < n;     // rows past n: zeros, read nothing
+    cp_async16(dst + r * LD + c, src + (size_t)(in ? r0 + r : 0) * stride + c,
+               in);
+  }
+}
+
+// d (16 x kMStep, 8 column tiles) = A (16 x HD, fragments) . B^T, B the
+// kMStep rows of a shared tile (rows of HD + 8): the scores of a warp's 16
+// rows against a step's rows.
+template <int HD>
+__device__ __forceinline__ void mma_abt(float (&d)[kMStep / 8][4],
+                                        const uint32_t (&a)[HD / 16][4],
+                                        const __nv_bfloat16* b) {
+  constexpr int LD = HD + 8;
+  const int lane = threadIdx.x & 31, mi = lane >> 3, mr = lane & 7;
+#pragma unroll
+  for (int nt = 0; nt < kMStep / 8; ++nt)
+    d[nt][0] = d[nt][1] = d[nt][2] = d[nt][3] = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < kMStep / 8; nt += 2) {
+#pragma unroll
+    for (int kc = 0; kc < HD / 16; ++kc) {
+      uint32_t f[4];
+      ldmatrix_x4(f, b + ((nt + (mi >> 1)) * 8 + mr) * LD + kc * 16 +
+                         (mi & 1) * 8);
+      mma_bf16(d[nt], a[kc], f[0], f[1]);
+      mma_bf16(d[nt + 1], a[kc], f[2], f[3]);
+    }
+  }
+}
+
+// acc (16 x HD) += X (16 x kMStep, f32 accumulators, rounded to bf16) . B,
+// B the kMStep rows of a shared tile (rows of HD + 8), read transposed.
+template <int HD>
+__device__ __forceinline__ void mma_xb(float (&acc)[HD / 8][4],
+                                       const float (&x)[kMStep / 8][4],
+                                       const __nv_bfloat16* b) {
+  constexpr int LD = HD + 8;
+  const int lane = threadIdx.x & 31, mi = lane >> 3, mr = lane & 7;
+#pragma unroll
+  for (int j = 0; j < kMStep / 16; ++j) {
+    const uint32_t xa[4] = {pack_bf16(x[2 * j][0], x[2 * j][1]),
+                            pack_bf16(x[2 * j][2], x[2 * j][3]),
+                            pack_bf16(x[2 * j + 1][0], x[2 * j + 1][1]),
+                            pack_bf16(x[2 * j + 1][2], x[2 * j + 1][3])};
+#pragma unroll
+    for (int n = 0; n < HD / 8; n += 2) {
+      uint32_t f[4];
+      ldmatrix_x4_trans(f, b + (j * 16 + (mi & 1) * 8 + mr) * LD +
+                               (n + (mi >> 1)) * 8);
+      mma_bf16(acc[n], xa, f[0], f[1]);
+      mma_bf16(acc[n + 1], xa, f[2], f[3]);
+    }
+  }
+}
+
+// A warp's 16 x HD accumulator to rows r0 = row0 + g and r0 + 8 of a (..,
+// rows, heads, HD) tensor (`out` at its batch and head), scaled: bf16, or
+// float32 (the dK / dV partials of one query head); rows at or past `n` are
+// not written.
+template <int HD, typename T>
+__device__ __forceinline__ void store_warp_rows(const float (&d)[HD / 8][4],
+                                                T* out, size_t stride,
+                                                int row0, int n, float scale) {
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int r0 = row0 + (lane >> 2), r1 = r0 + 8;
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    const int c = j * 8 + 2 * t;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = half ? r1 : r0;
+      const float x = d[j][2 * half] * scale, y = d[j][2 * half + 1] * scale;
+      if (r >= n) continue;
+      if constexpr (sizeof(T) == 2)
+        *reinterpret_cast<uint32_t*>(out + (size_t)r * stride + c) =
+            pack_bf16(x, y);
+      else
+        *reinterpret_cast<float2*>(out + (size_t)r * stride + c) =
+            make_float2(x, y);
+    }
+  }
+}
+
+// dK, dV of kMRows keys of one kv head from one query head h, hd 16 or 32
+// (see the header).  Lp, Dp (B, H, S_pad).  Warp w owns keys kw0 = k0 +
+// 16 w .. + 15: their K and V rows as A fragments, dK and dV in f32
+// registers.  The Q and dO rows of head h, kMStep at a time, and their lse
+// / D, are copied by cp.async into a three-stage ring (step it + 1 lands
+// while it is computed).  With one query head a kv head (H == K) dK and
+// dV are written in bf16; else as float32 partials of head h (`pk`, `pv`:
+// (B, S_kv, H, HD)), which `flash_bwd_gqa_sum_kernel` adds over the group
+// in head order: a block per query head keeps each block's chain of steps
+// as short as the forward's, where one block over the whole group ran H /
+// K times as many steps in a row (1.00 -> 0.80 ms at minitron-8b's shape
+// cut to hd 16, on an H100 80GB HBM3 at 700 W, in turns).  Per step,
+// key-major: S^T = K Q^T and dP^T = V dO^T, P^T = exp2(S^T scale log2(e) -
+// lse log2(e)), masked where the step meets the diagonal, the window's
+// edge or a ragged end, dS^T = P^T (dP^T - D), dV += P^T dO and dK += dS^T
+// Q (P^T and dS^T re-packed to bf16, dO and Q read transposed by
+// ldmatrix).  A warp none of whose keys a step's queries see skips its
+// products.
+template <int HD>
+__global__ void __launch_bounds__(kMThreads, mma_min_blocks(HD))
+flash_bwd_mma_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const __nv_bfloat16* __restrict__ dO,
+                          const float* __restrict__ Lp,
+                          const float* __restrict__ Dp,
+                          __nv_bfloat16* __restrict__ dk,
+                          __nv_bfloat16* __restrict__ dv,
+                          float* __restrict__ pk, float* __restrict__ pv,
+                          BwdShape sh, float scale) {
+  constexpr int LD = HD + 8, NT = HD / 8;
+  __shared__ __align__(16) __nv_bfloat16 sq[kMStages][kMStep * LD];
+  __shared__ __align__(16) __nv_bfloat16 sdo[kMStages][kMStep * LD];
+  __shared__ __align__(16) float slse[kMStages][kMStep];
+  __shared__ __align__(16) float sdd[kMStages][kMStep];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.x / sh.H, h = blockIdx.x % sh.H;
+  const int kh = h / (sh.H / sh.K);
+  const int k0 = blockIdx.y * kMRows;      // heaviest (k0 = 0) first
+  const int kw0 = k0 + 16 * warp, kw_last = min(kw0 + 16, sh.S_kv) - 1;
+  const size_t qrow = (size_t)sh.H * HD, krow = (size_t)sh.K * HD;
+  const size_t kvoff = (size_t)b * sh.S_kv * krow + (size_t)kh * HD;
+  uint32_t kf[HD / 16][4], vf[HD / 16][4];
+  load_a_rows<HD>(kf, k + kvoff, krow, kw0 + g, sh.S_kv);
+  load_a_rows<HD>(vf, v + kvoff, krow, kw0 + g, sh.S_kv);
+  float adk[NT][4], adv[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adk[n][e] = adv[n][e] = 0.f;
+
+  // steps: query tiles qt0 .. qt0 + n_it - 1 of head h
+  const int qt0 = first_query(k0, sh) / kMStep;
+  const int n_it =
+      (query_end(min(k0 + kMRows, sh.S_kv) - 1, sh) + kMStep - 1) / kMStep -
+      qt0;
+  auto issue = [&](int it) {
+    const int st = it % kMStages, q0 = (qt0 + it) * kMStep;
+    const size_t qoff = (size_t)b * sh.S * qrow + (size_t)h * HD;
+    copy_rows<HD>(sq[st], q + qoff, qrow, q0, sh.S);
+    copy_rows<HD>(sdo[st], dO + qoff, qrow, q0, sh.S);
+    // the rows' lse and D, four a copy (rows padded to S_pad: in range)
+    if (threadIdx.x < kMStep / 2) {
+      const int half = threadIdx.x / (kMStep / 4);
+      const int j = threadIdx.x % (kMStep / 4);
+      const size_t rows = ((size_t)b * sh.H + h) * sh.S_pad + q0 + 4 * j;
+      cp_async16(half ? &sdd[st][4 * j] : &slse[st][4 * j],
+                 (half ? Dp : Lp) + rows, true);
+    }
+    cp_async_commit();
+  };
+  const float scale_log2 = scale * kLog2e;
+  if (n_it > 0) issue(0);
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % kMStages;
+    if (it + 1 < n_it) {
+      issue(it + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    // step `it` has landed for every thread.  One barrier a step: the copy
+    // of it + 1, issued above before it, fills the stage step it - 2 read,
+    // and every warp had finished step it - 2 to pass step it - 1's barrier
+    __syncthreads();
+    const int q0 = (qt0 + it) * kMStep;
+    if (kw0 <= kw_last &&
+        any_seen(q0, min(q0 + kMStep, sh.S) - 1, kw0, kw_last, sh)) {
+      float pt[kMStep / 8][4], dst[kMStep / 8][4];
+      mma_abt<HD>(pt, kf, sq[st]);
+      mma_abt<HD>(dst, vf, sdo[st]);
+      // the step's queries 8 nt + 2 t, + 1 are columns e & 1
+#pragma unroll
+      for (int nt = 0; nt < kMStep / 8; ++nt) {
+        const float2 l =
+            *reinterpret_cast<const float2*>(&slse[st][nt * 8 + 2 * t]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          pt[nt][e] = exp2_approx(fmaf(pt[nt][e], scale_log2,
+                                       -((e & 1) ? l.y : l.x)));
+      }
+      // the element mask in a branch of its own, on the tiles that need it
+      // only (inline, its predicates were most of a step's instructions);
+      // the block's four warps hold a 64-row tile in mask_tile's layout
+      if (needs_mask(q0, kMStep, kw0, 16, sh))
+        mask_tile<kMStep, true>(
+            *reinterpret_cast<float(*)[kMStep / 2]>(&pt[0][0]), k0, q0, sh);
+#pragma unroll
+      for (int nt = 0; nt < kMStep / 8; ++nt) {
+        const float2 dd =
+            *reinterpret_cast<const float2*>(&sdd[st][nt * 8 + 2 * t]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dst[nt][e] = pt[nt][e] * (dst[nt][e] - ((e & 1) ? dd.y : dd.x));
+      }
+      mma_xb<HD>(adv, pt, sdo[st]);
+      mma_xb<HD>(adk, dst, sq[st]);
+    }
+  }
+  if (sh.H == sh.K) {
+    store_warp_rows<HD>(adk, dk + kvoff, krow, kw0, sh.S_kv, scale);
+    store_warp_rows<HD>(adv, dv + kvoff, krow, kw0, sh.S_kv, 1.f);
+  } else {
+    const size_t prow = (size_t)sh.H * HD;
+    const size_t poff = (size_t)b * sh.S_kv * prow + (size_t)h * HD;
+    store_warp_rows<HD>(adk, pk + poff, prow, kw0, sh.S_kv, 1.f);
+    store_warp_rows<HD>(adv, pv + poff, prow, kw0, sh.S_kv, 1.f);
+  }
+}
+
+// dK, dV of every (batch, key, kv head) from the per-query-head partials
+// (B, S_kv, H, HD) f32: the group's H / K heads added in head order, dK
+// scaled, both written in bf16.  One thread a pair of columns.
+template <int HD>
+__global__ void __launch_bounds__(256)
+flash_bwd_gqa_sum_kernel(const float* __restrict__ pk,
+                         const float* __restrict__ pv,
+                         __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, long long pairs,
+                         int K, int rep, float scale) {
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= pairs) return;
+  // i runs over (b, key, kh, column pair); the partials' (b, key) rows
+  // hold H = K rep heads
+  const int c = 2 * (int)(i % (HD / 2));
+  const long long row = i / (HD / 2);           // (b, key, kh)
+  const size_t src = ((size_t)(row / K) * K * rep + (size_t)(row % K) * rep) *
+                         HD + c;
+  float2 sk = make_float2(0.f, 0.f), sv = sk;
+  for (int hh = 0; hh < rep; ++hh) {
+    const float2 a = *reinterpret_cast<const float2*>(pk + src + hh * HD);
+    const float2 e = *reinterpret_cast<const float2*>(pv + src + hh * HD);
+    sk.x += a.x;
+    sk.y += a.y;
+    sv.x += e.x;
+    sv.y += e.y;
+  }
+  const size_t dst = (size_t)row * HD + c;
+  *reinterpret_cast<uint32_t*>(dk + dst) =
+      pack_bf16(sk.x * scale, sk.y * scale);
+  *reinterpret_cast<uint32_t*>(dv + dst) = pack_bf16(sv.x, sv.y);
+}
+
+// dQ of kMRows query rows of one head, hd 16 or 32 (see the header): warp
+// w owns rows q0 + 16 w .. + 15, their Q and dO rows as A fragments, their
+// lse and D in registers and dQ in f32 registers; the K and V tiles of
+// kMStep keys that the block's rows see stream through a three-stage
+// cp.async ring.  S = Q K^T and dP = dO V^T, P and dS as above, dQ += dS K
+// (K read transposed).  Causal without a window: the heaviest query tiles
+// (the most key tiles) start first.
+template <int HD>
+__global__ void __launch_bounds__(kMThreads, mma_min_blocks(HD))
+flash_bwd_mma_dq_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ dO,
+                        const float* __restrict__ Lp,
+                        const float* __restrict__ Dp,
+                        __nv_bfloat16* __restrict__ dq, BwdShape sh,
+                        float scale) {
+  constexpr int LD = HD + 8, NT = HD / 8;
+  __shared__ __align__(16) __nv_bfloat16 sk[kMStages][kMStep * LD];
+  __shared__ __align__(16) __nv_bfloat16 sv[kMStages][kMStep * LD];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int b = blockIdx.x / sh.H, h = blockIdx.x % sh.H;
+  const int kh = h / (sh.H / sh.K);
+  const bool heavy_last = sh.causal && !sh.window;
+  const int q0 =
+      (heavy_last ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kMRows;
+  const int qw0 = q0 + 16 * warp, qw_last = min(qw0 + 16, sh.S) - 1;
+  const size_t qrow = (size_t)sh.H * HD, krow = (size_t)sh.K * HD;
+  const size_t qoff = (size_t)b * sh.S * qrow + (size_t)h * HD;
+  const size_t kvoff = (size_t)b * sh.S_kv * krow + (size_t)kh * HD;
+  uint32_t qf[HD / 16][4], df[HD / 16][4];
+  load_a_rows<HD>(qf, q + qoff, qrow, qw0 + g, sh.S);
+  load_a_rows<HD>(df, dO + qoff, qrow, qw0 + g, sh.S);
+  // rows qw0 + g and + 8 (padded to S_pad: in range, zeros past S)
+  const size_t lrow = ((size_t)b * sh.H + h) * sh.S_pad + qw0 + g;
+  const float l0 = Lp[lrow], l1 = Lp[lrow + 8];
+  const float d0 = Dp[lrow], d1 = Dp[lrow + 8];
+  float adq[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+    adq[n][0] = adq[n][1] = adq[n][2] = adq[n][3] = 0.f;
+
+  const int j0 = first_key(q0, sh) / kMStep;
+  const int n_it =
+      (key_end(min(q0 + kMRows, sh.S) - 1, sh) + kMStep - 1) / kMStep - j0;
+  auto issue = [&](int it) {
+    const int st = it % kMStages, kv0 = (j0 + it) * kMStep;
+    copy_rows<HD>(sk[st], k + kvoff, krow, kv0, sh.S_kv);
+    copy_rows<HD>(sv[st], v + kvoff, krow, kv0, sh.S_kv);
+    cp_async_commit();
+  };
+  const float scale_log2 = scale * kLog2e;
+  if (n_it > 0) issue(0);
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % kMStages;
+    if (it + 1 < n_it) {
+      issue(it + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();   // tile `it` has landed; stage reuse as above
+    const int kv0 = (j0 + it) * kMStep;
+    if (qw0 <= qw_last &&
+        any_seen(qw0, qw_last, kv0, min(kv0 + kMStep, sh.S_kv) - 1, sh)) {
+      float p[kMStep / 8][4], ds[kMStep / 8][4];
+      mma_abt<HD>(p, qf, sk[st]);
+      mma_abt<HD>(ds, df, sv[st]);
+      // rows qw0 + g and + 8 are e < 2 and e >= 2
+#pragma unroll
+      for (int nt = 0; nt < kMStep / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          p[nt][e] = exp2_approx(fmaf(p[nt][e], scale_log2,
+                                      -((e & 2) ? l1 : l0)));
+      if (needs_mask(qw0, 16, kv0, kMStep, sh))   // as in the dK / dV pass
+        mask_tile<kMStep, false>(
+            *reinterpret_cast<float(*)[kMStep / 2]>(&p[0][0]), q0, kv0, sh);
+#pragma unroll
+      for (int nt = 0; nt < kMStep / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ds[nt][e] = p[nt][e] * (ds[nt][e] - ((e & 2) ? d1 : d0));
+      mma_xb<HD>(adq, ds, sk[st]);
+    }
+  }
+  store_warp_rows<HD>(adq, dq + qoff, qrow, qw0, sh.S, scale);
+}
+
+template <int HD>
+int launch_bwd_mma(const void* q, const void* k, const void* v,
+                   const void* o, const void* dO, const void* lse, void* D,
+                   void* dq, void* dk, void* dv, int B, BwdShape sh,
+                   float scale, cudaStream_t stream) {
+  const int H = sh.H, K = sh.K;
+  float* Dp = static_cast<float*>(D);
+  float* Lp = Dp + (size_t)B * H * sh.S_pad;
+  const __nv_bfloat16* tq = static_cast<const __nv_bfloat16*>(q);
+  const __nv_bfloat16* tk = static_cast<const __nv_bfloat16*>(k);
+  const __nv_bfloat16* tv = static_cast<const __nv_bfloat16*>(v);
+  const __nv_bfloat16* tdo = static_cast<const __nv_bfloat16*>(dO);
+  const long long rows = (long long)B * sh.S_pad * H;
+  flash_bwd_prep_kernel<HD><<<(int)((rows * 32 + 255) / 256), 256, 0,
+                              stream>>>(
+      static_cast<const __nv_bfloat16*>(o), tdo,
+      static_cast<const float*>(lse), Dp, Lp, B, sh.S, sh.S_pad, H);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  // the dK / dV partials of each query head, after the lse / D rows
+  float* pk = Lp + (size_t)B * H * sh.S_pad;
+  float* pv = pk + (size_t)B * sh.S_kv * H * HD;
+  flash_bwd_mma_dkdv_kernel<HD><<<dim3(B * H, (sh.S_kv + kMRows - 1) /
+                                                  kMRows),
+                                  kMThreads, 0, stream>>>(
+      tq, tk, tv, tdo, Lp, Dp, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), pk, pv, sh, scale);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  if (H != K) {
+    const long long pairs = (long long)B * sh.S_kv * K * (HD / 2);
+    flash_bwd_gqa_sum_kernel<HD><<<(int)((pairs + 255) / 256), 256, 0,
+                                   stream>>>(
+        pk, pv, static_cast<__nv_bfloat16*>(dk),
+        static_cast<__nv_bfloat16*>(dv), pairs, K, H / K, scale);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  flash_bwd_mma_dq_kernel<HD><<<dim3(B * H, (sh.S + kMRows - 1) / kMRows),
+                                kMThreads, 0, stream>>>(
+      tq, tk, tv, tdo, Lp, Dp, static_cast<__nv_bfloat16*>(dq), sh, scale);
+  return (int)cudaGetLastError();
+}
+
 template <int HD>
 int launch_bwd_wgmma(const void* q, const void* k, const void* v,
                      const void* o, const void* dO, const void* lse, void* D,
@@ -1221,9 +1678,11 @@ const char* repro_cuda_error_string(int code) {
 // q, o, dO, dq (B, S, H, hd); k, v, dk, dv (B, S_kv, K, hd); lse (B, H, S)
 // f32 from flash_attention_lse_launch; D f32 scratch of 2 B H S_pad floats,
 // S_pad = S rounded up to a multiple of 128 (the f32 kernels use the first
-// B H S).  Contiguous, 16-byte aligned, all bf16 (bf16 != 0) or all f32.
-// hd 64, 128 or 256, H % K == 0; causal (S_kv == S) with window 0 or > 0,
-// or non-causal (window 0) at any S_kv >= 1.  Returns a cudaError_t
+// B H S), and for bf16 at hd 16 and 32 with H != K 2 B S_kv H hd floats
+// more (the dK / dV partials of each query head).  Contiguous, 16-byte
+// aligned, all bf16 (bf16 != 0) or all f32.  hd 16, 32, 64, 128 or 256,
+// H % K == 0; causal (S_kv == S) with window 0 or > 0, or non-causal
+// (window 0) at any S_kv >= 1.  Returns a cudaError_t
 // (cudaErrorInvalidValue outside those).
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                const void* o, const void* dO,
@@ -1241,9 +1700,13 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
 #define REPRO_BWD_ARGS q, k, v, o, dO, lse, D, dq, dk, dv, B, sh, scale, \
                        stream
   switch ((bf16 ? 1000 : 0) + hd) {
+    case 16: return launch_bwd_f32<16>(REPRO_BWD_ARGS);
+    case 32: return launch_bwd_f32<32>(REPRO_BWD_ARGS);
     case 64: return launch_bwd_f32<64>(REPRO_BWD_ARGS);
     case 128: return launch_bwd_f32<128>(REPRO_BWD_ARGS);
     case 256: return launch_bwd_f32<256>(REPRO_BWD_ARGS);
+    case 1016: return launch_bwd_mma<16>(REPRO_BWD_ARGS);
+    case 1032: return launch_bwd_mma<32>(REPRO_BWD_ARGS);
     case 1064: return launch_bwd_wgmma<64>(REPRO_BWD_ARGS);
     case 1128: return launch_bwd_wgmma<128>(REPRO_BWD_ARGS);
     case 1256: return launch_bwd_wgmma<256>(REPRO_BWD_ARGS);

@@ -26,14 +26,14 @@ and any of q, k, v requiring one), the call goes through `FlashAttention`,
 a `torch.autograd.Function`: its forward launches the same kernel with the
 row log-sum-exp stored (`flash_attention_lse_launch`), its backward the
 kernels of csrc/flash_attention_bwd.cu (`launches["flash_attention_bwd"]`
-counts them, one per backward): for bf16 wgmma fed by TMA, for float32
-CUDA-core FMAs, chosen by dtype as the forward's kernel is.  The backward
-takes every variant the forward does (causal with or without a window,
-non-causal with a key length S_kv of its own) at hd 64, 128 and 256
-(`BWD_HEAD_DIMS`), bf16 or f32; at hd 16 and 32 (the smoke widths) the
-forward runs as before and the backward raises NotImplementedError
-(ROADMAP queue 1): there is no plain fallback on the card.  On the CPU
-autograd runs through `attention_ref` for every variant.
+counts them, one per backward): for bf16 wgmma fed by TMA at hd 64, 128
+and 256 and mma.sync at hd 16 and 32, for float32 CUDA-core FMAs, chosen
+by dtype and head dim as the forward's kernel is.  The backward takes
+every variant the forward does (causal with or without a window,
+non-causal with a key length S_kv of its own) at every head dim of
+`HEAD_DIMS`, bf16 or f32; there is no plain fallback on the card (a build
+or launch failure raises).  On the CPU autograd runs through
+`attention_ref` for every variant.
 Without grad (prefill, `inference_mode`) nothing changes: the kernel runs
 without the store.
 
@@ -56,8 +56,7 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 BLOCK_Q = 128           # the reference kernel's blocks: they set which
 BLOCK_KV = 256          # non-causal S it refuses (the CUDA kernels tile
                         # on their own)
-HEAD_DIMS = (16, 32, 64, 128, 256)
-BWD_HEAD_DIMS = (64, 128, 256)  # what the backward kernels take
+HEAD_DIMS = (16, 32, 64, 128, 256)   # forward and backward
 BWD_PAD_ROWS = 128              # the bf16 backward's lse / D row padding
 # the C launcher's kernel ids
 KERNELS = {"cuda_core_f32": 0, "mma_sync_bf16": 1, "wgmma_bf16": 2}
@@ -107,14 +106,10 @@ def _bwd_lib():
     return lib
 
 
-def backward_supported(hd: int, scale: float) -> str | None:
-    """None if the backward kernels take this variant (every mask and key
-    length the forward takes), else why not."""
-    if hd not in BWD_HEAD_DIMS:
-        return f"head dim {hd} (the backward takes {BWD_HEAD_DIMS})"
-    if not scale > 0:
-        return f"scale {scale} <= 0"
-    return None
+def backward_supported(scale: float) -> str | None:
+    """None if the backward kernels take this variant (every mask, key
+    length and head dim the forward takes, at scale > 0), else why not."""
+    return None if scale > 0 else f"scale {scale} <= 0"
 
 
 def _forward(q, k, v, scale, causal, window, lse=None):
@@ -155,9 +150,13 @@ def flash_backward(q, k, v, o, lse, do, scale, causal=True, window=0):
         do = do.clone()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # D = rowsum(dO o) and lse log2(e), rows padded to the query tiles of S
-    # (the key tiles follow S_kv)
+    # (the key tiles follow S_kv); the mma.sync kernels' dK / dV partials of
+    # each query head after them
     s_pad = -(-S // BWD_PAD_ROWS) * BWD_PAD_ROWS
-    D = torch.empty(2 * B * H * s_pad, dtype=torch.float32, device=q.device)
+    n = 2 * B * H * s_pad
+    if kernel_for(q.dtype, hd) == "mma_sync_bf16" and H != K:
+        n += 2 * B * S_kv * H * hd
+    D = torch.empty(n, dtype=torch.float32, device=q.device)
     lib = _bwd_lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = lib.flash_attention_bwd_launch(
@@ -172,14 +171,14 @@ def flash_backward(q, k, v, o, lse, do, scale, causal=True, window=0):
 
 class FlashAttention(torch.autograd.Function):
     """The CUDA kernel with a gradient: forward with the log-sum-exp
-    stored where the backward kernels take the variant, backward through
-    them; any other variant's (hd 16, 32) backward raises
-    NotImplementedError."""
+    stored where the backward kernels take the variant (every head dim and
+    mask, scale > 0), backward through them; any other variant's (scale
+    <= 0) backward raises NotImplementedError."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, window):
-        S, hd = q.shape[1], q.shape[3]
-        why = backward_supported(hd, scale)
+        S = q.shape[1]
+        why = backward_supported(scale)
         lse = None
         if why is None:
             lse = torch.empty((q.shape[0], q.shape[2], S),
@@ -196,8 +195,8 @@ class FlashAttention(torch.autograd.Function):
         if ctx.why is not None:
             raise NotImplementedError(
                 f"gqa_flash_attention backward on the card: {ctx.why} is not"
-                f" ported (head dims {BWD_HEAD_DIMS} are, with every mask; "
-                f"ROADMAP.md queue 1)")
+                f" ported (every head dim of {HEAD_DIMS} is, with every mask,"
+                f" at scale > 0)")
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_backward(q, k, v, out, lse, do, ctx.scale,
                                     ctx.causal, ctx.window)

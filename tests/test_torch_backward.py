@@ -148,23 +148,32 @@ def test_flash_grad_bars_hold_for_the_kernels_arithmetic(dtype):
 
 # (id, S, S_kv, hd, causal, window): causal at S 1024 (hd 64 and 128, the
 # first variants), a window, non-causal with S_kv < S and S_kv > S off the
-# tile multiples, hd 256 causal and windowed
+# tile multiples, hd 256 causal and windowed; and the mma.sync kernels' hd
+# 16 and 32 (the smoke widths, the same rounding: P and dS in bf16) causal,
+# with the smoke configs' window 32, and non-causal with S_kv < S and > S
 WGMMA_ARITH_CASES = [("64", 1024, 1024, 64, True, 0),
                      ("128", 1024, 1024, 128, True, 0),
                      ("window", 1024, 1024, 128, True, 200),
                      ("cross-skv-lt-s", 1000, 300, 64, False, 0),
                      ("cross-skv-gt-s", 300, 1000, 128, False, 0),
                      ("hd256", 1024, 1024, 256, True, 0),
-                     ("hd256-window", 1024, 1024, 256, True, 256)]
+                     ("hd256-window", 1024, 1024, 256, True, 256)] + [
+    (f"hd{hd}-{name}", S, S_kv, hd, causal, window)
+    for hd in (16, 32)
+    for name, S, S_kv, causal, window in (
+        ("causal", 1024, 1024, True, 0), ("window32", 1024, 1024, True, 32),
+        ("cross-skv-lt-s", 1000, 300, False, 0),
+        ("cross-skv-gt-s", 300, 1000, False, 0))]
 
 
 @pytest.mark.parametrize("case", WGMMA_ARITH_CASES,
                          ids=[c[0] for c in WGMMA_ARITH_CASES])
 def test_flash_grad_bars_hold_for_the_wgmma_kernels_arithmetic(case):
-    """GRAD_BARS against the plain autograd for the bf16 wgmma kernels'
-    arithmetic (P and dS rounded to bf16 for their products), for each
-    mask and key length: it passes each bar, and the rounding moves it off
-    the f32-product emulation (the bar is not idle)."""
+    """GRAD_BARS against the plain autograd for the bf16 wgmma and mma.sync
+    kernels' arithmetic (P and dS rounded to bf16 for their products), for
+    each mask, key length and head dim: it passes each bar, and the
+    rounding moves it off the f32-product emulation (the bar is not
+    idle)."""
     _, S, S_kv, hd, causal, window = case
     q, k, v, do = (torch.from_numpy(t).to(torch.bfloat16) for t in
                    _attn_inputs(hd, 1, S, S_kv, 4, 2, hd))

@@ -54,6 +54,13 @@ def test_attention_sources_include_the_shared_header(name):
     assert build.CSRC / "hopper_wgmma.cuh" in build.sources_of(name)
 
 
+@pytest.mark.parametrize("name", ["flash_attention", "flash_attention_bwd"])
+def test_attention_sources_include_the_mma_sync_header(name):
+    """The hd 16 / 32 kernels, forward and backward, share mma.sync,
+    ldmatrix and cp.async from one header."""
+    assert build.CSRC / "mma_sync.cuh" in build.sources_of(name)
+
+
 @pytest.mark.parametrize("name", ["dueling_qnet", "td_grad", "adamw_lanes"])
 def test_bulk_copy_sources_include_the_shared_header(name):
     assert build.CSRC / "hopper_async.cuh" in build.sources_of(name)

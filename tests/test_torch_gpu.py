@@ -1256,6 +1256,17 @@ BWD_VARIANTS = [
     ("cross-hd256-skv-lt-s", 1, 1601, 448, 4, 2, 256, False, 0),
     ("causal-hd256", 1, 1500, 1500, 4, 2, 256, True, 0),
     ("causal-hd256-b2", 2, 129, 129, 8, 2, 256, True, 0),
+    # hd 16 and 32 (the smoke configs' widths; bf16 on mma.sync): the smoke
+    # training shape (B 4, S 128) causal and with its window 32, a window
+    # below one tile, a ragged S, and non-causal with S_kv == S, > S, < S
+    ("smoke-causal-hd16", 4, 128, 128, 4, 2, 16, True, 0),
+    ("smoke-window32-hd16", 4, 128, 128, 4, 2, 16, True, 32),
+    ("window-sub-tile-hd16", 1, 200, 200, 4, 2, 16, True, 8),
+    ("causal-hd32-ragged-b2", 2, 1000, 1000, 4, 2, 32, True, 0),
+    ("window-hd32", 1, 1024, 1024, 6, 1, 32, True, 100),
+    ("encoder-hd16", 1, 1500, 1500, 4, 4, 16, False, 0),
+    ("cross-skv-gt-s-hd32-b2", 2, 448, 1500, 4, 2, 32, False, 0),
+    ("cross-skv-lt-s-hd16", 1, 1500, 200, 8, 2, 16, False, 0),
 ]
 
 
@@ -1269,10 +1280,10 @@ def _flash_variant_inputs(dev, B, S, S_kv, H, K, hd, dtype, seed):
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", BWD_VARIANTS, ids=[c[0] for c in BWD_VARIANTS])
 def test_flash_backward_variants_within_bars(cuda, case, dtype):
-    """Each mask and key length the forward takes, at hd 64, 128 and 256:
-    within GRAD_BARS of the plain autograd, one forward and one backward
-    launch, two runs torch.equal, and the forward with the LSE store gives
-    the prefill forward's bits."""
+    """Each mask and key length the forward takes, at hd 16, 32, 64, 128
+    and 256: within GRAD_BARS of the plain autograd, one forward and one
+    backward launch, two runs torch.equal, and the forward with the LSE
+    store gives the prefill forward's bits."""
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import (
         GRAD_BARS, attention_grads_ref, compare_grad)
@@ -1302,7 +1313,10 @@ def test_flash_backward_variants_within_bars(cuda, case, dtype):
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("S,S_kv,hd,causal,window", [
     (300, 300, 256, True, 0), (300, 300, 128, True, 50),
-    (300, 700, 64, False, 0), (700, 300, 256, False, 0)])
+    (300, 700, 64, False, 0), (700, 300, 256, False, 0),
+    (300, 300, 16, True, 0), (300, 300, 16, True, 32),
+    (300, 700, 32, False, 0), (700, 300, 16, False, 0),
+    (300, 300, 32, True, 50)])
 def test_flash_lse_variants_are_the_rows_logsumexp(cuda, dtype, S, S_kv, hd,
                                                    causal, window):
     from repro_torch.kernels.flash_attention import ops
@@ -1319,15 +1333,27 @@ def test_flash_lse_variants_are_the_rows_logsumexp(cuda, dtype, S, S_kv, hd,
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("hd", [32, 16], ids=["hd32", "hd16"])
-def test_flash_backward_variants_not_ported_raise(cuda, hd):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("hd", [16, 32])
+def test_flash_backward_smoke_widths_main_shape(cuda, hd, dtype):
+    """minitron-8b's attention shape cut to hd 16 and 32 (B 1, S 4096, H 32,
+    K 8, causal): within GRAD_BARS of the plain autograd, one backward
+    launch, two runs torch.equal."""
     from repro_torch.kernels.flash_attention import ops
-    q, k, v, do = _flash_train_inputs(cuda, 1, 200, 4, 2, hd,
-                                      torch.bfloat16, 1)
-    q, k, v = (t.requires_grad_() for t in (q, k, v))
-    out = ops.gqa_flash_attention_kv(q, k, v, causal=True)   # the forward runs
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        out.backward(do)
+    from repro_torch.kernels.flash_attention.ref import (
+        GRAD_BARS, attention_grads_ref, compare_grad)
+    q, k, v, do = _flash_train_inputs(cuda, 1, 4096, 32, 8, hd, dtype, hd)
+    before = dict(ops.launches)
+    out, *got = _flash_grads(q, k, v, do, causal=True)
+    torch.cuda.synchronize()
+    assert (ops.launches["flash_attention_bwd"]
+            == before["flash_attention_bwd"] + 1)
+    _equal((out, *got), _flash_grads(q, k, v, do, causal=True))
+    _, *want = attention_grads_ref(q, k, v, do)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        cmp = compare_grad(g, w)
+        assert cmp["ok"], (name, cmp, GRAD_BARS[dtype])
 
 
 @pytest.mark.parametrize("B,L,H,P,N,chunk", [(2, 64, 4, 16, 8, 32),
@@ -1411,6 +1437,22 @@ def test_smoke_train_loop_on_card(cuda, tmp_path):
     assert res["restarts"] == 1
     assert all(np.isfinite(res["losses"]))
     assert res["losses"] == ref["losses"]
+
+
+def test_smoke_minitron_trains_on_card(cuda, tmp_path):
+    """The reference's documented `launch.train --arch minitron-8b --smoke`
+    on the card at its defaults (S 128, global batch 4) for 5 steps: finite
+    losses, no restart, the flash backward at hd 16 once per attention
+    layer a step."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.train import train
+    ops.reset_launches()
+    res = train("minitron-8b", smoke=True, steps=5, ckpt_dir=str(tmp_path),
+                device="cuda", log=lambda m: None)
+    assert res["restarts"] == 0
+    assert len(res["losses"]) == 5 and all(np.isfinite(res["losses"]))
+    assert res["cfg"].attn.head_dim == 16
+    assert ops.launches["flash_attention_bwd"] == 2 * 5   # 2 layers x 5
 
 
 @pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "qwen3-32b"])

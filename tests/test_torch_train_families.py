@@ -14,9 +14,10 @@ tests/test_torch_train.py: the zoo's bf16 bar as shipped (rtol 2e-2, atol
 `models.model.DTYPE` patched for the test) the loss within 1e-5 relative
 and every leaf within 1e-4 relative L2.  At S 128 the gemma3 smoke window
 (32) bites.  deepseek-moe's MoE layers run on the reference's own expert
-choice (`RouteReplay`): the reference remats each block, so its router
-runs twice a layer under `value_and_grad`; the forward's choices are the
-first of them and the re-forward's repeat them.  Last, one `make_train_step`
+choice (`RouteReplay`): the reference remats each super-block, so its
+router runs twice a layer under `value_and_grad`; the forward's choices are
+the first of them and the re-forward's repeat them, super-block by
+super-block in backward order.  Last, one `make_train_step`
 step of whisper in float32 at 2 microbatches, which cut `enc_frames` on
 axis 0 with the tokens.
 """
@@ -127,10 +128,15 @@ def _reference_value_and_grad(jm, jp, jb, monkeypatch):
         j_make_loss_fn(jm), has_aux=True))(jp, jb)
     jax.effects_barrier()       # every recorded route is in `seen`
     n = _n_moe_layers(jm.cfg) if jm.cfg.moe is not None else 0
-    # the forward's choices, then the remat'd re-forward's (backward order)
+    # the forward's choices, then the remat'd re-forward's: super-blocks in
+    # backward order, each block's MoE layers in forward order
     assert len(seen) in (n, 2 * n), f"len(seen) {len(seen)} against n {n}"
-    for fwd, again in zip(seen[:n], reversed(seen[n:])):
-        assert np.array_equal(fwd, again)
+    if n and len(seen) == 2 * n:
+        per = n // jm.cfg.n_super
+        blocks = [seen[i:i + per] for i in range(0, n, per)]
+        want = [idx for blk in reversed(blocks) for idx in blk]
+        for fwd, again in zip(want, seen[n:]):
+            assert np.array_equal(fwd, again)
     for idx in seen[:n]:
         routes.push(idx)
     return jloss, jgrads, routes
