@@ -116,7 +116,8 @@ Phases (each prints its lines; the run exits 0 only if every phase passes):
     main-path shapes (B 1, S 4096): flash attention at minitron-8b's
     (H 32, K 8, hd 128) in bf16 (the wgmma kernel) and f32 within the bars
     of `flash_attention/ref.py` BARS (elementwise, relative L2 overall and
-    per row), and in bf16 at hd 32 (the mma.sync kernel); then in bf16 at
+    per row), and in bf16 at hd 16 and 32 (the mma.sync kernel, beside its
+    bound and SDPA); then in bf16 at
     the later archs' shapes: gemma3-12b's global layer (H 16, K 8, hd 256)
     and its local layer (window 1024) at S 4096, deepseek-moe-16b's
     (H 16 = K 16, hd 128: GQA ratio 1), qwen3-32b's (H 64, K 8) and
@@ -162,6 +163,28 @@ Phases (each prints its lines; the run exits 0 only if every phase passes):
     then the serving loop of `launch/serve.py` for each (4 requests,
     batch 4), with the zoo kernels' counts set to 0 just before and read
     just after.
+8b. the reference's production serving cells (`[serve-32k]`, inside
+    phase 8 on each arch's weights): prefill_32k and decode_32k at S 32768
+    through the dry run's own step functions (`launch/dryrun.py`
+    `serve_fn`) on real inputs from the seed (`dryrun.serve_inputs`:
+    decode caches of 32768 entries filled, position 32767); prefill at
+    batch 1 for every arch and, for minitron-8b and mamba2-370m, at the
+    largest batch the dry run fits on the card (`dryrun.serve_batch`,
+    minitron-8b's cut for the time limit), decode at each arch's largest
+    fitting batch for 8 steps; each cell's wall, tokens/s or steps/s,
+    launches (prefill `==` per_forward, decode none), finite logits, the
+    dry run's predicted bytes beside the measured peak, a decode step's
+    peak at most 5% over its params and caches, the Roofline bound and the
+    busy share; every cut in the `reduced` line.  Then
+    `[serve-32k-kernels]`: flash at S 32768 at four of the cells' shapes
+    (minitron-8b causal, gemma3-12b's window 1024 at hd 256, mixtral's
+    window 4096, whisper's bidirectional encoder) within BARS, graph-timed
+    beside the bound and SDPA, and the SSD scan at L 32768 at the mamba
+    prefill cell's batch within 1e-4; `[serve-32k-cpu]`: both cells card
+    vs CPU at S 32768 at the smoke widths of six families (dense,
+    local/global, MoE on the CPU's routes, Mamba, encoder-decoder,
+    vision) within the bf16 bar, decode's greedy tokens `==` where sure.
+    `python3 chip_smoke.py --serve-32k` runs these alone.
  9. profile: torch.profiler over one warm prefill forward and one serving
     loop of minitron-8b, mamba2-370m, whisper-large-v3 and
     llama-3.2-vision-11b at a quarter of their depth (ZOO_PROFILE_LAYERS;
@@ -1327,7 +1350,8 @@ def flash_inputs(dev, dtype, seed: int = 0, hd: int | None = None):
             for n in (a.n_heads, a.n_kv, a.n_kv)]
 
 
-def ssd_inputs(dev, carry: bool, seed: int = 0):
+def ssd_inputs(dev, carry: bool, seed: int = 0, batch: int = ZOO_BATCH,
+               seq: int = ZOO_SEQ):
     """x, b, c, dt, a at mamba2-370m's SSD shape, x and B/C scaled as the
     model's own (after a SiLU'd conv).  `carry` False: dt = softplus(randn
     - 2) ~ 0.13 and a = -(1..H), so each chunk's decay exp(seg_end) is below
@@ -1344,14 +1368,14 @@ def ssd_inputs(dev, carry: bool, seed: int = 0):
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
-    x = torch.nn.functional.silu(rnd(ZOO_BATCH, ZOO_SEQ, H, P))
-    b = torch.nn.functional.silu(rnd(ZOO_BATCH, ZOO_SEQ, N))
-    c = torch.nn.functional.silu(rnd(ZOO_BATCH, ZOO_SEQ, N))
+    x = torch.nn.functional.silu(rnd(batch, seq, H, P))
+    b = torch.nn.functional.silu(rnd(batch, seq, N))
+    c = torch.nn.functional.silu(rnd(batch, seq, N))
     if carry:
-        dt = 0.01 * torch.nn.functional.softplus(rnd(ZOO_BATCH, ZOO_SEQ, H))
+        dt = 0.01 * torch.nn.functional.softplus(rnd(batch, seq, H))
         a = -(0.05 + 0.95 * torch.rand(H, generator=gen, device=dev))
     else:
-        dt = torch.nn.functional.softplus(rnd(ZOO_BATCH, ZOO_SEQ, H) - 2.0)
+        dt = torch.nn.functional.softplus(rnd(batch, seq, H) - 2.0)
         a = -torch.arange(1, H + 1, device=dev, dtype=torch.float32)
     return x, b, c, dt, a
 
@@ -1417,10 +1441,15 @@ def event_ms(fn, reps: int = 3) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+# A band mask over more queries than this goes to SDPA's memory-efficient
+# backend: the math backend's f32 scores of S 32768 would not fit
+SDPA_BAND_MAX_S = 8192
+
+
 def flash_plain(q, k, v, window: int = 0, causal: bool = True):
     """attention_ref on (B, S, H, hd) q and (B, S_kv, K, hd) k/v, one KV
-    head's query heads at a time, so the f32 scores of S 8192 stay a few
-    GB."""
+    head's query heads at a time (attention_ref itself takes query blocks
+    past 4096 x 4096 scores a head)."""
     import torch
     from repro_torch.kernels.flash_attention.ref import attention_ref
     H, K = q.shape[2], k.shape[2]
@@ -1429,13 +1458,16 @@ def flash_plain(q, k, v, window: int = 0, causal: bool = True):
         q[:, :, j * rep:(j + 1) * rep].transpose(1, 2),
         k[:, :, j:j + 1].expand(-1, -1, rep, -1).transpose(1, 2),
         v[:, :, j:j + 1].expand(-1, -1, rep, -1).transpose(1, 2),
-        window=window, causal=causal).transpose(1, 2) for j in range(K)]
+        window=window, causal=causal).transpose(1, 2)
+        for j in range(K)]
     return torch.cat(outs, dim=2)
 
 
 def zoo_flash_shape(dev, label: str, arch: str, S: int,
                     windowed: bool = False, S_kv: int | None = None,
-                    dtype: str = "bf16", hd: int | None = None) -> dict:
+                    dtype: str = "bf16", hd: int | None = None,
+                    tag: str = "[zoo-kernels]", reps: int = 20,
+                    eager_reps: int | None = None) -> dict:
     """One later arch's flash shape: the kernel against the plain version
     within BARS, graph-timed, beside its bound (4 H hd x the visible
     query-key pairs at the tensor-core rate of bf16, or the f32 CUDA-core
@@ -1443,13 +1475,16 @@ def zoo_flash_shape(dev, label: str, arch: str, S: int,
     function (the flash backend for bf16 without a mask; a boolean band
     attn_mask for a window; the default backend for f32).  Causal, unless
     `S_kv` is given: then non-causal with keys of that length (the
-    encoder's and cross attention)."""
+    encoder's and cross attention).  `reps` calls a graph, `eager_reps`
+    timed eager calls (default: 2 of the plain version, 3 or 5 of SDPA
+    with a band mask)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import BARS, compare, visible
+    t_shape = time.perf_counter()
     a = get_config(arch).attn
     H, K, hd = a.n_heads, a.n_kv, hd or a.head_dim
     window = a.window if windowed else 0
@@ -1473,36 +1508,53 @@ def zoo_flash_shape(dev, label: str, arch: str, S: int,
                              f"bars {BARS[tdt]}, launches "
                              f"{fops.kernel_launches}")
     del want
-    k_ms = graph_ms(run, 20)
-    p_ms = event_ms(lambda: flash_plain(q, k, v, window, causal), 2)
+    k_ms = graph_ms(run, reps)
+    p_ms = event_ms(lambda: flash_plain(q, k, v, window, causal),
+                    eager_reps or 2)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    if window:
+    if window and S > SDPA_BAND_MAX_S:
+        # the memory-efficient backend with the band as its mask, on K/V
+        # expanded to the query heads (the math backend's scores would
+        # not fit; no backend takes a band without a mask)
+        band = visible(S, S, window, dev)
+        ke, ve = (t.repeat_interleave(H // K, dim=1) for t in (kt, vt))
+        lib = "SDPA, memory-efficient backend, boolean band attn_mask"
+        try:
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                lib_ms = event_ms(lambda: F.scaled_dot_product_attention(
+                    qt, ke, ve, attn_mask=band), eager_reps or 3)
+        except RuntimeError as e:       # a yardstick, not the port
+            lib_ms, lib = None, f"{lib}: not timed ({str(e)[:120]})"
+        del band, ke, ve
+    elif window:
         band = visible(S, S, window, dev)
         lib_ms = event_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=band, enable_gqa=True), 5)
+            qt, kt, vt, attn_mask=band, enable_gqa=True), eager_reps or 5)
         lib = "SDPA, boolean band attn_mask"
     elif dtype == "bf16":
         with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
             lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=True), 20)
+                qt, kt, vt, is_causal=causal, enable_gqa=True), reps)
         lib = "SDPA, flash backend"
     else:
         lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, enable_gqa=True), 20)
+            qt, kt, vt, is_causal=causal, enable_gqa=True), reps)
         lib = "SDPA, default backend"
     pairs = H * (visible_pairs(S, window) if causal else S * S_kv)
     flops = 4 * hd * pairs
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
     b_ms, b_by = bound(nbytes, flops, BF16_OPS_PER_S if dtype == "bf16"
                        else F32_OPS_PER_S)
-    log(f"[zoo-kernels] flash_attention {dtype} ({kernel}) {label}: B=1 "
+    log(f"{tag} flash_attention {dtype} ({kernel}) {label}: B=1 "
         f"S={S} S_kv={S_kv} H={H} K={K} hd={hd} "
         f"{'causal' if causal else 'non-causal'} window={window}: max abs err "
         f"{cmp['max_abs_err']:.3g}, relative L2 {cmp['rel_l2']:.3g}, worst "
         f"row {cmp['row_rel_l2']:.3g}; kernel {k_ms:.4f} ms/launch (graph), "
-        f"plain {p_ms:.4f} ms, {lib} {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"plain {p_ms:.4f} ms, {lib} "
+        f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms, bound {b_ms:.4f} ms "
         f"({b_by}, {flops:.4g} FLOP over {pairs} visible pairs; "
-        f"{flops / k_ms / 1e9:.1f} TFLOP/s)")
+        f"{flops / k_ms / 1e9:.1f} TFLOP/s); the shape "
+        f"{time.perf_counter() - t_shape:.1f} s")
     del q, k, v, got
     torch.cuda.empty_cache()
     return dict(label=label, S=S, S_kv=S_kv, H=H, K=K, hd=hd, dtype=dtype,
@@ -1514,10 +1566,11 @@ def zoo_flash_shape(dev, label: str, arch: str, S: int,
 
 def phase_zoo_kernels(dev) -> list[dict]:
     """Flash attention (minitron-8b shape, bf16 and f32; the mma.sync kernel
-    at hd 32) and the SSD scan (mamba2-370m shape, f32) against their plain
-    versions on the card."""
+    at hd 16 and 32, timed beside its bound and SDPA) and the SSD scan
+    (mamba2-370m shape, f32) against their plain versions on the card."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import BARS as flash_bars
@@ -1579,21 +1632,50 @@ def phase_zoo_kernels(dev) -> list[dict]:
             frec = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
         del q, k, v, got, want
-    # the mma.sync kernel (bf16 at hd 16 and 32) at the main path's S and
-    # heads: off the main path, held to the same bars
-    a32 = flash_inputs(dev, torch.bfloat16, hd=32)
-    before = fops.kernel_launches["mma_sync_bf16"]
-    got = fops.gqa_flash_attention(*a32, causal=True)
-    cmp = flash_compare(got, plain(*a32))
-    if fops.kernel_launches["mma_sync_bf16"] != before + 1 or not cmp["ok"]:
-        raise AssertionError(f"flash_attention bf16 hd 32 (mma_sync_bf16): "
-                             f"{cmp}, launches {fops.kernel_launches}")
-    m_ms = graph_ms(lambda: fops.gqa_flash_attention(*a32, causal=True), 20)
-    log(f"[zoo-kernels] flash_attention bf16 (mma_sync_bf16) hd=32 S={S} "
-        f"H={H} K={K}: max abs err {cmp['max_abs_err']:.3g}, relative L2 "
-        f"{cmp['rel_l2']:.3g}, worst row {cmp['row_rel_l2']:.3g}; kernel "
-        f"{m_ms:.4f} ms/launch (graph)")
-    del a32, got
+    # the mma.sync kernel (bf16 at hd 16 and 32, the smoke configs' widths)
+    # at the main path's S and heads: off the main path, held to the same
+    # bars, graph-timed beside SDPA's flash backend and a bound with one
+    # exp2 a visible pair at the SFU's rate at the card's max SM clock
+    # (at these widths the exponentials outweigh the products)
+    clock = max_sm_clock_hz()
+    ex2_per_s = EX2_PER_CLOCK_SM * H100_SMS * clock
+    frec_mma = {}
+    for w in (16, 32):
+        xs = flash_inputs(dev, torch.bfloat16, hd=w)
+        before = fops.kernel_launches["mma_sync_bf16"]
+        got = fops.gqa_flash_attention(*xs, causal=True)
+        cmp = flash_compare(got, plain(*xs))
+        if fops.kernel_launches["mma_sync_bf16"] != before + 1 or \
+                not cmp["ok"]:
+            raise AssertionError(f"flash_attention bf16 hd {w} "
+                                 f"(mma_sync_bf16): {cmp}, launches "
+                                 f"{fops.kernel_launches}")
+        m_ms = graph_ms(lambda: fops.gqa_flash_attention(*xs, causal=True),
+                        20)
+        p_ms = graph_ms(lambda: plain(*xs), 5)
+        qt, kt, vt = (t.transpose(1, 2) for t in xs)
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+        pairs = ZOO_BATCH * H * S * (S + 1) // 2
+        p_bound, by = bound(nb(*xs, got), 4 * w * pairs, BF16_OPS_PER_S)
+        exp_ms = pairs / ex2_per_s * 1e3
+        b_ms = max(p_bound, exp_ms)
+        term = "exp2" if exp_ms >= p_bound else by
+        log(f"[zoo-kernels] flash_attention bf16 (mma_sync_bf16) hd={w} "
+            f"S={S} H={H} K={K}: max abs err {cmp['max_abs_err']:.3g}, "
+            f"relative L2 {cmp['rel_l2']:.3g}, worst row "
+            f"{cmp['row_rel_l2']:.3g}; kernel {m_ms:.4f} ms/launch (graph),"
+            f" plain {p_ms:.4f} ms, SDPA, flash backend {lib_ms:.4f} ms; "
+            f"bound {b_ms:.4f} ms ({term}: one exp2 a visible pair "
+            f"{exp_ms:.4f} ms at {EX2_PER_CLOCK_SM} a clock per SM x "
+            f"{H100_SMS} SMs x {clock / 1e9:.3f} GHz; products or bytes "
+            f"{p_bound:.4f} ms, {by}); {m_ms / b_ms:.2f}x the bound")
+        frec_mma[w] = dict(ms=m_ms, plain_ms=p_ms, library_ms=lib_ms,
+                           bound_ms=b_ms, bound_by=term,
+                           max_abs_err=cmp["max_abs_err"])
+        del xs, got
+    frec["mma_sync_by_hd"] = frec_mma
     frec["shapes"] = ([zoo_flash_shape(dev, *shape) for shape in
                        ZOO_FLASH_SHAPES]
                       + [zoo_flash_shape(dev, label, arch, S, S_kv=S_kv,
@@ -1760,14 +1842,17 @@ def per_forward(cfg, seq: int | None = None) -> dict[str, int]:
             "flash_attention_bwd": 0, "ssd_scan_bwd": 0}
 
 
-def phase_zoo_model(dev) -> tuple[dict[str, int], dict]:
+def phase_zoo_model(dev, fits) -> tuple[dict[str, int], dict, list, float]:
     """The model zoo's main path (ZOO_RUNS), random weights from a seed:
     the prefill forward (`apply` then `logits`, B 1) twice per arch, then
     the serving loop of `launch/serve.py` (4 requests, batch 4, max-seq
-    128, max-new 16) on the same weights.  The kernels' counts are zeroed
-    just before and read just after; each forward must launch flash once
-    per attention layer and the SSD scan once per Mamba layer.  Returns
-    the counts and, per arch, its numbers."""
+    128, max-new 16) on the same weights, then the production serving
+    cells at S 32768 on them (`serve_32k_cells`, [serve-32k]; `fits`, the
+    dry run's counts from `serve_workers_wait`).  The
+    kernels' counts are zeroed just before and read just after; each
+    forward must launch flash once per attention layer and the SSD scan
+    once per Mamba layer.  Returns the counts, per arch its numbers, the
+    [serve-32k] cells' records and their wall seconds."""
     import torch
     from repro_torch.configs import SHAPES
     from repro_torch.launch.serve import serve
@@ -1780,7 +1865,7 @@ def phase_zoo_model(dev) -> tuple[dict[str, int], dict]:
         f"published {WHISPER_TOKENS} decoder tokens over {WHISPER_FRAMES} "
         f"encoder frames)")
     reset_zoo_launches()
-    by_arch = {}
+    by_arch, serve_recs, serve_s = {}, [], 0.0
     for arch, layers, seq in ZOO_RUNS:
         cfg = zoo_config(arch, layers)
         per_fwd = per_forward(cfg)
@@ -1850,7 +1935,12 @@ def phase_zoo_model(dev) -> tuple[dict[str, int], dict]:
                              peak_gib=peak / 2**30,
                              serve_steps_per_s=steps / t_serve,
                              serve_peak_gib=serve_peak / 2**30)
-        del params, model, batch
+        del batch
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            serve_recs += serve_32k_cells(dev, arch, model, params, fits)
+        serve_s += time.perf_counter() - t0
+        del params, model
         torch.cuda.empty_cache()
     launches = zoo_launches()
     log(f"[zoo] launches over the phase: {json.dumps(launches)}, flash by "
@@ -1858,7 +1948,538 @@ def phase_zoo_model(dev) -> tuple[dict[str, int], dict]:
     reduced = {arch: f"n_layers {get_config_layers(arch)} -> {layers}"
                for arch, layers, _ in ZOO_RUNS if layers is not None}
     log(f"[zoo] reduced: {json.dumps(reduced)}")
-    return launches, by_arch
+    serve_reduced(serve_recs, serve_s)
+    return launches, by_arch, serve_recs, serve_s
+
+
+def serve_reduced(recs: list, secs: float) -> None:
+    """[serve-32k]'s `reduced` line: every cell's cuts from the published
+    shape (batch, depth), and the cells' wall."""
+    cuts = {f"{r['arch']} {r['kind']}_32k B {r['batch']}": r["cut"]
+            for r in recs if r["cut"]}
+    log(f"[serve-32k] reduced: {json.dumps(cuts)}; jamba-1.5-large-398b "
+        f"not run (one 8-layer period is 90 GB of bf16); {len(recs)} cells "
+        f"in {secs:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# The production serving cells: prefill_32k and decode_32k at S 32768
+# ---------------------------------------------------------------------------
+
+# The reference's serving shapes (configs/base.py SHAPES): prefill_32k (S
+# 32768, batch 32) and decode_32k (S 32768, batch 128), each step the dry
+# run's own (`launch/dryrun.py` `serve_fn`) on real tensors
+# (`dryrun.serve_inputs`, from SERVE_SEED).  Every [zoo] arch runs both on
+# the weights [zoo] inits (mixtral-8x22b at its 2 layers): prefill at
+# batch 1, and SERVE_WIDE_ARCHS also at the largest batch the dry run fits
+# on the card (`dryrun.serve_batch`, up to 32), minitron-8b's cut to
+# SERVE_PREFILL_CUT for the command's time limit; decode at each arch's
+# largest fitting batch (up to 128) for SERVE_DECODE_STEPS steps at
+# position S - 1.
+SERVE_SEQ = 32768
+SERVE_SEED = 7
+SERVE_WIDE_ARCHS = ("minitron-8b", "mamba2-370m")
+# At the dry run's 13 sequences minitron-8b's prefill allocates within ~6
+# GB of an H100's 85 GB, in blocks of 13 GiB: the default allocator runs
+# out of memory on fragmentation, and with expandable segments the cell
+# takes about twice its device time in the allocator's retries, which
+# the command's time limit cannot hold (PERF.md §5; every card-vs-CPU
+# depth is already one super-block)
+SERVE_PREFILL_CUT = {"minitron-8b": 4}
+SERVE_DECODE_STEPS = 8
+# a decode step's peak over the bytes of its params and caches (the
+# reference donates its caches; the port writes them in place)
+SERVE_DECODE_EXCESS = 0.05
+SERVE_DRYRUN_WORKERS = 4
+
+
+def serve_fit(kind: str, arch: str, layers, mesh) -> dict:
+    """One arch's serving cell counted by the dry run on `mesh`: the
+    prediction at batch 1 (prefill), at the largest batch that fits the
+    card (`dryrun.serve_batch`; decode, and prefill for SERVE_WIDE_ARCHS)
+    and at the batch run ("run": SERVE_PREFILL_CUT's where it cuts the
+    fit), each (batch, argument bytes, peak bytes)."""
+    import dataclasses
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import dryrun
+    cfg = zoo_config(arch, layers)
+    full = SHAPES[f"{kind}_32k"]
+
+    def at(b):
+        arg, stats = dryrun.count_cell(
+            cfg, dataclasses.replace(full, global_batch=b), mesh, False, 1)
+        return b, arg, stats.peak_bytes
+
+    res = {}
+    if kind == "prefill":
+        res["one"] = at(1)
+    if kind == "decode" or arch in SERVE_WIDE_ARCHS:
+        res["fit"] = dryrun.serve_batch(cfg, full, mesh)
+        cut = SERVE_PREFILL_CUT.get(arch) if kind == "prefill" else None
+        res["run"] = (at(cut) if cut and cut < res["fit"][0]
+                      else res["fit"])
+    return res
+
+
+def serve_workers_start():
+    """The serving cells' CPU work, started in worker processes while the
+    card runs the device-timed [zoo-kernels] and [serve-32k-kernels]: the
+    dry run's counts of every [zoo] arch's two cells (`dryrun_job`'s
+    "serve" jobs, SERVE_DRYRUN_WORKERS processes) and [serve-32k-cpu]'s
+    CPU side (`serve_cpu_job`, one process of SERVE_CPU_THREADS threads).
+    Returns ({(kind, arch): future}, {arch: future});
+    `serve_workers_wait` collects both."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    ex = cf.ProcessPoolExecutor(SERVE_DRYRUN_WORKERS, mp_context=ctx)
+    fits = {(kind, arch): ex.submit(dryrun_job, ("serve", kind, arch,
+                                                 layers))
+            for arch, layers, _ in ZOO_RUNS
+            for kind in ("prefill", "decode")}
+    ex.shutdown(wait=False)
+    ex = cf.ProcessPoolExecutor(1, mp_context=ctx)
+    cpu = {arch: ex.submit(serve_cpu_job, arch) for arch in SERVE_CPU_ARCHS}
+    ex.shutdown(wait=False)
+    return fits, cpu
+
+
+def serve_workers_wait(workers):
+    """Both sets of `serve_workers_start`'s futures collected, so that no
+    worker process competes with the host-timed readings that follow
+    ([zoo]'s forwards and serve loops, the serving cells' walls and busy
+    shares): ({(kind, arch): fit}, {arch: CPU side})."""
+    fits, cpu = workers
+    t0 = time.perf_counter()
+    fits = {key: f.result()[1] for key, f in fits.items()}
+    cpu = {arch: f.result() for arch, f in cpu.items()}
+    log(f"[serve-32k] waited {time.perf_counter() - t0:.1f} s for the CPU "
+        f"workers: the dry run's counts "
+        f"{sum(r['worker_s'] for r in fits.values()):.1f} s of work in "
+        f"{SERVE_DRYRUN_WORKERS} processes, the card-vs-CPU side "
+        f"{sum(r['cpu_s'] for r in cpu.values()):.1f} s in one process of "
+        f"{SERVE_CPU_THREADS} threads; none runs from here on")
+    return fits, cpu
+
+
+def serve_cell(dev, arch, model, params, kind: str, batch_size: int,
+               pred: tuple, cut: str) -> dict:
+    """One [serve-32k] cell: `dryrun.serve_fn` of the `kind` cell at
+    batch_size on inputs from `dryrun.serve_inputs`, the zoo kernels'
+    counts read around it.  Prefill: one step under the profiler (wall,
+    busy share), launches `==` per_forward(cfg), the last token's logits
+    finite.  Decode: SERVE_DECODE_STEPS steps, each token `==` the argmax
+    of its logits (read through a wrapped `decode_step`) and the logits
+    finite, no zoo kernel launched, the peak at most SERVE_DECODE_EXCESS
+    over the params and caches; then one step more under the profiler.
+    Beside each: the dry run's prediction `pred` (batch, argument bytes,
+    peak bytes) and the card's Roofline bound of the cell."""
+    import statistics
+    import torch
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch import dryrun
+    from repro_torch.sharding.policies import local_bytes
+    cfg = model.cfg
+    S, B = SERVE_SEQ, batch_size
+    shape = ShapeCfg(f"{kind}_32k", S, B, kind)
+    t_cell = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    batch = dryrun.serve_inputs(model, shape, seed=SERVE_SEED)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    p_bytes = local_bytes(params)
+    in_bytes = local_bytes(batch)
+    torch.cuda.reset_peak_memory_stats()
+    before = zoo_launches()
+    rec = dict(arch=arch, kind=kind, batch=B, seq=S, cut=cut, cfg=cfg)
+    if kind == "prefill":
+        step = dryrun.serve_fn(model, shape)
+        out = []
+        t_prof = time.perf_counter()
+        wall, rows = profiled(lambda: out.append(step(params, batch)))
+        t_prof = time.perf_counter() - t_prof
+        logits = out.pop()
+        want = (B, 1, cfg.padded_vocab)
+        if tuple(logits.shape) != want or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError(f"[serve-32k] {arch} prefill B {B}: logits "
+                                 f"{tuple(logits.shape)} (want {want}) or "
+                                 f"not finite")
+        got = {k: v - before[k] for k, v in zoo_launches().items()}
+        if got != per_forward(cfg):
+            raise AssertionError(f"[serve-32k] {arch} prefill launched {got},"
+                                 f" expected {per_forward(cfg)}")
+        n_tok = B * S
+        rec.update(wall_s=wall, tokens_per_s=n_tok / wall, launches=got,
+                   logit_std=float(logits.float().std()))
+        del out, logits
+    else:
+        seen = []
+
+        def spy(*a):
+            res = model.decode_step(*a)
+            seen.append(res[0])
+            return res
+        step = dryrun.serve_fn(model._replace(decode_step=spy), shape)
+        walls, tokens = [], []
+        for i in range(SERVE_DECODE_STEPS):
+            t0 = time.perf_counter()
+            tok, caches = step(params, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            logits = seen.pop()[:, -1].float()
+            if not bool(torch.isfinite(logits).all()) or not torch.equal(
+                    tok[:, 0].long(), logits.argmax(-1)):
+                raise AssertionError(f"[serve-32k] {arch} decode B {B} step "
+                                     f"{i}: logits not finite or the token "
+                                     f"not their argmax")
+            tokens.append(tok[:, 0].tolist())
+            batch = {"token": tok, "caches": caches}
+            del logits
+        got = {k: v - before[k] for k, v in zoo_launches().items()}
+        if any(got.values()):
+            raise AssertionError(f"[serve-32k] {arch} decode launched {got}")
+        peak_steps = torch.cuda.max_memory_allocated()
+        excess = (peak_steps - held) / (p_bytes + in_bytes)
+        if excess > SERVE_DECODE_EXCESS:
+            raise AssertionError(
+                f"[serve-32k] {arch} decode B {B}: peak {peak_steps / 1e9:.3f}"
+                f" GB is {excess:.4f} of the params and caches "
+                f"({(p_bytes + in_bytes) / 1e9:.3f} GB) above what was held "
+                f"before the steps, over {SERVE_DECODE_EXCESS}")
+        warm = statistics.median(walls[1:])
+        t_prof = time.perf_counter()
+        prof_wall, rows = profiled(lambda: seen.append(step(params, batch)))
+        t_prof = time.perf_counter() - t_prof
+        seen.clear()
+        rec.update(wall_s=warm, first_s=walls[0], steps_per_s=1 / warm,
+                   tokens_per_s=B / warm, launches=got, excess=excess,
+                   tokens=tokens, profiled_step_s=prof_wall)
+        wall = prof_wall
+    peak = torch.cuda.max_memory_allocated()
+    busy = sum(r[0] for r in rows) / 1e6 / wall
+    rf = cell_roofline(cfg, S, B, kind)
+    step_s = rec["wall_s"]
+    if step_s < rf.step_s:
+        raise AssertionError(f"[serve-32k] {arch} {kind} B {B}: {step_s} s "
+                             f"below its bound {rf.step_s} s")
+    dry = pred[1] + pred[2]
+    rec.update(peak_gb=peak / 1e9, held_gb=held / 1e9,
+               params_gb=p_bytes / 1e9, inputs_gb=in_bytes / 1e9,
+               dryrun_gb=dry / 1e9, dryrun_over_peak=dry / peak,
+               bound_s=rf.step_s, bound_by=rf.dominant,
+               step_over_bound=step_s / rf.step_s, busy=busy,
+               profiler_s=t_prof - wall)
+    depth = (f"{cfg.n_layers} layers" + (
+        f" + {cfg.encoder.n_layers} encoder layers over {S} frames, "
+        f"{cfg.encoder.dec_seq} decoder tokens" if cfg.encoder is not None
+        and kind == "prefill" else ""))
+    if kind == "prefill":
+        speed = (f"wall {step_s:.4f} s (profiler on), {rec['tokens_per_s']:.0f}"
+                 f" {'frames' if cfg.encoder is not None else 'tokens'}/s, "
+                 f"launches {json.dumps(rec['launches'])} == per_forward, "
+                 f"last-token logits {(B, 1, cfg.padded_vocab)} finite (std "
+                 f"{rec['logit_std']:.3f})")
+    else:
+        speed = (f"{SERVE_DECODE_STEPS} steps at position {S - 1}: first "
+                 f"{rec['first_s']:.4f} s, warm median {step_s:.4f} s "
+                 f"({rec['steps_per_s']:.2f} steps/s, "
+                 f"{rec['tokens_per_s']:.1f} tokens/s), no zoo kernel "
+                 f"launched, logits finite, tokens == their argmax (last "
+                 f"step's first {min(B, 8)}: {tokens[-1][:8]}); peak over "
+                 f"params + caches {excess:.4f} (bar {SERVE_DECODE_EXCESS})")
+    log(f"[serve-32k] {arch} {kind}_32k B={B} S={S} ({depth}"
+        f"{'; ' + cut if cut else ''}): {speed};"
+        f" peak {peak / 1e9:.2f} GB (params {p_bytes / 1e9:.2f}, inputs "
+        f"{in_bytes / 1e9:.2f}), dry run (1, 1) {dry / 1e9:.2f} GB (batch "
+        f"{pred[0]}: arguments {pred[1] / 1e9:.2f} + peak "
+        f"{pred[2] / 1e9:.2f}) = {dry / peak:.3f} of the peak; Roofline "
+        f"bound {rf.step_s:.4f} s ({rf.dominant}), step / bound "
+        f"{step_s / rf.step_s:.2f}; busy share {busy:.4f}; the cell "
+        f"{time.perf_counter() - t_cell:.2f} s, the profiler's own "
+        f"{t_prof - wall:.2f} s of it")
+    del batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def serve_32k_cells(dev, arch, model, params, fits) -> list[dict]:
+    """[serve-32k]: `arch`'s prefill_32k and decode_32k cells on `params`
+    (its [zoo] weights): prefill at batch 1 and, for SERVE_WIDE_ARCHS, at
+    the dry run's fitting batch (or SERVE_PREFILL_CUT); decode at its
+    fitting batch (`fits`, from `serve_workers_wait`).  Every cut is in
+    the cell's record and printed."""
+    from repro_torch.configs import SHAPES
+    out = []
+    pf, dc = fits[("prefill", arch)], fits[("decode", arch)]
+    n_full = get_config_layers(arch)
+    depth = ([] if model.cfg.n_layers == n_full else
+             [f"n_layers {n_full} -> {model.cfg.n_layers}"])
+
+    def cut(kind, fit, run=None):
+        full = SHAPES[f"{kind}_32k"].global_batch
+        what = [] if fit == full else [
+            f"batch {full} -> {fit}, the dry run's largest that fits 80 GB"]
+        if run is not None and run < fit:
+            what.append(f"batch {fit} -> {run} for the time limit")
+        return "; ".join(depth + what)
+
+    out.append(serve_cell(dev, arch, model, params, "prefill", 1, pf["one"],
+                          "; ".join(depth + [
+                              f"batch {SHAPES['prefill_32k'].global_batch}"
+                              f" -> 1"])))
+    if "run" in pf and pf["run"][0] > 1:
+        out.append(serve_cell(dev, arch, model, params, "prefill",
+                              pf["run"][0], pf["run"],
+                              cut("prefill", pf["fit"][0], pf["run"][0])))
+    out.append(serve_cell(dev, arch, model, params, "decode", dc["fit"][0],
+                          dc["fit"], cut("decode", dc["fit"][0])))
+    return out
+
+# [serve-32k-kernels]: flash at every shape the prefill_32k cells give it
+# at full width (label, arch, S, windowed, S_kv or None for causal):
+# minitron-8b's causal hd 128 (llama-3.2-vision-11b's self-attention is
+# the same shape), gemma3-12b's global and local (window 1024) layers at
+# hd 256, deepseek-moe-16b's (GQA ratio 1), qwen3-32b's and
+# phi3-medium-14b's, mixtral-8x22b's window 4096, whisper-large-v3's
+# bidirectional encoder at hd 64 over 32768 frames and its decoder's cross
+# attention (448 queries over them; its decoder self-attention, S 448, is
+# [zoo-kernels]'s shape), llama-3.2-vision-11b's cross attention (32768
+# text tokens over 1601 image tokens)
+# a graph of this many calls (8-32 ms each at S 32768) and one timed eager
+# call of the plain version and of SDPA with a band mask
+SERVE_FLASH_REPS = 3
+SERVE_FLASH_SHAPES = (
+    ("minitron-8b causal", "minitron-8b", SERVE_SEQ, False, None),
+    ("gemma3-12b global", "gemma3-12b", SERVE_SEQ, False, None),
+    ("gemma3-12b local", "gemma3-12b", SERVE_SEQ, True, None),
+    ("deepseek-moe-16b", "deepseek-moe-16b", SERVE_SEQ, False, None),
+    ("qwen3-32b", "qwen3-32b", SERVE_SEQ, False, None),
+    ("phi3-medium-14b", "phi3-medium-14b", SERVE_SEQ, False, None),
+    ("mixtral-8x22b W", "mixtral-8x22b", SERVE_SEQ, True, None),
+    ("whisper-large-v3 encoder", "whisper-large-v3", SERVE_SEQ, False,
+     SERVE_SEQ),
+    ("whisper-large-v3 cross", "whisper-large-v3", WHISPER_TOKENS, False,
+     SERVE_SEQ),
+    ("llama-3.2-vision-11b cross", "llama-3.2-vision-11b", SERVE_SEQ, False,
+     1601))
+
+
+def phase_serve_kernels(dev, fits) -> dict:
+    """[serve-32k-kernels]: the two kernels of the serving cells at S 32768
+    against their plain versions on the card: flash at SERVE_FLASH_SHAPES
+    within BARS, graph-timed beside its bound and SDPA (`zoo_flash_shape`);
+    the SSD scan at mamba2-370m's shape, L 32768, at its prefill cell's
+    batch (the dry run's, from `fits`, the futures of
+    `serve_workers_start`), the state carried across its 128 chunks,
+    within 1e-4 of `ssd_chunked` (held 8 rows at a time), timed with CUDA
+    events beside its bound.  Returns both kernels' records."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+    flash = [zoo_flash_shape(dev, label, arch, S, windowed, S_kv=S_kv,
+                             tag="[serve-32k-kernels]",
+                             reps=SERVE_FLASH_REPS, eager_reps=1)
+             for label, arch, S, windowed, S_kv in SERVE_FLASH_SHAPES]
+    Q = get_config("mamba2-370m").ssm.chunk
+    ssd_batch = fits[("prefill", "mamba2-370m")].result()[1]["fit"][0]
+    x, b, c, dt, av = ssd_inputs(dev, True, batch=ssd_batch, seq=SERVE_SEQ)
+    before = sops.launches["ssd_scan"]
+    got = sops.ssd(x, b, c, dt, av, chunk=Q)
+    if sops.launches["ssd_scan"] != before + 1:
+        raise AssertionError(f"ssd_scan did not launch: {sops.launches}")
+    err, rows = 0.0, 8
+    for r in range(0, ssd_batch, rows):
+        want = ssd_chunked(*(t[r:r + rows] for t in (x, b, c, dt)), av,
+                           chunk=Q)
+        part = got[r:r + rows]
+        if not torch.allclose(part, want, rtol=1e-4, atol=1e-4):
+            raise AssertionError(f"ssd_scan B={ssd_batch} L={SERVE_SEQ} rows "
+                                 f"{r}-{r + rows - 1} differ from the plain "
+                                 f"version beyond 1e-4: "
+                                 f"{max_abs_err(part, want)}")
+        err = max(err, max_abs_err(part, want))
+        del want, part
+    y_max = float(got.abs().max())
+    del got
+    torch.cuda.empty_cache()
+    k_ms = event_ms(lambda: sops.ssd(x, b, c, dt, av, chunk=Q), 3)
+    p_ms = event_ms(lambda: ssd_chunked(x, b, c, dt, av, chunk=Q), 1)
+    Bz, L, Hs, P = x.shape
+    N, nc = b.shape[-1], L // Q
+    flops = Bz * (nc * Q * (Q + 1) * N
+                  + Hs * (nc * P * Q * (Q + 1) + (nc - 1) * 4 * Q * N * P))
+    moved = sum(t.numel() * t.element_size() for t in (x, b, c, dt, av, x))
+    b_ms, b_by = min(bound(moved, flops), bound(moved, 3 * flops,
+                                                TF32_OPS_PER_S))
+    log(f"[serve-32k-kernels] ssd_scan B={Bz} L={L} H={Hs} P={P} N={N} "
+        f"chunk={Q} ({nc} chunks, state carried; x {Bz * L * Hs * P} "
+        f"elements): max abs err {err:.3g} (tol 1e-4; max |y| {y_max:.3g}); "
+        f"kernel {k_ms:.4f} ms/launch (events), plain {p_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}, {flops:.4g} FLOP)")
+    del x, b, c, dt, av
+    torch.cuda.empty_cache()
+    return {"flash_attention": flash,
+            "ssd_scan": [dict(B=Bz, L=L, H=Hs, P=P, N=N, chunk=Q,
+                              max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                              bound_ms=b_ms, bound_by=b_by,
+                              library_ms=None)]}
+
+
+# [serve-32k-cpu]: both cells card vs CPU at S 32768 at the SMOKE widths,
+# one arch a family: dense, local/global, MoE (with a window), Mamba,
+# encoder-decoder, vision; decode at batch SERVE_CPU_DECODE_BATCH.  The CPU
+# side (a minute of plain attention over 32768 keys) runs in a worker
+# process of SERVE_CPU_THREADS threads while the card runs the
+# device-timed kernel phases (`serve_workers_start`); the phase runs the
+# card side and holds it to the worker's results.
+SERVE_CPU_ARCHS = ("minitron-8b", "gemma3-12b", "mixtral-8x22b",
+                   "mamba2-370m", "whisper-large-v3", "llama-3.2-vision-11b")
+SERVE_CPU_DECODE_BATCH = 2
+SERVE_CPU_SEED = 4
+SERVE_CPU_THREADS = 4
+
+
+def serve_cpu_model(arch: str, dev):
+    """`arch`'s SMOKE model on `dev` and its params from SERVE_CPU_SEED
+    (drawn on the CPU, so every process and device gets the same bytes)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.testing import tree_to
+    cfg = get_config(arch, smoke=True)
+    params, _ = build_model(cfg, "cpu").init(SERVE_CPU_SEED)
+    return build_model(cfg, dev), tree_to(params, dev)
+
+
+def serve_cpu_step(model, params, kind: str, batch, routes, mode: str):
+    """`dryrun.serve_fn` of one smoke cell under `routes.<mode>()`:
+    (prefill's logits or decode's token, decode's logits)."""
+    import torch
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch import dryrun
+    B = SERVE_CPU_DECODE_BATCH if kind == "decode" else 1
+    shape = ShapeCfg(f"{kind}_32k", SERVE_SEQ, B, kind)
+    seen = []
+
+    def decode_step(*a):
+        out = model.decode_step(*a)
+        seen.append(out[0])
+        return out
+    spy = model._replace(decode_step=decode_step)
+    with torch.inference_mode(), getattr(routes, mode)():
+        out = dryrun.serve_fn(spy, shape)(params, batch)
+    return (out, None) if kind == "prefill" else (out[0], seen[0])
+
+
+def serve_cpu_inputs(cfg, kind: str):
+    """The smoke cell's inputs from SERVE_SEED, drawn on the CPU."""
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model
+    B = SERVE_CPU_DECODE_BATCH if kind == "decode" else 1
+    return dryrun.serve_inputs(build_model(cfg, "cpu"), ShapeCfg(
+        f"{kind}_32k", SERVE_SEQ, B, kind), seed=SERVE_SEED)
+
+
+def serve_cpu_job(arch: str) -> dict:
+    """The CPU side of one [serve-32k-cpu] arch, in a worker process: both
+    cells' outputs, decode's logits and each cell's MoE routes."""
+    import time as _time
+    import torch
+    from repro_torch.testing import RouteReplay
+    torch.set_num_threads(SERVE_CPU_THREADS)
+    t0 = _time.perf_counter()
+    model, params = serve_cpu_model(arch, "cpu")
+    out = {}
+    for kind in ("prefill", "decode"):
+        routes = RouteReplay()
+        res, logits = serve_cpu_step(model, params, kind,
+                                     serve_cpu_inputs(model.cfg, kind),
+                                     routes, "record")
+        out[kind] = dict(out=res, logits=logits, routes=list(routes.queue))
+    out["cpu_s"] = _time.perf_counter() - t0
+    return out
+
+
+def phase_serve_cpu(dev, cpu_side: dict) -> None:
+    """[serve-32k-cpu]: the prefill_32k and decode_32k cells
+    (`dryrun.serve_fn` on `dryrun.serve_inputs`) of SERVE_CPU_ARCHS at
+    their SMOKE widths and S 32768 on the card (the hd-16 mma.sync flash
+    kernel over 32768 keys, the SSD scan over 128 chunks) against the
+    port's CPU path (`serve_cpu_job`, in `cpu_side`) on the same weights and
+    inputs, MoE layers on the CPU run's routes: prefill's last-token
+    logits and decode's logits within the zoo's bf16 bar, decode's greedy
+    tokens `==` wherever the CPU's top-2 margin exceeds the bar."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.testing import BF16_RTOL, RouteReplay, hold_bf16, \
+        tree_to
+    for arch in SERVE_CPU_ARCHS:
+        cfg = get_config(arch, smoke=True)
+        model, params = serve_cpu_model(arch, dev)
+        cpu = cpu_side[arch]
+        words = []
+        for kind, B in (("prefill", 1), ("decode", SERVE_CPU_DECODE_BATCH)):
+            want = cpu[kind]
+            routes, kb = RouteReplay(), flash_by_kernel()
+            for idx in want["routes"]:
+                routes.push(idx)
+            got, logits = serve_cpu_step(
+                model, params, kind,
+                tree_to(serve_cpu_inputs(cfg, kind), dev), routes,
+                "replay")
+            torch.cuda.synchronize()
+            kernels = {k: v - kb[k] for k, v in flash_by_kernel().items()
+                       if v - kb[k]}
+            what = f"{arch} smoke {kind}_32k B {B}"
+            if kind == "prefill":
+                verdict = hold_bf16(got, want["out"], what)
+            else:
+                verdict = hold_bf16(logits, want["logits"], what)
+                w = want["logits"][:, -1].float()
+                top2 = w.topk(2, dim=-1).values
+                atol = BF16_RTOL * float(w.abs().max())
+                sure = (top2[:, 0] - top2[:, 1]) > atol + BF16_RTOL * \
+                    top2[:, 0].abs()
+                tok, ref = got[:, 0].cpu(), want["out"][:, 0]
+                if not torch.equal(tok[sure], ref[sure]):
+                    raise AssertionError(f"{what}: tokens {tok.tolist()} "
+                                         f"against {ref.tolist()}")
+                verdict += (f"; tokens {tok.tolist()} == the CPU's on "
+                            f"{int(sure.sum())}/{len(tok)} sure rows")
+            words.append(f"{kind} B {B}: {verdict}; {routes.check(what)}; "
+                         f"flash by kernel {json.dumps(kernels)}")
+        log(f"[serve-32k-cpu] {arch} smoke (hd {cfg.attn.head_dim}, "
+            f"{cfg.n_layers} layers) at S {SERVE_SEQ}, card vs CPU: "
+            + "; ".join(words) + f"; CPU side {cpu['cpu_s']:.1f} s in its "
+            f"worker ({SERVE_CPU_THREADS} threads)")
+        del params, model
+        torch.cuda.empty_cache()
+
+
+def phase_serve_32k(dev, fits) -> tuple[dict[str, int], list, float]:
+    """`--serve-32k` alone: each [zoo] arch inited as [zoo] inits it, then
+    its [serve-32k] cells, the zoo kernels' counts zeroed just before and
+    read just after."""
+    import torch
+    from repro_torch.models import build_model
+    reset_zoo_launches()
+    recs, secs = [], 0.0
+    for arch, layers, _ in ZOO_RUNS:
+        model = build_model(zoo_config(arch, layers), dev)
+        params, _ = model.init(0)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            recs += serve_32k_cells(dev, arch, model, params, fits)
+        secs += time.perf_counter() - t0
+        del params, model
+        torch.cuda.empty_cache()
+    serve_reduced(recs, secs)
+    launches = zoo_launches()
+    log(f"[serve-32k] launches over the cells: {json.dumps(launches)}")
+    return launches, recs, secs
 
 
 def get_config_layers(arch: str) -> int:
@@ -4488,10 +5109,11 @@ DRYRUN_WORKERS = 8
 
 
 def dryrun_job(job):
-    """One [dryrun] cell in a worker process (a `fake` group of its own):
-    ("cell", shape, arch, multi_pod) through `dryrun.lower_cell`, or
-    ("cut", arch, layers, remat, int8, seq) a [train] cell's own cut on a
-    (1, 1) mesh through `dryrun.count_cell`."""
+    """One dry-run count in a worker process (a `fake` group of its own):
+    ("cell", shape, arch, multi_pod) a [dryrun] cell through
+    `dryrun.lower_cell`; on a (1, 1) mesh, ("cut", arch, layers, remat,
+    int8, seq) a [train] cell's own cut through `dryrun.count_cell`, or
+    ("serve", kind, arch, layers) a [serve-32k] cell's fit (`serve_fit`)."""
     import dataclasses
     import time as _time
     t0 = _time.perf_counter()
@@ -4503,6 +5125,9 @@ def dryrun_job(job):
         fake_world(dryrun.WORLD)
         res = dryrun.lower_cell(arch, shape_name, make_production_mesh(
             multi_pod=multi), multi)
+    elif job[0] == "serve":
+        fake_world(1)
+        res = serve_fit(*job[1:], make_host_mesh(1, 1, device_type="cpu"))
     else:
         from repro_torch.configs.base import ShapeCfg
         _, arch, layers, remat, quant, seq = job
@@ -5130,6 +5755,19 @@ def main() -> int:
         walls[fn.__name__] = round(time.perf_counter() - t, 1)
         return out
 
+    if "--serve-32k" in sys.argv[1:]:
+        # the production serving cells and their phases alone
+        workers = serve_workers_start()
+        timed(phase_serve_kernels, dev, workers[0])
+        fits, cpu_side = timed(serve_workers_wait, workers)
+        timed(phase_serve_32k, dev, fits)
+        timed(phase_serve_cpu, dev, cpu_side)
+        log(f"[time] wall seconds by phase: {json.dumps(walls)}")
+        log(f"[card] {card}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     kernels = timed(phase_kernels, dev)
     floor = kernels[0]["launch_floor_ms"]
     kernels.append(timed(phase_prng, dev, floor))
@@ -5144,10 +5782,27 @@ def main() -> int:
                  "faults": timed(phase_faults, dev)}
     mesh_counts = timed(phase_mesh, dev)
     plan_counts = timed(phase_plan, dev)
+    # the serving cells' CPU work, in worker processes while the card runs
+    # the device-timed kernel phases and [zoo-cpu]; collected before [zoo]
+    workers = serve_workers_start()
     kernels += timed(phase_zoo_kernels, dev)
+    serve_kernels = timed(phase_serve_kernels, dev, workers[0])
     timed(phase_zoo_card_vs_cpu, dev)
-    zoo_counts, zoo_archs = timed(phase_zoo_model, dev)
+    fits, cpu_side = timed(serve_workers_wait, workers)
+    zoo_counts, zoo_archs, serve_recs, serve_s = timed(phase_zoo_model, dev,
+                                                       fits)
     launches.update(zoo_counts)
+    timed(phase_serve_cpu, dev, cpu_side)
+    # the serving cells' wall inside phase_zoo_model, and the new work's
+    # together (the wait for its CPU workers included)
+    walls["serve_32k_in_zoo_model"] = round(serve_s, 1)
+    walls["serve_32k_all"] = round(
+        serve_s + walls["phase_serve_kernels"] + walls["serve_workers_wait"]
+        + walls["phase_serve_cpu"], 1)
+    serve_counts = {}
+    for r in serve_recs:
+        for name, n in r["launches"].items():
+            serve_counts[name] = serve_counts.get(name, 0) + n
     timed(phase_zoo_profile, dev)
     kernels += timed(phase_train_kernels, dev)
     smoke_counts = timed(phase_train_smoke, dev)
@@ -5190,6 +5845,12 @@ def main() -> int:
         if plan_counts.get(name):
             # the sharding mapper's searches
             k["launches_plan"] = plan_counts[name]
+        if name in serve_kernels:
+            # [serve-32k-kernels]: at S 32768
+            k["serve_32k_shapes"] = serve_kernels[name]
+        if serve_counts.get(name):
+            # [serve-32k]: the production serving cells (inside [zoo])
+            k["launches_serve_32k"] = serve_counts[name]
         if name == "flash_attention":
             k["launches_by_arch"] = {a: r["launches"][name]
                                      for a, r in zoo_archs.items()

@@ -7,6 +7,11 @@ from __future__ import annotations
 import torch
 
 MASK_VALUE = -1e30
+# Above S x S_kv = 4096 x 4096 scores a head, `attention_ref` takes
+# BLOCK_ROWS query rows at a time (`_blocks`): a prefill at S 32768 would
+# hold 4.3 GB of f32 scores a head at once
+DENSE_MAX_SCORES = 4096 * 4096
+BLOCK_ROWS = 1024
 
 # The kernel's bars against attention_ref, by input dtype.  Elementwise:
 # |got - want| <= atol + rtol |want|.  Relative L2: ||got - want|| / ||want||
@@ -91,7 +96,10 @@ def attention_ref(q, k, v, scale: float | None = None, causal: bool = True,
                   window: int = 0):
     """q: (B, H, S, hd), k, v: (B, H, S_kv, hd) -> (B, H, S, hd), float32
     math, output in q's dtype.  Causal needs S_kv == S; `window` > 0
-    (causal only) also hides key j from query i when j <= i - window."""
+    (causal only) also hides key j from query i when j <= i - window.
+    Dense up to DENSE_MAX_SCORES scores a head, then BLOCK_ROWS query rows
+    at a time (`_blocks`), so the f32 scores stay (B, H, BLOCK_ROWS, S_kv)
+    at most."""
     S, S_kv, hd = q.shape[2], k.shape[2], q.shape[3]
     scale = hd ** -0.5 if scale is None else scale
     if window and not causal:
@@ -99,11 +107,52 @@ def attention_ref(q, k, v, scale: float | None = None, causal: bool = True,
     if causal and S_kv != S:
         raise ValueError(f"attention_ref: causal attention needs S_kv == S, "
                          f"got S={S}, S_kv={S_kv}")
+    if S * S_kv > DENSE_MAX_SCORES:
+        return _blocks(q, k, v, scale, causal, window, BLOCK_ROWS)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     if causal:
         s = s.masked_fill(~visible(S, S, window, q.device), MASK_VALUE)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def _blocks(q, k, v, scale, causal, window, rows: int):
+    """`attention_ref` `rows` query rows at a time (`_rows`)."""
+    S = q.shape[2]
+    return torch.cat([_rows(q, k, v, scale, causal, window, r0,
+                            min(r0 + rows, S))
+                      for r0 in range(0, S, rows)], dim=2)
+
+
+def _rows(q, k, v, scale, causal, window, r0, r1):
+    """Query rows r0..r1 - 1 of `attention_ref` against only the keys they
+    can see (causal: up to r1 - 1, with a window from r0's oldest key):
+    the same rows summed over fewer (masked) zeros.  Made for long S on
+    the CPU: the scale is applied inside the product (`baddbmm`'s alpha)
+    and the mask written in place over the keys it can hide, each a pass
+    over the scores less."""
+    B, H, _, hd = q.shape
+    lo, hi = 0, k.shape[2]
+    if causal:
+        hi = r1
+        if window:
+            lo = max(0, r0 - window + 1)
+    n, m = r1 - r0, hi - lo
+    qb = q[:, :, r0:r1].float().reshape(B * H, n, hd)
+    kb = k[:, :, lo:hi].float().reshape(B * H, m, hd)
+    s = torch.baddbmm(qb.new_zeros(1, 1, 1), qb, kb.transpose(1, 2), beta=0,
+                      alpha=scale).view(B, H, n, m)
+    if causal:
+        c0 = lo if window else r0       # keys left of c0 are all visible
+        qi = torch.arange(r0, r1, device=q.device)[:, None]
+        ki = torch.arange(c0, hi, device=q.device)[None, :]
+        hidden = ki > qi
+        if window:
+            hidden |= ki <= qi - window
+        s[..., c0 - lo:].masked_fill_(hidden, MASK_VALUE)
+    p = torch.softmax(s, dim=-1).view(B * H, n, m)
+    vb = v[:, :, lo:hi].float().reshape(B * H, m, hd)
+    return torch.bmm(p, vb).view(B, H, n, hd).to(q.dtype)
 
 
 def attention_grads_ref(q, k, v, do, *, causal: bool = True, window: int = 0,

@@ -152,19 +152,104 @@ def _step(cfg, shape, mesh, quant: bool, mb: int, k: int, pol=None):
                                               for n in c["batch"]})
         return fn, (c["params"], c["state"], c["batch"],
                     torch.zeros((), dtype=torch.int32))
+    return serve_fn(model, shape), (c["params"], c["batch"])
+
+
+def serve_fn(model, shape):
+    """fn(params, batch) of a serving cell: prefill, `apply` then the last
+    token's `logits`; decode, `make_serve_step` (the greedy next token)
+    at position S - 1 of caches of S entries, as the reference's cells.
+    Traced on meta DTensors here, run on real tensors from `serve_inputs`
+    by the card's serving cells."""
     if shape.kind == "prefill":
         def prefill_step(params, batch):
             with torch.no_grad():
                 hidden, _ = model.apply(params, batch)
                 return model.logits(params, hidden[:, -1:])
-        return prefill_step, (c["params"], c["batch"])
+        return prefill_step
     serve = make_serve_step(model)
 
     def decode_step(params, batch):
         with torch.no_grad():
             return serve(params, batch["token"], batch["caches"],
                          shape.seq - 1)
-    return decode_step, (c["params"], c["batch"])
+    return decode_step
+
+
+def serve_inputs(model, shape, seed: int = 0) -> dict:
+    """The real-tensor counterpart of `_cell_inputs`' batch for a serving
+    cell, on the model's device, drawn from a `torch.Generator` seeded
+    with `seed` in the order of `model.input_specs(shape)`: prefill
+    tokens and labels in [1, vocab), an encoder's frames and a VLM's image
+    embeddings from randn (bf16); decode a token and caches from
+    `model.init_caches(B, S)`, each self-attention K/V entry (a windowed
+    layer's ring of `window` entries), Mamba SSM and conv state drawn
+    from randn in the tree's order, the cross caches left zeros (the
+    reference's serving path never fills them).  The step takes position
+    S - 1 itself."""
+    cfg, dev = model.cfg, model.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    specs = model.input_specs(shape)
+
+    def draw(meta):
+        if meta.dtype.is_floating_point:
+            return torch.randn(meta.shape, generator=gen, device=dev,
+                               dtype=meta.dtype)
+        return torch.randint(1, cfg.vocab, meta.shape, generator=gen,
+                             device=dev, dtype=meta.dtype)
+
+    if shape.kind == "prefill":
+        return {k: draw(v) for k, v in specs.items()}
+    caches = model.init_caches(shape.global_batch, shape.seq)
+
+    def fill(tree):
+        if isinstance(tree, list):
+            for t in tree:
+                fill(t)
+            return
+        for key, t in tree.items():
+            if isinstance(t, (dict, list)):
+                fill(t)
+            elif key not in ("xk", "xv"):
+                t.normal_(generator=gen)
+    fill(caches)
+    return {"token": draw(specs["token"]), "caches": caches}
+
+
+def serve_batch(cfg, shape, mesh, budget: float = H100.hbm_bytes):
+    """(batch, argument bytes, peak bytes) of a serving cell on one card:
+    the largest batch up to the shape's own whose dry-run prediction on
+    `mesh` (a (1, 1) mesh: `count_cell`'s argument bytes plus its
+    extrapolated peak) fits `budget`.  Counted at batch 1 and 2, then at
+    the batch the two put on the budget, and from there one batch at a
+    time up or down to the last that fits; a cell that does not fit at
+    batch 1 keeps batch 1 and its prediction."""
+    def pred(b):
+        arg, stats = count_cell(cfg, dataclasses.replace(
+            shape, global_batch=b), mesh, False, 1)
+        return b, arg, stats.peak_bytes
+
+    def fits(p):
+        return p[1] + p[2] <= budget
+
+    full = shape.global_batch
+    one = pred(1)
+    if full == 1 or not fits(one):
+        return one
+    per = sum(pred(2)[1:]) - sum(one[1:])
+    b = full if per <= 0 else max(1, min(
+        full, 1 + int((budget - sum(one[1:])) // per)))
+    got = pred(b)
+    while fits(got) and b < full:
+        up = pred(b + 1)
+        if not fits(up):
+            break
+        b, got = b + 1, up
+    while not fits(got):
+        b -= 1
+        got = pred(b)
+    return got
 
 
 def cell_knobs(arch: str, shape, variant: str = "baseline"):

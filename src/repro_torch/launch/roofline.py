@@ -311,7 +311,17 @@ def period_scaled(count, n_super: int, microbatches: int) -> HLOStats:
     own, c: each microbatch's own, e: each period of each microbatch; the
     scan correction of the reference).  A training step is traced with
     two microbatches and its `marks` split the microbatch's part from the
-    rest; a step without marks (prefill, decode) is a + b n."""
+    rest; a step without marks (prefill, decode) is a + b n.
+
+    The allocation peak of a training step grows with its saved
+    activations, a + b n from 1 and 2 periods.  A step without marks
+    keeps no activations from one period to the next: its peak is one
+    period's live tensors above what the earlier periods leave, and the
+    first period sees fewer of those (the embedding's output in place of
+    a block's residual), so its peak is read at 2 and 3 periods, p2 +
+    (n - 2)(p3 - p2), where 1 and 2 periods would scale the first
+    period's offset by n (qwen3-32b's prefill at S 32768: 6.38 and 6.71
+    GB, 6.71 at 3 periods, extrapolated to 27.5 GB from 1 and 2)."""
     s1, s2 = count(1), count(2)
     if s1.marks:
         (fx1, pm1), (fx2, pm2) = _parts(s1), _parts(s2)
@@ -329,9 +339,13 @@ def period_scaled(count, n_super: int, microbatches: int) -> HLOStats:
            + microbatches * lin(pm1.get(k, 0.0), pm2.get(k, 0.0))
            for k in keys}
     ops = {k: out[k] for k in sorted(keys) if k != "flops"}
+    peak = lin(s1.peak_bytes, s2.peak_bytes)
+    if not s1.marks and s1.peak_bytes and n_super > 1:
+        p3 = count(3).peak_bytes if n_super > 2 else s2.peak_bytes
+        peak = s2.peak_bytes + (n_super - 2) * (p3 - s2.peak_bytes)
     return HLOStats(collective_bytes=float(sum(ops.values())),
                     collective_ops=ops,
                     trip_counts={"super_blocks": n_super,
                                  "microbatches": max(microbatches, 1)},
                     flops=out["flops"],
-                    peak_bytes=int(lin(s1.peak_bytes, s2.peak_bytes)))
+                    peak_bytes=int(peak))

@@ -298,8 +298,25 @@ def decode_attend(params, x, cache_k, cache_v, position: int, cfg: AttnCfg,
     S = cache_k.shape[1]
     scale = cfg.softmax_scale or hd ** -0.5
     rep = H // K
+
+    def attend(ql, kl, vl, ckl, cvl):
+        return _attend_cache(ql.reshape(ql.shape[0], K, rep, hd), kl, vl, ckl,
+                             cvl, position, window, scale)
+    if not is_dtensor(q):
+        ctx = attend(q, k_new, v_new, cache_k, cache_v)
+        out = layers.linear(ctx.reshape(B, 1, H * hd), params["wo"])
+        return out, k_new, v_new
+    args = (q, k_new, v_new, cache_k, cache_v)
+    pl = tuple(q.placements)
+    if all(tuple(t.placements) == pl for t in args) and all(
+            p.is_replicate() or p.is_shard(0) for p in pl):
+        # each rank holds whole sequences and heads of its batch rows: the
+        # plain tensors' path on them
+        ctx = on_local_shards(attend, args, (pl,) * 5, pl)
+        out = layers.linear(merge_heads(ctx, (B, 1, H * hd)), params["wo"])
+        return out, k_new, v_new
     qg = split_heads(q.reshape(B, 1, H * hd), (B, 1, K, rep * hd)).reshape(
-        B, 1, K, rep, hd) if is_dtensor(q) else q.reshape(B, 1, K, rep, hd)
+        B, 1, K, rep, hd)
     logits = torch.einsum("bokrd,bskd->bkrs", qg, cache_k).float() * scale
     new_logit = torch.einsum("bokrd,bokd->bkro", qg, k_new).float() * scale
     # on a sequence-sharded DTensor cache (flash-decoding) each rank
@@ -317,3 +334,41 @@ def decode_attend(params, x, cache_k, cache_v, position: int, cfg: AttnCfg,
            + (p_new / denom).to(x.dtype) * v_new.reshape(B, 1, K, 1, hd)[:, 0])
     out = layers.linear(merge_heads(ctx, (B, 1, H * hd)), params["wo"])
     return out, k_new, v_new
+
+
+def _attend_cache(qg, k_new, v_new, cache_k, cache_v, position: int,
+                  window: int, scale: float):
+    """`decode_attend`'s attention on plain tensors: qg (B, K, rep, hd)
+    against the cache's valid entries and the new k/v (B, 1, K, hd) ->
+    (B, K, rep, hd).  The cache is read as it lies, (B, S, K * hd): each
+    product is one batched GEMM over the whole row, with the queries
+    block-diagonal in the kv heads (head group k's rows zero outside kv
+    head k's hd columns; K times the products of a per-head GEMM, which a
+    decode step has to spare), where the einsum over (b, k) copied each
+    layer's cache into a (b, k)-major layout first (at 128 sequences of
+    mixtral-8x22b's ring, 1.07 GB a layer).  The softmax's f32 work is done
+    in place; the sums are the einsum path's, in another order."""
+    B, K, rep, hd = qg.shape
+    S = cache_k.shape[1]
+    eye = torch.eye(K, dtype=qg.dtype, device=qg.device)
+    qd = (qg[:, :, :, None, :] * eye[:, None, :, None]).reshape(
+        B, K * rep, K * hd)
+    logits = torch.bmm(qd, cache_k.reshape(B, S, K * hd).transpose(1, 2))
+    logits = logits.float().mul_(scale)                       # (B, K rep, S)
+    new_logit = torch.einsum("bkrd,bokd->bkro", qg, k_new).float() * scale
+    new_logit = new_logit.reshape(B, K * rep, 1)
+    ki = torch.arange(S, device=qg.device)
+    valid = ki < position
+    if window:
+        valid &= ki >= position - window
+    logits.masked_fill_(~valid, NEG_INF)
+    m = torch.maximum(logits.amax(dim=-1, keepdim=True), new_logit)
+    p = logits.sub_(m).exp_()
+    p_new = torch.exp(new_logit - m)
+    denom = p.sum(dim=-1, keepdim=True) + p_new
+    full = torch.bmm(p.div_(denom).to(qg.dtype),
+                     cache_v.reshape(B, S, K * hd))       # (B, K rep, K hd)
+    ctx = torch.diagonal(full.view(B, K, rep, K, hd), dim1=1, dim2=3)
+    return (ctx.permute(0, 3, 1, 2)
+            + (p_new / denom).to(qg.dtype).view(B, K, rep, 1)
+            * v_new.reshape(B, K, 1, hd))

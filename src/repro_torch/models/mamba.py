@@ -180,7 +180,10 @@ def init_decode_state(batch: int, d_model: int, cfg: SSMCfg, device) -> dict:
 
 
 def mamba_decode_step(params, hidden, state, cfg: SSMCfg, d_model: int):
-    """hidden: (B, 1, D); state: {ssm (B,H,N,P), conv (B,K-1,CH)}."""
+    """hidden: (B, 1, D); state: {ssm (B,H,N,P), conv (B,K-1,CH)}, updated
+    in place and returned (the reference returns new arrays and its decode
+    step donates the old ones; new states beside the old would double a
+    Mamba stack's decode residency)."""
     Bsz = hidden.shape[0]
     d_inner, H = dims(d_model, cfg)
     G, N, P = cfg.n_groups, cfg.d_state, cfg.head_dim
@@ -201,15 +204,23 @@ def mamba_decode_step(params, hidden, state, cfg: SSMCfg, d_model: int):
     A = -torch.exp(params["a_log"])
     decay = torch.exp(dt * A)                                      # (B,H)
 
-    new_ssm = (state["ssm"] * decay[:, :, None, None]
-               + torch.einsum("bn,bh,bhp->bhnp", Bv, dt, x))
-    y = torch.einsum("bn,bhnp->bhp", Cv, new_ssm)
+    ssm = state["ssm"]
+    # B_n dt_h x_hp, multiplied in einsum("bn,bh,bhp->bhnp")'s order, as
+    # one (B, H, N, P) tensor: the step's only temporary of the state's size
+    upd = (Bv[:, None, :] * dt[:, :, None])[..., None] * x[:, :, None, :]
+    if is_dtensor(ssm):     # each rank writes its local shard
+        upd.addcmul_(ssm, decay[:, :, None, None])
+        for old, new in ((ssm, upd), (state["conv"], new_conv)):
+            old.to_local().copy_(new.redistribute(
+                old.device_mesh, old.placements).to_local())
+    else:
+        ssm.mul_(decay[:, :, None, None]).add_(upd)
+        state["conv"].copy_(new_conv)
+    del upd
+    # C . S over n as one batched product over (b, h), S read in place
+    y = torch.matmul(Cv[:, None, None, :], ssm)[:, :, 0]            # (B,H,P)
     y = y + params["d_skip"][None, :, None] * x
     y = y.reshape(Bsz, d_inner).to(hidden.dtype)
     y = layers.rmsnorm({"scale": params["norm_scale"]}, y * F.silu(z))
     out = (y @ params["w_out"])[:, None]
-    if is_dtensor(state["ssm"]):    # the state keeps the cache's placements
-        new_ssm, new_conv = (n.redistribute(o.device_mesh, o.placements)
-                             for n, o in ((new_ssm, state["ssm"]),
-                                          (new_conv, state["conv"])))
-    return out, {"ssm": new_ssm, "conv": new_conv}
+    return out, state

@@ -222,3 +222,48 @@ def test_skipped_reasons_match_shape_applicable():
             assert res == {"status": "skipped", "reason": why}
             n += 1
     assert n > 0
+
+
+def _serve_count(cfg, shape, mesh, pol):
+    def count(n):
+        fn, args = dryrun._step(dryrun.at_depth(cfg, n), shape, mesh, False,
+                                1, 1, pol)
+        return count_step_costs(fn, *args, memory=True)
+    return count
+
+
+@pytest.mark.parametrize("arch,kind", [("minitron-8b", "prefill"),
+                                       ("jamba-1.5-large-398b", "prefill"),
+                                       ("mamba2-370m", "decode"),
+                                       ("gemma3-12b", "decode")])
+def test_serving_peak_from_periods_equals_unscaled(arch, kind):
+    """A serving step keeps nothing from one period for the next: the peak
+    `period_scaled` reads at 2 and 3 periods `==` the peak traced at 5
+    (from 1 and 2 periods it scaled the first period's smaller peak by
+    the depth)."""
+    mesh = _mesh(1, 1)
+    cfg = get_config(arch, smoke=True)
+    shape = ShapeCfg(kind, 256, 2, kind)
+    pol = policies.resolve_policy(cfg, mesh)
+    with sharding_ctx(mesh, pol):
+        count = _serve_count(cfg, shape, mesh, pol)
+        whole = count(5).peak_bytes
+        assert whole > 0
+        assert period_scaled(count, 5, 1).peak_bytes == whole
+
+
+def test_serve_batch_is_the_largest_that_fits():
+    """`serve_batch` on a (1, 1) mesh: the budget of batch 5's prediction
+    gives batch 5; a byte less, 4; the published batch where it fits."""
+    mesh = _mesh(1, 1)
+    cfg = get_config("minitron-8b", smoke=True)
+    shape = ShapeCfg("decode_cell", 4096, 16, "decode")
+
+    def need(b):
+        arg, stats = dryrun.count_cell(
+            cfg, dataclasses.replace(shape, global_batch=b), mesh, False, 1)
+        return arg + stats.peak_bytes
+    assert dryrun.serve_batch(cfg, shape, mesh, need(5))[0] == 5
+    assert dryrun.serve_batch(cfg, shape, mesh, need(5) - 1)[0] == 4
+    b, arg, peak = dryrun.serve_batch(cfg, shape, mesh, 1e12)
+    assert b == 16 and arg + peak == need(16)
